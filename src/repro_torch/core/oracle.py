@@ -1,0 +1,88 @@
+"""Sequential numpy oracles — ground truth for the port's AMPC solvers.
+
+A copy of the JAX package's ``repro.core.oracle`` (the parts the ported
+problems need): random-greedy MIS is uniquely determined by the rank
+permutation, the MSF is unique when weights are distinct, connected
+components are unique.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..graph.coo import UGraph
+
+
+class UnionFind:
+    def __init__(self, n: int):
+        self.p = np.arange(n, dtype=np.int64)
+
+    def find(self, x: int) -> int:
+        root = x
+        while self.p[root] != root:
+            root = self.p[root]
+        while self.p[x] != root:
+            self.p[x], x = root, self.p[x]
+        return root
+
+    def union(self, a: int, b: int) -> bool:
+        ra, rb = self.find(a), self.find(b)
+        if ra == rb:
+            return False
+        self.p[ra] = rb
+        return True
+
+
+def connected_components(g: UGraph) -> np.ndarray:
+    """Label array (n,) — min vertex id in each component."""
+    uf = UnionFind(g.n)
+    for u, v in g.edges:
+        uf.union(int(u), int(v))
+    roots = np.array([uf.find(i) for i in range(g.n)], np.int64)
+    mins = np.full(g.n, g.n, np.int64)
+    np.minimum.at(mins, roots, np.arange(g.n))
+    return mins[roots]
+
+
+def kruskal_msf(g: UGraph):
+    """Return (edge_index_mask, total_weight). Unique if weights distinct."""
+    if g.weights is None:
+        raise ValueError("kruskal_msf needs a weighted graph")
+    order = np.argsort(g.weights, kind="stable")
+    uf = UnionFind(g.n)
+    mask = np.zeros(g.m, bool)
+    total = 0.0
+    for ei in order:
+        u, v = g.edges[ei]
+        if uf.union(int(u), int(v)):
+            mask[ei] = True
+            total += float(g.weights[ei])
+    return mask, total
+
+
+def greedy_mis(g: UGraph, rank: np.ndarray) -> np.ndarray:
+    """Lexicographically-first MIS over the vertex rank permutation.
+
+    Returns boolean (n,) membership. rank: (n,) distinct floats/ints.
+    """
+    order = np.argsort(rank, kind="stable")
+    in_mis = np.zeros(g.n, bool)
+    blocked = np.zeros(g.n, bool)
+    indptr, indices, _, _ = g.csr()
+    for v in order:
+        if not blocked[v]:
+            in_mis[v] = True
+            blocked[indices[indptr[v]:indptr[v + 1]]] = True
+            blocked[v] = True
+    return in_mis
+
+
+def is_mis(g: UGraph, in_set: np.ndarray) -> bool:
+    """Independent (no edge inside the set) and maximal (every vertex
+    outside the set has a neighbour inside it)."""
+    u, v = g.edges[:, 0], g.edges[:, 1]
+    if (in_set[u] & in_set[v] & (u != v)).any():
+        return False
+    covered = in_set.copy()
+    covered[u[in_set[v]]] = True
+    covered[v[in_set[u]]] = True
+    return bool(covered.all())

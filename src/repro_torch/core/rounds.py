@@ -1,0 +1,257 @@
+"""Round / query / byte accounting for AMPC executions (torch port).
+
+The same ledger model as the JAX package's ``repro.core.rounds``: a
+"shuffle" is a materialized round; adaptive in-round query waves count
+queries and DHT bytes but not shuffles.  A ledger may carry a ``tracer``
+and a ``metrics`` registry (``repro_torch.obs``).
+
+Deferred accounting: a ledger queues DHT traffic records whose scalars may
+still be device tensors, and :meth:`RoundLedger.harvest` brings every
+pending record, together with the solver's output tensors, to the host in
+**one** device-to-host copy per solve.  Scalar counters are int64 on the device, so the byte counters the
+reference computes as int32 products cannot wrap here.
+
+The reference runs its fixpoints as single device programs; the port's
+eager loops read their loop condition on the host once per wave instead.
+Those reads are counted in :data:`HOST_READS` (not in solver stats, which
+must stay equal to the reference's).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+# Test hook for the one-harvest-per-solve rule: when set, called with the
+# ledger each time a harvest performs its single device-to-host transfer.
+HARVEST_HOOK: Any = None
+
+# Host reads made by the eager fixpoint loops to decide whether to run
+# another wave (see :func:`host_read` / :func:`active_lanes`).
+HOST_READS = 0
+
+
+def host_read(x: torch.Tensor):
+    """Copy one device scalar to the host for a loop condition (counted)."""
+    global HOST_READS
+    HOST_READS += 1
+    return x.item()
+
+
+def active_lanes(mask: torch.Tensor) -> torch.Tensor:
+    """Indices of the ``True`` lanes: a host read of the mask's count."""
+    global HOST_READS
+    HOST_READS += 1
+    return torch.nonzero(mask).squeeze(1)
+
+
+class DeviceCounters:
+    """Pending DHT-traffic records for one ledger.
+
+    Each record is five scalars (queries, nbytes, waves, deduped_away,
+    overflow), any of which may still be a device tensor, plus the tracer
+    span open at record time.  :meth:`RoundLedger.harvest` drains them.
+    """
+
+    __slots__ = ("records",)
+
+    def __init__(self):
+        self.records: List = []
+
+    def add(self, record, span=None) -> None:
+        self.records.append((record, span))
+
+    def drain(self) -> List:
+        records, self.records = self.records, []
+        return records
+
+    def __len__(self):
+        return len(self.records)
+
+    def __repr__(self):
+        return f"DeviceCounters(pending={len(self.records)})"
+
+
+def _to_host(leaves):
+    """Copy a list of leaves to the host in one transfer.
+
+    Tensor leaves (all on one device) are packed as raw bytes into one
+    buffer and copied with a single ``.cpu()``; other leaves pass through.
+    Returns numpy arrays (0-d for scalars) in leaf order.
+    """
+    out = list(leaves)
+    idx = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
+    if not idx:
+        return out
+    tensors = [leaves[i].detach().contiguous() for i in idx]
+    host = torch.cat([t.reshape(-1).view(torch.uint8)
+                      for t in tensors]).cpu().numpy()
+    off = 0
+    for i, t in zip(idx, tensors):
+        nb = t.numel() * t.element_size()
+        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+        out[i] = host[off:off + nb].view(dtype).reshape(tuple(t.shape))
+        off += nb
+    return out
+
+
+@dataclasses.dataclass
+class RoundLedger:
+    algorithm: str = ""
+    shuffles: int = 0
+    bytes_shuffled: int = 0
+    dht_queries: int = 0
+    dht_bytes: int = 0
+    dht_query_waves: int = 0
+    dedup_savings: int = 0  # queries avoided by the caching optimization
+    dht_overflows: int = 0  # routed-router capacity overflows (0 = exact)
+    wall_time_s: float = 0.0
+    phase_times: Dict[str, float] = dataclasses.field(default_factory=dict)
+    events: List[str] = dataclasses.field(default_factory=list)
+    # observability hooks (repro_torch.obs); None => disabled
+    tracer: Any = dataclasses.field(repr=False, compare=False, default=None)
+    metrics: Any = dataclasses.field(repr=False, compare=False, default=None)
+    record_events: bool = dataclasses.field(compare=False, default=True)
+    # pending DHT records (device scalars), harvested once per solve
+    device: DeviceCounters = dataclasses.field(
+        repr=False, compare=False, default_factory=DeviceCounters)
+
+    # -- shuffle (materialized round) -------------------------------------
+    @contextlib.contextmanager
+    def shuffle(self, name: str, nbytes: int = 0):
+        tracer = self.tracer
+        t0 = time.perf_counter()
+        if tracer is not None and tracer.enabled:
+            with tracer.span(f"shuffle:{name}", algorithm=self.algorithm,
+                             nbytes=int(nbytes)):
+                yield
+        else:
+            yield
+        self._count_shuffle(name, nbytes, time.perf_counter() - t0)
+
+    def _count_shuffle(self, name: str, nbytes: int, seconds: float):
+        self.shuffles += 1
+        self.bytes_shuffled += int(nbytes)
+        self.wall_time_s += seconds
+        self.phase_times[name] = self.phase_times.get(name, 0.0) + seconds
+        if self.record_events:
+            self.events.append(f"shuffle:{name}:{nbytes}B:{seconds:.4f}s")
+        if self.metrics is not None:
+            self.metrics.counter(
+                "shuffles_total", labelnames=("algorithm",)).inc(
+                    1, algorithm=self.algorithm)
+            self.metrics.counter(
+                "bytes_shuffled_total", labelnames=("algorithm",)).inc(
+                    int(nbytes), algorithm=self.algorithm)
+
+    # -- DHT traffic -------------------------------------------------------
+    def record_queries(self, n_queries: int, nbytes: int, waves: int = 1,
+                       deduped_away: int = 0, overflow: int = 0):
+        """Eagerly record one wave of DHT traffic (host values)."""
+        self._apply_queries(int(n_queries), int(nbytes), int(waves),
+                            int(deduped_away), int(overflow))
+
+    def record_queries_deferred(self, n_queries, nbytes, waves=1,
+                                deduped_away=0, overflow=0):
+        """Record DHT traffic without leaving the device.
+
+        Arguments may be device tensors; they are queued untouched and
+        materialized by :meth:`harvest`.
+        """
+        record = (n_queries, nbytes, waves, deduped_away, overflow)
+        span = None
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            span = tracer.current_span()
+        self.device.add(record, span)
+
+    def harvest(self, extra=None):
+        """Materialize every pending record (and ``extra``) in one transfer.
+
+        ``extra`` is a tensor or a tuple of tensors / host values the
+        caller wants on the host (solver outputs, counters); its host copy
+        is returned with numpy arrays in place of tensors.  This is the
+        *one* device-to-host copy a solve makes: :data:`HARVEST_HOOK`
+        fires once per transfer.  With nothing pending and no ``extra`` the
+        call is free.
+        """
+        records = self.device.drain()
+        if not records and extra is None:
+            return None
+        if HARVEST_HOOK is not None:
+            HARVEST_HOOK(self)
+        single = extra is not None and not isinstance(extra, (tuple, list))
+        leaves = [] if extra is None else ([extra] if single else list(extra))
+        flat = [x for rec, _ in records for x in rec]
+        host_all = _to_host(flat + leaves)
+        host = host_all[len(flat):]
+        for k, (_, span) in enumerate(records):
+            self._apply_queries(
+                *(int(x) for x in host_all[5 * k:5 * k + 5]), span=span)
+        if extra is None:
+            return None
+        return host[0] if single else tuple(host)
+
+    def _apply_queries(self, n_queries: int, nbytes: int, waves: int,
+                       deduped_away: int, overflow: int, span=None):
+        """Fold one wave of host-side counts into counters/trace/metrics."""
+        self.dht_queries += n_queries
+        self.dht_bytes += nbytes
+        self.dht_query_waves += waves
+        self.dedup_savings += deduped_away
+        self.dht_overflows += overflow
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            kw = dict(queries=n_queries, nbytes=nbytes, waves=waves,
+                      deduped_away=deduped_away, overflow=overflow)
+            if span is not None:
+                span.event("dht_queries", **kw)
+            else:
+                tracer.event("dht_queries", **kw)
+        m = self.metrics
+        if m is not None:
+            labels = {"labelnames": ("algorithm",)}
+            kw = {"algorithm": self.algorithm}
+            m.counter("dht_queries_total", **labels).inc(n_queries, **kw)
+            m.counter("dht_bytes_total", **labels).inc(nbytes, **kw)
+            m.counter("dht_query_waves_total", **labels).inc(waves, **kw)
+            if deduped_away:
+                m.counter("dedup_savings_total", **labels).inc(
+                    deduped_away, **kw)
+            if overflow:
+                m.counter("dht_overflows_total", **labels).inc(
+                    overflow, **kw)
+
+    def summary(self) -> Dict:
+        if self.device.records:  # safety net: a forgotten harvest
+            self.harvest()
+        return {
+            "algorithm": self.algorithm,
+            "shuffles": self.shuffles,
+            "bytes_shuffled": self.bytes_shuffled,
+            "dht_queries": self.dht_queries,
+            "dht_bytes": self.dht_bytes,
+            "dht_query_waves": self.dht_query_waves,
+            "dedup_savings": self.dedup_savings,
+            "dht_overflows": self.dht_overflows,
+            "wall_time_s": round(self.wall_time_s, 4),
+            "phase_times": {k: round(v, 4)
+                            for k, v in self.phase_times.items()},
+        }
+
+
+def nbytes_of(*arrays) -> int:
+    """Total bytes of numpy arrays and tensors (``None`` entries skipped)."""
+    total = 0
+    for a in arrays:
+        if a is None:
+            continue
+        if isinstance(a, torch.Tensor):
+            total += a.numel() * a.element_size()
+        else:
+            total += a.size * np.dtype(a.dtype).itemsize
+    return int(total)

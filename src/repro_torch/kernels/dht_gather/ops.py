@@ -1,0 +1,55 @@
+"""``dht_gather``: the cached gather behind the DHT lookup.
+
+On a CUDA tensor it launches the Hopper kernel (``kernel.py``); on a CPU
+tensor it runs the plain version (``ref.py``).  There is no fallback from
+one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from .kernel import dht_gather_cuda
+from .ref import dht_gather_ref
+
+
+def dht_gather(table: torch.Tensor, keys: torch.Tensor,
+               presorted: bool = False):
+    """Gather table rows for a key batch with the caching optimization.
+
+    ``table`` is (V, D); ``keys`` (Q,) int32, any order unless
+    ``presorted``, with negative entries treated as invalid (zero rows).
+    The batch is sorted (stable), gathered, and scattered back to the
+    caller's order.  Returns (out (Q, D), cache_hits): ``cache_hits``
+    counts adjacent duplicate *valid* keys in sorted order, i.e. exactly
+    ``n_valid - n_distinct_valid``, as a 0-d integer tensor.
+
+    ``dht_gather.launches`` counts kernel launches (CUDA tensors, Q > 0).
+    """
+    if table.dim() != 2:
+        raise ValueError(
+            f"table must be (V, D), got shape {tuple(table.shape)}")
+    if keys.dim() != 1 or keys.dtype != torch.int32:
+        raise ValueError("keys must be a (Q,) int32 tensor")
+    if keys.device != table.device:
+        raise ValueError("table and keys must be on the same device")
+    if presorted:
+        sk, order = keys, None
+    else:
+        sk, order = torch.sort(keys, stable=True)
+    if table.is_cuda:
+        out, hits = dht_gather_cuda(table, sk)
+        if sk.numel():
+            dht_gather.launches += 1
+    elif table.device.type == "cpu":
+        out, hits = dht_gather_ref(table, sk)
+    else:
+        raise ValueError(f"dht_gather runs on CUDA or CPU tensors, "
+                         f"got {table.device}")
+    if order is not None:
+        unsorted = torch.empty_like(out)
+        unsorted[order] = out
+        out = unsorted
+    return out, hits
+
+
+dht_gather.launches = 0

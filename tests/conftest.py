@@ -79,3 +79,8 @@ except ModuleNotFoundError:
 
     sys.modules["hypothesis"] = hyp_mod
     sys.modules["hypothesis.strategies"] = st_mod
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card; skips where CUDA is missing")
