@@ -8,11 +8,12 @@ CUDA toolkit.  It:
 
 1. prints the card's name and power limit (``nvidia-smi``) and the torch /
    CUDA versions;
-2. builds the kernel of the main path from ``src/`` (``nvcc`` into
-   ``build/``) and prints the build time;
-3. holds the kernel against its plain PyTorch version on the card at the
-   shapes the main path gives it (and a few more), exactly (tolerance 0),
-   and times kernel / plain version / library call with CUDA events;
+2. builds the kernels of both main paths from ``src/`` (one ``nvcc`` per
+   source, started together, into ``build/``) and prints the build time
+   and each kernel's register report;
+3. holds ``dht_gather`` against its plain PyTorch version on the card at
+   the shapes the AMPC path gives it (and a few more), exactly (tolerance
+   0), and times kernel / plain version / library call with CUDA events;
 4. drives ``AmpcEngine(dht_backend="local").solve`` for ``connectivity``,
    ``mis`` and ``msf`` at rmat20 (Graph500 RMAT, 2^20 vertices, average
    degree 8, seed 1; MSF weights from seed 2), twice each, with the kernel
@@ -21,19 +22,37 @@ CUDA toolkit.  It:
    greedy-MIS oracle) and the Table-3 shuffle counts.  The label maps each
    connectivity solve reads through the DHT go through the kernel and its
    plain version once more, after the counts are read, and must agree;
-5. prints one ``{"kernels": [...]}`` line, whose times are those of the
-   first connectivity solve's root-label read, and as its last line
-   ``{"ok": true, "device": {...}}``.
+5. holds the flash-attention forward kernel against its plain version on
+   the card, element by element (bf16 within 2^-7 of each output plus
+   1e-3, f32 within 1e-5: the kernel sums in another order) at the LM
+   path's shape and at D 256 with a window, K > S, and f32 with and
+   without a window, and times kernel / plain version / SDPA;
+6. drives the qwen3-4b LM forward (the registry's config at full width and
+   depth, ``attention_impl="pallas"``, seeded bf16 weights on the card) on
+   one batch of ``LM_SHAPES["train_4k"]`` cut to B 2 (S 4096), twice, with
+   the launch counts set to 0 just before and read just after: 36 flash
+   launches per forward, finite logits and loss, an untrained loss near
+   ln(vocab).  The first and last layer's q, k, v go through the kernel and
+   its plain version after the counts are read.  At S 1024 the whole
+   forward, in f32 on the same weights with TF32 off, is held against
+   ``attention_impl="xla"`` within 1e-4;
+7. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+   connectivity solve's root-label read; flash attention: the first
+   layer's own q, k, v) and as its last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits nonzero.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -42,6 +61,21 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 RMAT_LOG2, RMAT_DEG, RMAT_SEED, WEIGHT_SEED = 20, 8.0, 1, 2
 EXPECTED_SHUFFLES = {"connectivity": 5, "mis": 2, "msf": 5}
 CC_LAUNCHES_PER_SOLVE = 2
+# dense peaks of the H100 SXM data sheet: bf16 tensor cores, f32 CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# kernel vs plain version, element by element: |out - ref| <= atol + rtol
+# |ref|.  Both sum in f32 and round once to the output type, in other
+# orders: f32 agrees to 1e-5; a bf16 element may land one ulp of its own
+# away, at most 2^-7 of it, and the 1e-3 covers the f32 sums' difference
+# near 0.  (rtol, atol) by type:
+FLASH_TOL = {"bfloat16": (2 ** -7, 1e-3), "float32": (0.0, 1e-5)}
+LM_ARCH, LM_SHAPE, LM_BATCH, LM_SEED, LM_DATA_SEED = \
+    "qwen3-4b", "train_4k", 2, 0, 0
+XLA_SEQ = 1024          # under the chunked-attention threshold
+# the pallas and xla forwards in f32 with TF32 off: every matmul outside
+# attention is the same call on the same inputs, so the logits differ only
+# by the two attentions' f32 summation orders, carried through 36 layers
+XLA_LOGITS_ATOL, XLA_NLL_ATOL = 1e-4, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -295,11 +329,270 @@ def engine_phase(g, gw):
 
 
 # --------------------------------------------------------------------------
-def build_kernels():
-    """Build the main path's kernel from its source (one ``nvcc``)."""
-    from repro_torch.kernels.dht_gather import kernel as dht_gather_kernel
+# phase: the flash-attention kernel against its plain version
+# --------------------------------------------------------------------------
+def attention_pairs(S, K, causal, window):
+    """The (query, key) pairs the mask keeps for one (batch, head): the
+    work the two products need on these inputs."""
+    import numpy as np
+    pos = np.arange(S, dtype=np.int64) + (K - S)
+    hi = np.minimum(pos, K - 1) if causal else np.full(S, K - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(S)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_case(name, q, k, v, window, timed, library):
+    """Kernel vs plain version on one causal input; timings when
+    ``timed``, the SDPA time when ``library`` (causal, K == S, no window:
+    the same function)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel, ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    ref = attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    dtype = str(q.dtype).replace("torch.", "")
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    rtol, atol = FLASH_TOL[dtype]
+    # the largest difference as a share of its element's own limit
+    worst = float((diff / (atol + rtol * ref.float().abs())).max())
+    del diff
+    check(bool(torch.isfinite(out).all()), f"flash output not finite at "
+          f"{name}")
+    check(worst <= 1.0, f"flash kernel differs from its plain version at "
+          f"{name}: {worst} times its limit of {atol} + {rtol} |ref| "
+          f"(largest difference {err})")
+    B, S, H, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    pairs = attention_pairs(S, K, True, window)
+    # multiply-adds of QK^T and PV over the kept pairs, two flops each;
+    # each input read once, the output written once
+    flops = 4 * D * pairs * B * H
+    nbytes = (q.numel() + k.numel() + v.numel() + out.numel()) \
+        * q.element_size()
+    op_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row = {"shape": name, "B": B, "S": S, "K": K, "H": H, "Hkv": Hkv,
+           "D": D, "window": window, "dtype": dtype, "max_abs_err": err,
+           "err_over_limit": worst,
+           "flops": flops, "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
+           "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
+    if timed:
+        buf = torch.empty_like(out)
+        row.update(
+            ms=time_ms(lambda: kernel.launch(q, k, v, buf, True, window),
+                       reps=10),
+            plain_ms=time_ms(lambda: attention_ref(q, k, v, True, window),
+                             reps=5, warmup=1),
+            library_ms=None)
+        row["tflops"] = flops / row["ms"] / 1e9
+        if library:
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            row["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+    return row
+
+
+def flash_phase():
+    """The kernel at the LM path's shape (qwen3-4b, B 2, S 4096), at D 256
+    with a window (gemma3-12b's heads), with K > S and ragged S, and in
+    f32 with and without a window; inputs drawn on the card from seed
+    0."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def qkv(B, S, K, H, Hkv, D, dtype):
+        return (torch.randn(B, S, H, D, generator=g, device=dev).to(dtype),
+                torch.randn(B, K, Hkv, D, generator=g, device=dev).to(dtype),
+                torch.randn(B, K, Hkv, D, generator=g, device=dev).to(dtype))
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("path_bf16", qkv(2, 4096, 4096, 32, 8, 128, bf16), 0, True),
+        ("d256_window1024_bf16", qkv(1, 4096, 4096, 16, 8, 256, bf16), 1024,
+         False),
+        ("k_gt_s_ragged_bf16", qkv(2, 1000, 3000, 32, 8, 128, bf16), 0,
+         False),
+        ("f32", qkv(1, 2048, 2048, 32, 8, 128, f32), 0, True),
+        ("f32_window1024", qkv(1, 4096, 4096, 32, 8, 128, f32), 1024,
+         False),
+    ]
+    return [flash_case(name, *t, window, timed=True, library=library)
+            for name, t, window, library in cases]
+
+
+# --------------------------------------------------------------------------
+# phase: the qwen3-4b forward
+# --------------------------------------------------------------------------
+def lm_phase():
+    """Two forwards (logits and loss) of qwen3-4b at B 2, S 4096 through
+    the kernel, the launch counts set to 0 just before each and read just
+    after; then the first and last layer's inputs through kernel and plain
+    version, and the whole forward against the xla attention at S 1024.
+    Returns the main path's flash launches and the kernel's rows."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.kernels.dht_gather import ops as dht_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import (TransformerLM, init_params,
+                                                lm_loss)
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(registry.get(LM_ARCH).config,
+                              attention_impl="pallas")
+    shape = LM_SHAPES[LM_SHAPE]
     t0 = time.perf_counter()
-    logs = {"dht_gather": dht_gather_kernel.build(True)}
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        LM_SEED), dtype=cfg.dtype)
+    model = TransformerLM(cfg, params)
+    check(model.device.type == "cuda", f"model on {model.device}, not cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    # param_count() leaves out the qk-norm scales (2 x head_dim a layer)
+    want = cfg.param_count() + (2 * cfg.n_layers * cfg.head_dim
+                                if cfg.qk_norm else 0)
+    check(n_params == want, f"{n_params} parameters, expected {want}")
+    tokens, labels = batch_at_step(TokenStreamConfig(
+        cfg.vocab, shape.seq_len, LM_BATCH, seed=LM_DATA_SEED), 0)
+    tokens = torch.from_numpy(tokens).to(dev)
+    labels = torch.from_numpy(labels).to(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "lm_setup", "arch": LM_ARCH, "params": n_params,
+          "weights_gib": torch.cuda.memory_allocated() / 2**30,
+          "batch": LM_BATCH, "seq": shape.seq_len,
+          "seconds": time.perf_counter() - t0})
+
+    # keep the (q, k, v, window) of the first and last layer's attention,
+    # read where the model calls the kernel's wrapper
+    recorded = {}
+    kernel_call = flash_ops.flash_attention
+    check(transformer.flash_attention is kernel_call,
+          "the model does not call ops.flash_attention")
+
+    def recording(q, k, v, causal=True, window=0):
+        n = recording.calls
+        recording.calls += 1
+        if n % cfg.n_layers in (0, cfg.n_layers - 1):
+            recorded.setdefault(n % cfg.n_layers, (q, k, v, window))
+        return kernel_call(q, k, v, causal=causal, window=window)
+
+    recording.calls = 0
+    transformer.flash_attention = recording
+    main_launches = 0
+    try:
+        for rep in range(2):
+            kernel_call.launches = 0
+            dht_ops.dht_gather.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                logits, aux = model(tokens)
+                torch.cuda.synchronize()
+                fwd = time.perf_counter() - t0
+                loss, metrics = lm_loss(logits, aux, labels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_call.launches
+            dht = dht_ops.dht_gather.launches
+            main_launches += launches
+            check(launches == cfg.n_layers,
+                  f"forward launched the flash kernel {launches} times, "
+                  f"expected {cfg.n_layers}")
+            check(dht == 0, f"the LM forward launched dht_gather {dht} "
+                  f"times")
+            check(tuple(logits.shape) == (LM_BATCH, shape.seq_len,
+                                          cfg.vocab)
+                  and logits.dtype == cfg.dtype, "logits shape or dtype")
+            check(bool(torch.isfinite(logits).all()), "logits not finite")
+            nll = float(metrics["nll"])
+            check(math.isfinite(float(loss)), "loss not finite")
+            # untrained: near ln(V), as the JAX package's LM smoke test asks
+            check(abs(nll / math.log(cfg.vocab) - 1) < 0.35,
+                  f"untrained nll {nll} far from ln(V) "
+                  f"{math.log(cfg.vocab)}")
+            emit({"phase": "lm_forward", "rep": rep, "forward_s": fwd,
+                  "forward_and_loss_s": wall,
+                  "tokens_per_s": LM_BATCH * shape.seq_len / fwd,
+                  "flash_launches": launches, "loss": float(loss),
+                  "nll": nll,
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+            del logits, loss, metrics
+    finally:
+        transformer.flash_attention = kernel_call
+
+    rows = []
+    check(sorted(recorded) == [0, cfg.n_layers - 1],
+          f"recorded layers {sorted(recorded)}")
+    for layer in sorted(recorded):
+        q, k, v, window = recorded[layer]
+        check(q.is_contiguous() and tuple(q.shape) == (
+            LM_BATCH, shape.seq_len, cfg.n_heads, cfg.head_dim),
+            f"layer {layer} q shape {tuple(q.shape)}")
+        rows.append(flash_case(f"qwen3_layer{layer}", q, k, v, window,
+                               timed=layer == 0, library=layer == 0))
+    recorded.clear()
+
+    # the whole forward against the xla attention at S 1024, in f32 (the
+    # bf16 weights cast at use, exactly) with TF32 off, so the difference
+    # is the kernel's and not bf16 rounding's
+    del model
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    pallas = TransformerLM(f32, params)
+    xla = TransformerLM(dataclasses.replace(f32, attention_impl="xla"),
+                        params)
+    short, short_labels = tokens[:, :XLA_SEQ], labels[:, :XLA_SEQ]
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            launches0 = kernel_call.launches
+            a, aux = pallas(short)
+            check(kernel_call.launches - launches0 == cfg.n_layers,
+                  "the f32 pallas forward did not launch the kernel "
+                  "once a layer")
+            nll_a = float(lm_loss(a, aux, short_labels)[1]["nll"])
+            b, aux = xla(short)
+            nll_b = float(lm_loss(b, aux, short_labels)[1]["nll"])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    check(a.dtype == b.dtype == torch.float32, "the forwards are not f32")
+    diff = float((a - b).abs().max())
+    top = float(b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    emit({"phase": "lm_vs_xla", "seq": XLA_SEQ, "dtype": "float32",
+          "max_abs_diff": diff, "max_abs_logit": top, "nll_pallas": nll_a,
+          "nll_xla": nll_b, "argmax_agreement": agree})
+    check(diff <= XLA_LOGITS_ATOL,
+          f"pallas and xla f32 logits differ by {diff} (limit "
+          f"{XLA_LOGITS_ATOL})")
+    check(abs(nll_a - nll_b) <= XLA_NLL_ATOL,
+          f"pallas nll {nll_a} vs xla nll {nll_b}")
+    del pallas, xla, params, a, b
+    torch.cuda.empty_cache()
+    return main_launches, rows
+
+
+# --------------------------------------------------------------------------
+def build_kernels():
+    """Build every kernel from its source: one ``nvcc`` each, all started
+    together."""
+    from repro_torch.kernels.dht_gather import kernel as dht_gather_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futures = {"dht_gather": pool.submit(dht_gather_kernel.build, True),
+                   "flash_attention_fwd": pool.submit(flash_kernel.build,
+                                                      True)}
+        logs = {name: f.result() for name, f in futures.items()}
     return time.perf_counter() - t0, logs
 
 
@@ -349,7 +642,17 @@ def main() -> int:
     check(launches > 0, "the main path launched no dht_gather kernel")
     rows = solve_rows + rows
 
+    flash_rows = flash_phase()
+    for row in flash_rows:
+        emit({"phase": "kernel", "name": "flash_attention_fwd", **row})
+    flash_launches, lm_rows = lm_phase()
+    for row in lm_rows:
+        emit({"phase": "kernel", "name": "flash_attention_fwd", **row})
+    check(flash_launches > 0, "the LM path launched no flash kernel")
+    flash_rows = lm_rows + flash_rows
+
     main_row = rows[0]   # the first cc solve's root-label read
+    flash_row = flash_rows[0]   # the first layer's own q, k, v
     emit({"kernels": [{
         "name": "dht_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/dht_gather/csrc/dht_gather.cu",
@@ -359,7 +662,18 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"],
-        "shapes": rows}]})
+        "shapes": rows}, {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
+        "launches": flash_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
+        "bound_ms": flash_row["bound_ms"],
+        "bound_by": flash_row["bound_by"],
+        "library_ms": flash_row["library_ms"],
+        "shapes": flash_rows}]})
     emit({"host_reads_total": rounds.HOST_READS})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

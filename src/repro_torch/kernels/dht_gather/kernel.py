@@ -2,70 +2,38 @@
 
 The source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface, in the repository's ``build/`` directory, on first
-use; ``ctypes`` loads it.  Nothing is built or loaded when this module is
-imported, so the CPU tests import it freely.
+use; ``ctypes`` loads it (``kernels/_build.py``).  Nothing is built or
+loaded when this module is imported, so the CPU tests import it freely.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from .. import _build
+
 SOURCE = Path(__file__).resolve().parent / "csrc" / "dht_gather.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build"
-LIBRARY = BUILD_DIR / "libdht_gather.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+LIBRARY = _build.BUILD_DIR / "libdht_gather.so"
 
 _fn = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the dht_gather kernel needs the "
-                       "CUDA toolkit to build")
-
-
 def build(force: bool = False) -> str:
-    """Compile the kernel unless an up-to-date library exists.
-
-    Returns the compiler's log (``-Xptxas=-v`` register and shared-memory
-    report), or "" when the library was already built.  Raises with the
-    compiler's output if ``nvcc`` fails.
-    """
-    if (not force and LIBRARY.exists()
-            and LIBRARY.stat().st_mtime >= SOURCE.stat().st_mtime):
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIBRARY.with_name(f"{LIBRARY.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return proc.stdout + proc.stderr
+    """Compile the kernel unless an up-to-date library exists; returns the
+    compiler's log ("" when nothing was built).  Raises if ``nvcc`` fails."""
+    return _build.build(SOURCE, LIBRARY, force=force)
 
 
 def _launcher():
     global _fn
     if _fn is None:
-        build()
-        fn = ctypes.CDLL(str(LIBRARY)).dht_gather_launch
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
+        _fn = _build.load(
+            SOURCE, LIBRARY, "dht_gather_launch",
+            [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
     return _fn
 
 

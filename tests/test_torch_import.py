@@ -35,7 +35,10 @@ def test_port_source_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.ampc, repro_torch.convert, "
-            "repro_torch.kernels.dht_gather.ops; "
+            "repro_torch.kernels.dht_gather.ops, "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.models.transformer, repro_torch.configs.registry, "
+            "repro_torch.data.tokens; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "assert not bad, bad; print('ok')")
