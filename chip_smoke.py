@@ -36,22 +36,47 @@ CUDA toolkit.  It:
    its plain version after the counts are read.  At S 1024 the whole
    forward, in f32 on the same weights with TF32 off, is held against
    ``attention_impl="xla"`` within 1e-4;
-7. prints one ``{"kernels": [...]}`` line (dht_gather: the first
-   connectivity solve's root-label read; flash attention: the first
-   layer's own q, k, v) and as its last line ``{"ok": true, "device":
-   {...}}``.
+7. holds the flash-attention backward kernels (dq, dk/dv) against their
+   plain version on the card, element by element (``ref.grad_limit``: one
+   ulp of each bf16 element or 2^-14 of an f32 one, above a floor of
+   2 n 2^-24 for a sum of n terms), with the forward kernel's ``lse``, at
+   the training path's shape, at D 256 with a window, K > S ragged, f32
+   with and without a window and on strided heads; runs each kernel twice
+   and asks for equal bits; times kernels / plain version / SDPA's
+   backward;
+8. trains qwen3-4b at full width and depth (f32 parameters, bf16
+   compute, ``remat="full"``, AdamW with f32 state) for three steps of
+   ``LM_SHAPES["train_4k"]`` cut to a global batch of 2 in 2 microbatches
+   (S 4096) through ``launch.steps.lm_train_step``, with the launch counts
+   set to 0 just before each step and read just after: 144 forward (two
+   microbatches, each layer's forward and its remat recompute), 72 dq and
+   72 dk/dv launches, finite losses near ln(vocab) at step 0, a finite
+   positive grad norm, every parameter changed, AdamW's step count 3;
+   prints step time, tokens/s, peak memory, the lr and loss of each step,
+   and the last step's device time by kind of kernel (``torch.profiler``;
+   that step's wall time carries the profiler's cost);
+9. holds every gradient of a 4-layer qwen3-4b (full widths, B 1, S 1024,
+   f32, TF32 off) through the kernels against the same gradients through
+   ``attention_impl="xla"`` and against ``remat="full"``;
+10. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+   connectivity solve's root-label read; the flash forward: the first
+   layer's own q, k, v; dq and dk/dv: the training path's shape) and as
+   its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits nonzero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -76,6 +101,15 @@ XLA_SEQ = 1024          # under the chunked-attention threshold
 # attention is the same call on the same inputs, so the logits differ only
 # by the two attentions' f32 summation orders, carried through 36 layers
 XLA_LOGITS_ATOL, XLA_NLL_ATOL = 1e-4, 1e-4
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 2, 2, 3
+# the trained model's gradients through the kernels against the xla
+# attention's (and remat "full" against "none"), per element:
+# |a - b| <= GRAD_RTOL |b| + GRAD_FLOOR rms(the nonzero elements of b's
+# tensor).  In f32 with TF32 off only the attentions' summation orders
+# differ, some 1e-6 of a value carried through 4 layers; the floor covers
+# elements near zero.  (The RMS is over nonzero elements because the
+# embedding's gradient lives in the few rows the batch reads.)
+GRAD_LAYERS, GRAD_SEQ, GRAD_RTOL, GRAD_FLOOR = 4, 1024, 1e-3, 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -582,21 +616,399 @@ def lm_phase():
 
 
 # --------------------------------------------------------------------------
+# phase: the flash-attention backward kernels against their plain version
+# --------------------------------------------------------------------------
+def sdpa_backward_ms(q, k, v, do):
+    """The time of ``torch.autograd.grad`` through SDPA's backward (causal,
+    k and v expanded to the query heads), and the backend that ran: the
+    first of flash, cuDNN and memory-efficient attention that takes the
+    inputs."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    G = q.shape[2] // k.shape[2]
+    leaves = [t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v)]
+    dot = do.transpose(1, 2)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            # a backend that refuses the inputs warns, then raises
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                out = F.scaled_dot_product_attention(
+                    leaves[0], leaves[1].repeat_interleave(G, dim=1),
+                    leaves[2].repeat_interleave(G, dim=1), is_causal=True)
+                ms = time_ms(lambda: torch.autograd.grad(
+                    out, leaves, dot, retain_graph=True), reps=10)
+            return ms, backend.name
+        except RuntimeError:
+            continue
+    raise SmokeFailure("no SDPA backend took the inputs")
+
+
+def bwd_case(name, q, k, v, do, window, timed, library):
+    """dq and dk/dv kernels (twice each) and the forward kernel's lse
+    against the plain version on one causal input; timings when
+    ``timed``, SDPA's backward when ``library``."""
+    import torch
+    from repro_torch.kernels.flash_attention import bwd, kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_lse_ref, grad_limit)
+    B, S, H, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    o, lse = attention_fwd_lse_ref(q, k, v, True, window)
+    _, lse_kernel = kernel.flash_attention_cuda(q, k, v, True, window,
+                                                with_lse=True)
+    delta = bwd.row_delta(o, do)
+    runs = [(bwd.flash_bwd_dq(q, k, v, do, lse, delta, True, window),
+             *bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True, window))
+            for _ in range(2)]
+    want = attention_bwd_ref(q, k, v, o, lse, do, True, window)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"backward kernels differ between two runs at {name}")
+    dtype = str(q.dtype).replace("torch.", "")
+    row = {"shape": name, "B": B, "S": S, "K": K, "H": H, "Hkv": Hkv,
+           "D": D, "window": window, "dtype": dtype,
+           "strided": not q.is_contiguous()}
+    G = H // Hkv
+    for what, got, ref, n in (("lse", lse_kernel, lse, K),
+                              ("dq", runs[0][0], want[0], K),
+                              ("dk", runs[0][1], want[1], G * S),
+                              ("dv", runs[0][2], want[2], G * S)):
+        check(bool(torch.isfinite(got).all()), f"{what} not finite at {name}")
+        diff = (got.float() - ref.float()).abs()
+        worst = float((diff / grad_limit(ref, n)).max())
+        row[f"{what}_max_abs_err"] = float(diff.max())
+        row[f"{what}_err_over_limit"] = worst
+        check(worst <= 1.0, f"{what} differs from its plain version at "
+              f"{name}: {worst} times its limit")
+    del runs
+    pairs = attention_pairs(S, K, True, window)
+    product = 2 * D * pairs * B * H          # flops of one masked product
+    es = q.element_size()
+    reads = (q.numel() + k.numel() + v.numel() + do.numel()) * es \
+        + 2 * lse.numel() * 4                # q, k, v, do, lse, delta
+    peak = PEAK_FLOPS[dtype]
+    for kname, flops, nbytes in (
+            ("dq", 3 * product, reads + q.numel() * es),
+            ("dkv", 4 * product, reads + 2 * k.numel() * es)):
+        op_ms, byte_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        row[f"{kname}_flops"] = flops
+        row[f"{kname}_bound_ms"] = max(op_ms, byte_ms)
+        row[f"{kname}_bound_by"] = ("operations" if op_ms >= byte_ms
+                                    else "bytes")
+    if timed:
+        dq_buf = torch.empty_like(q, memory_format=torch.contiguous_format)
+        dk_buf, dv_buf = torch.empty_like(k), torch.empty_like(v)
+        out_buf = torch.empty_like(dq_buf)
+        row.update(
+            fwd_lse_ms=time_ms(lambda: kernel.launch(q, k, v, out_buf, True,
+                                                     window, lse_kernel),
+                               reps=10),
+            dq_ms=time_ms(lambda: bwd.launch_dq(q, k, v, do, lse, delta,
+                                                dq_buf, True, window),
+                          reps=10),
+            dkv_ms=time_ms(lambda: bwd.launch_dkv(q, k, v, do, lse, delta,
+                                                  dk_buf, dv_buf, True,
+                                                  window), reps=10),
+            plain_ms=time_ms(lambda: attention_bwd_ref(
+                q, k, v, o, lse, do, True, window), reps=3, warmup=1),
+            library_ms=None, library_backend=None)
+        row["dq_tflops"] = row["dq_flops"] / row["dq_ms"] / 1e9
+        row["dkv_tflops"] = row["dkv_flops"] / row["dkv_ms"] / 1e9
+        if library:
+            row["library_ms"], row["library_backend"] = sdpa_backward_ms(
+                q, k, v, do)
+    return row
+
+
+def flash_bwd_phase():
+    """The backward kernels at the training path's shape (qwen3-4b, one
+    microbatch: B 1, S 4096), at D 256 with a window, with K > S and ragged
+    S and K, in f32 with and without a window, and on heads sliced out of a
+    wider tensor; inputs drawn on the card from seed 1."""
+    import torch
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+
+    def qkvdo(B, S, K, H, Hkv, D, dtype):
+        return [torch.randn(*shape, generator=g, device=dev).to(dtype)
+                for shape in ((B, S, H, D), (B, K, Hkv, D), (B, K, Hkv, D),
+                              (B, S, H, D))]
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    wide = torch.randn(1, 2048, 32 + 8 + 8 + 32, 128, generator=g,
+                       device=dev).to(bf16)
+    strided = [wide[:, :, :32], wide[:, :, 32:40], wide[:, :, 40:48],
+               wide[:, :, 48:]]
+    cases = [
+        ("path_bf16", qkvdo(1, 4096, 4096, 32, 8, 128, bf16), 0, True, True),
+        ("d256_window1024_bf16", qkvdo(1, 4096, 4096, 16, 8, 256, bf16),
+         1024, True, False),
+        ("k_gt_s_ragged_bf16", qkvdo(1, 1000, 3000, 32, 8, 128, bf16), 0,
+         True, False),
+        ("f32", qkvdo(1, 2048, 2048, 32, 8, 128, f32), 0, True, True),
+        ("f32_window1024", qkvdo(1, 4096, 4096, 32, 8, 128, f32), 1024,
+         True, False),
+        ("strided_heads_bf16", strided, 0, False, False),
+    ]
+    rows = []
+    for name, t, window, timed, library in cases:
+        rows.append(bwd_case(name, *t, window, timed, library))
+        del t
+    return rows
+
+
+# --------------------------------------------------------------------------
+# phase: qwen3-4b training
+# --------------------------------------------------------------------------
+def fingerprint(p):
+    """An exact fingerprint of an f32 tensor's bits: their int64 sum."""
+    import torch
+    return int(p.detach().view(torch.int32).sum(dtype=torch.int64))
+
+
+def launch_counts():
+    from repro_torch.kernels.dht_gather import ops as dht_ops
+    from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
+    return {"fwd": flash_ops.flash_attention.launches,
+            "dq": bwd.flash_bwd_dq.launches,
+            "dkv": bwd.flash_bwd_dkv.launches,
+            "dht_gather": dht_ops.dht_gather.launches}
+
+
+def zero_launch_counts():
+    from repro_torch.kernels.dht_gather import ops as dht_ops
+    from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
+    flash_ops.flash_attention.launches = 0
+    bwd.flash_bwd_dq.launches = bwd.flash_bwd_dkv.launches = 0
+    dht_ops.dht_gather.launches = 0
+
+
+# kernel names of the step's parts, as the profiler reports them
+KERNEL_KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
+                ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+                ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+def device_time_by_kind(prof, wall_ms):
+    """Device time (ms) of the profiled region by kind of kernel, the
+    device's busy share of the host wall time, and the ten slowest other
+    kernels."""
+    import torch
+    by_kind = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    other, count = {}, 0
+    for e in prof.key_averages():
+        # the device's own events only: a CPU op's self device time repeats
+        # its kernels', a user annotation spans them
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.is_user_annotation):
+            continue
+        ms = e.self_device_time_total / 1e3
+        if ms <= 0:
+            continue
+        count += e.count
+        kind = next((kind for kind, pats in KERNEL_KINDS
+                     if any(p in e.key.lower() for p in pats)), None)
+        if kind:
+            by_kind[kind] += ms
+        else:
+            other[e.key] = other.get(e.key, 0.0) + ms
+    busy = sum(by_kind.values()) + sum(other.values())
+    check(busy > 0, "the profiler saw no device time")
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": busy, "busy_share": busy / wall_ms,
+            "device_events": count, "by_kind_ms": by_kind,
+            "other_ms": sum(other.values()),
+            "top_other": [{"kernel": k[:120], "ms": v} for k, v in top]}
+
+
+def lm_train_phase():
+    """Three AdamW steps of qwen3-4b (full width and depth, f32 parameters,
+    bf16 compute, remat "full", 2 microbatches of 1 at S 4096), the launch
+    counts set to 0 just before each step and read just after.  Returns
+    the launches of the three steps."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models.transformer import TransformerLM, init_params
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(registry.get(LM_ARCH).config,
+                              attention_impl="pallas", remat="full",
+                              n_microbatches=TRAIN_MICRO)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+    shape = LM_SHAPES[LM_SHAPE]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(LM_SEED)))
+    state = adamw.init_state(model, opt_cfg)
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    check(all(p.dtype == torch.float32 for p in named.values()),
+          "training parameters are not f32")
+    before = {n: fingerprint(p) for n, p in named.items()}
+    torch.cuda.synchronize()
+    emit({"phase": "lm_train_setup", "arch": LM_ARCH,
+          "n_layers": cfg.n_layers, "params": n_params,
+          "params_grads_m_v_gib": 16 * n_params / 2**30,
+          "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+          "card_gib": torch.cuda.get_device_properties(0).total_memory
+          / 2**30, "global_batch": TRAIN_BATCH,
+          "microbatches": TRAIN_MICRO, "seq": shape.seq_len,
+          "remat": cfg.remat, "seconds": time.perf_counter() - t0})
+    stream = TokenStreamConfig(cfg.vocab, shape.seq_len, TRAIN_BATCH,
+                               seed=LM_DATA_SEED)
+    want = {"fwd": 2 * TRAIN_MICRO * cfg.n_layers,
+            "dq": TRAIN_MICRO * cfg.n_layers,
+            "dkv": TRAIN_MICRO * cfg.n_layers, "dht_gather": 0}
+    total = dict.fromkeys(want, 0)
+    losses = []
+    profiled = TRAIN_STEPS - 1   # the last step runs under the profiler
+    for step in range(TRAIN_STEPS):
+        tokens, labels = batch_at_step(stream, step)
+        tokens = torch.from_numpy(tokens).to(dev)
+        labels = torch.from_numpy(labels).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+                record_shapes=False) if step == profiled \
+                else contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            metrics = lm_train_step(model, opt_cfg, state, tokens, labels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check(launches == want, f"step {step} launched {launches}, "
+              f"expected {want}")
+        for key in total:
+            total[key] += launches[key]
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        check(all(math.isfinite(x) for x in m.values()),
+              f"step {step} metrics not finite: {m}")
+        check(m["grad_norm"] > 0, f"step {step} grad norm {m['grad_norm']}")
+        if step == 0:
+            check(abs(m["nll"] / math.log(cfg.vocab) - 1) < 0.35,
+                  f"untrained nll {m['nll']} far from ln(V) "
+                  f"{math.log(cfg.vocab)}")
+        emit({"phase": "lm_train", "step": step, "step_s": wall,
+              "tokens_per_s": TRAIN_BATCH * shape.seq_len / wall,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "profiled": step == profiled, "launches": launches, **m})
+        if step == profiled:
+            emit({"phase": "lm_train_profile", "step": step, "wall_ms":
+                  wall * 1e3, **device_time_by_kind(prof, wall * 1e3)})
+    check(int(state["step"]) == TRAIN_STEPS,
+          f"AdamW step count {int(state['step'])}")
+    unchanged = [n for n, p in named.items() if fingerprint(p) == before[n]]
+    check(not unchanged, f"parameters unchanged by training: {unchanged}")
+    emit({"phase": "lm_train_summary", "losses": losses,
+          "launches": total})
+    del model, state, named, metrics
+    torch.cuda.empty_cache()
+    return total
+
+
+def lm_train_vs_xla_phase():
+    """Every gradient of a 4-layer qwen3-4b at full width (B 1, S 1024,
+    f32 compute and parameters, TF32 off) through the kernels, against the
+    same gradients through the xla attention and with remat "full"."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.models.transformer import TransformerLM, init_params
+
+    dev = torch.device("cuda")
+    base = dataclasses.replace(registry.get(LM_ARCH).config,
+                               n_layers=GRAD_LAYERS, dtype=torch.float32,
+                               attention_impl="pallas")
+    params = init_params(base, torch.Generator(device=dev).manual_seed(
+        LM_SEED))
+    tokens, labels = batch_at_step(TokenStreamConfig(
+        base.vocab, GRAD_SEQ, 1, seed=LM_DATA_SEED), 0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    grads, launched = {}, {}
+    try:
+        for key, change in (("pallas", {}), ("xla",
+                                              {"attention_impl": "xla"}),
+                            ("pallas_remat_full", {"remat": "full"})):
+            model = TransformerLM(dataclasses.replace(base, **change),
+                                  params)
+            zero_launch_counts()
+            loss, _ = model.loss_fn(tokens, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched[key] = launch_counts()
+            grads[key] = {n: p.grad for n, p in model.named_parameters()}
+            del model, loss
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    L = GRAD_LAYERS
+    check(launched["pallas"] == {"fwd": L, "dq": L, "dkv": L,
+                                 "dht_gather": 0},
+          f"pallas gradients launched {launched['pallas']}")
+    check(launched["xla"] == dict.fromkeys(launched["xla"], 0),
+          f"xla gradients launched {launched['xla']}")
+    check(launched["pallas_remat_full"]["fwd"] == 2 * L,
+          f"remat gradients launched {launched['pallas_remat_full']}")
+    out = {}
+    for other in ("xla", "pallas_remat_full"):
+        worst, worst_name, max_diff = 0.0, "", 0.0
+        for name, ref in grads[other].items():
+            got = grads["pallas"][name]
+            diff = (got - ref).abs()
+            live = ref[ref != 0]
+            rms = float(live.double().pow(2).mean().sqrt()) if live.numel() \
+                else 0.0
+            share = float((diff / (GRAD_RTOL * ref.abs()
+                                   + GRAD_FLOOR * rms)).max())
+            max_diff = max(max_diff, float(diff.max()))
+            if share > worst:
+                worst, worst_name = share, name
+        out[other] = {"max_abs_diff": max_diff, "err_over_limit": worst,
+                      "worst_tensor": worst_name}
+        check(worst <= 1.0, f"pallas gradients differ from {other}'s at "
+              f"{worst_name}: {worst} times the limit")
+    emit({"phase": "lm_train_vs_xla", "n_layers": L, "seq": GRAD_SEQ,
+          "dtype": "float32", "rtol": GRAD_RTOL, "floor_of_rms": GRAD_FLOOR,
+          "launches": launched, **out})
+    del grads, params
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
 def build_kernels():
     """Build every kernel from its source: one ``nvcc`` each, all started
     together."""
     from repro_torch.kernels.dht_gather import kernel as dht_gather_kernel
+    from repro_torch.kernels.flash_attention import bwd as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         futures = {"dht_gather": pool.submit(dht_gather_kernel.build, True),
                    "flash_attention_fwd": pool.submit(flash_kernel.build,
+                                                      True),
+                   "flash_attention_bwd": pool.submit(flash_bwd.build,
                                                       True)}
         logs = {name: f.result() for name, f in futures.items()}
     return time.perf_counter() - t0, logs
 
 
 def main() -> int:
+    # fewer stranded blocks between the training step's large tensors
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -651,6 +1063,15 @@ def main() -> int:
     check(flash_launches > 0, "the LM path launched no flash kernel")
     flash_rows = lm_rows + flash_rows
 
+    bwd_rows = flash_bwd_phase()
+    for row in bwd_rows:
+        emit({"phase": "kernel", "name": "flash_attention_bwd", **row})
+    train_launches = lm_train_phase()
+    check(train_launches["dq"] > 0 and train_launches["dkv"] > 0,
+          "the training path launched no backward kernel")
+    lm_train_vs_xla_phase()
+    bwd_row = bwd_rows[0]   # the training path's shape
+
     main_row = rows[0]   # the first cc solve's root-label read
     flash_row = flash_rows[0]   # the first layer's own q, k, v
     emit({"kernels": [{
@@ -667,13 +1088,37 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
-        "launches": flash_launches,
+        "launches": flash_launches + train_launches["fwd"],
+        "launches_by_phase": {"lm_forward": flash_launches,
+                              "lm_train": train_launches["fwd"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "max_err_over_limit": max(
+            [r["err_over_limit"] for r in flash_rows]
+            + [r["lse_err_over_limit"] for r in bwd_rows]),
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
         "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],
-        "shapes": flash_rows}]})
+        "shapes": flash_rows}] + [{
+        "name": f"flash_attention_bwd_{kname}", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention_bwd.cu",
+        "replaces": f"src/repro/kernels/flash_attention/bwd.py:{line}",
+        "launches": train_launches[kname],
+        "max_abs_err": max(r[f"{g}_max_abs_err"] for r in bwd_rows
+                           for g in grads),
+        "max_err_over_limit": max(r[f"{g}_err_over_limit"]
+                                  for r in bwd_rows for g in grads),
+        "ms": bwd_row[f"{kname}_ms"], "plain_ms": bwd_row["plain_ms"],
+        "plain_computes": "dq, dk and dv together",
+        "bound_ms": bwd_row[f"{kname}_bound_ms"],
+        "bound_by": bwd_row[f"{kname}_bound_by"],
+        "library_ms": bwd_row["library_ms"],
+        "library": f"SDPA backward ({bwd_row['library_backend']}), dq, dk "
+                   f"and dv together",
+        "shapes": bwd_rows}
+        for kname, line, grads in (("dq", 34, ("dq",)),
+                                   ("dkv", 80, ("dk", "dv")))]})
     emit({"host_reads_total": rounds.HOST_READS})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,11 @@ helpers build a port :class:`~repro_torch.graph.coo.UGraph` from numpy
 arrays or from any object with ``.n`` / ``.edges`` / ``.weights``, such as
 the JAX package's ``repro.graph.coo.UGraph``, without importing it.  The LM
 shares its weights: :func:`lm_params_from_reference` turns the reference's
-parameter pytree (as numpy arrays) into the port's parameter dict.
+parameter pytree (as numpy arrays) into the port's parameter dict, and
+:func:`lm_params_to_reference` a port model's parameters back into the
+reference's layout; :func:`adamw_state_from_reference` carries the
+optimizer state over, so both packages can start a training step from one
+state.
 """
 from __future__ import annotations
 
@@ -75,4 +79,59 @@ def lm_params_from_reference(cfg, params) -> Dict:
                              "lm_head")
     else:
         out["lm_head"] = tensor(params["lm_head"])
+    return out
+
+
+def named_lm_params(params: Dict) -> Dict[str, torch.Tensor]:
+    """An ``init_params``-layout dict flattened to the names of
+    ``TransformerLM.named_parameters()`` ("embed", "layers.3.attn.wq",
+    "layers.3.ln1", ..., "final_norm", "lm_head")."""
+    out = {"embed": params["embed"]}
+    for i, layer in enumerate(params["layers"]):
+        for group in ("attn", "mlp"):
+            for k, t in layer[group].items():
+                out[f"layers.{i}.{group}.{k}"] = t
+        out[f"layers.{i}.ln1"] = layer["ln1"]
+        out[f"layers.{i}.ln2"] = layer["ln2"]
+    out["final_norm"] = params["final_norm"]
+    if "lm_head" in params:
+        out["lm_head"] = params["lm_head"]
+    return out
+
+
+def adamw_state_from_reference(cfg, opt_state) -> Dict:
+    """The port's AdamW state (``optim.adamw``: moments keyed by parameter
+    name, CPU tensors) from the JAX package's ``adamw.init_state`` /
+    ``apply_updates`` state, whose "m" and "v" are pytrees like the
+    parameters (f32 or bf16 arrays) and "step" a scalar."""
+    return {"m": named_lm_params(lm_params_from_reference(cfg,
+                                                          opt_state["m"])),
+            "v": named_lm_params(lm_params_from_reference(cfg,
+                                                          opt_state["v"])),
+            "step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                 dtype=torch.int32)}
+
+
+def lm_params_to_reference(model) -> Dict:
+    """A port ``TransformerLM``'s parameters as numpy in the reference's
+    layout: every layer leaf stacked along a leading L axis.  f32 leaves
+    stay f32; bf16 leaves come out as f32 arrays of the same values (numpy
+    has no bf16)."""
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    layers = model.layers
+    out = {
+        "embed": arr(model.embed),
+        "layers": {
+            group: {k: np.stack([arr(getattr(b, group)[k]) for b in layers])
+                    for k in getattr(layers[0], group)}
+            for group in ("attn", "mlp")},
+        "final_norm": arr(model.final_norm),
+    }
+    out["layers"]["ln1"] = np.stack([arr(b.ln1) for b in layers])
+    out["layers"]["ln2"] = np.stack([arr(b.ln2) for b in layers])
+    if not model.cfg.tie_embeddings:
+        out["lm_head"] = arr(model.lm_head)
     return out

@@ -12,7 +12,10 @@
 // f32) are cast to f32 before both products; the logits are scaled by
 // 1/sqrt(D), masked logits are -1e30, P stays f32, and the output is
 // acc / max(l, 1e-30) cast to q's type.  Key tiles that the mask leaves
-// empty for the whole query tile are skipped, as on the TPU.
+// empty for the whole query tile are skipped, as on the TPU.  Given a
+// non-null lse, it also writes each row's log-sum-exp m + log(l) in f32,
+// (B, H, S), for the backward kernels: the JAX package builds it apart, in
+// jnp over the whole logit tensor (bwd.py::_fwd_with_lse).
 //
 // Bound: operations.  At the qwen3-4b training shape (B 2, S = K = 4096,
 // H 32, Hkv 8, D 128, bf16, causal) the two products need 2.75e11 flops,
@@ -83,8 +86,9 @@ struct Strides {  // element strides of the b, s and h axes; d is unit
 template <int D, typename T>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int K,
-                 int G, Strides qs, Strides ks, Strides vs, Strides os,
+                 const T* __restrict__ v, T* __restrict__ out,
+                 float* __restrict__ lse, int S, int K, int G, Strides qs,
+                 Strides ks, Strides vs, Strides os,
                  float scale, int causal, int window, int q_offset) {
   constexpr int QP = D + 1;    // padded row stride of the Q and K tiles
   constexpr int PP = BK + 1;   // padded row stride of the P tile
@@ -216,6 +220,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < RQ; ++i) {
     const int r = ty + 16 * i;
     if (r < q_rows) {
+      // m and l are final here: a row's masked first tiles left a finite
+      // sum that its first live tile multiplied by exp(-1e30 - m) = 0
+      if (lse != nullptr && tx == 0)
+        lse[((size_t)b * gridDim.y + h) * S + q0 + r] = m[i] + logf(l[i]);
       const float den = fmaxf(l[i], 1e-30f);
       T* dst = ob + (q0 + r) * os.s;
 #pragma unroll
@@ -226,8 +234,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int D, typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int S, int K, int H, int Hkv, const long long* st, int causal,
+int launch(const void* q, const void* k, const void* v, void* out,
+           float* lse, int B, int S, int K, int H, int Hkv,
+           const long long* st, int causal,
            int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   // the opt-in holds per device, so it is made on every launch (cheap)
@@ -241,30 +250,32 @@ int launch(const void* q, const void* k, const void* v, void* out, int B,
   const float scale = (float)(1.0 / sqrt((double)D));
   flash_fwd_kernel<D, T><<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, K, H / Hkv, qs, ks,
+      static_cast<const T*>(v), static_cast<T*>(out), lse, S, K, H / Hkv,
+      qs, ks,
       vs, os, scale, causal, window, K - S);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(int D, const void* q, const void* k, const void* v, void* out,
-             int B, int S, int K, int H, int Hkv, const long long* st,
+             float* lse, int B, int S, int K, int H, int Hkv,
+             const long long* st,
              int causal, int window, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<16, T>(q, k, v, out, B, S, K, H, Hkv, st, causal, window,
-                           stream);
+      return launch<16, T>(q, k, v, out, lse, B, S, K, H, Hkv, st, causal,
+                           window, stream);
     case 32:
-      return launch<32, T>(q, k, v, out, B, S, K, H, Hkv, st, causal, window,
-                           stream);
+      return launch<32, T>(q, k, v, out, lse, B, S, K, H, Hkv, st, causal,
+                           window, stream);
     case 64:
-      return launch<64, T>(q, k, v, out, B, S, K, H, Hkv, st, causal, window,
-                           stream);
+      return launch<64, T>(q, k, v, out, lse, B, S, K, H, Hkv, st, causal,
+                           window, stream);
     case 128:
-      return launch<128, T>(q, k, v, out, B, S, K, H, Hkv, st, causal,
+      return launch<128, T>(q, k, v, out, lse, B, S, K, H, Hkv, st, causal,
                             window, stream);
     case 256:
-      return launch<256, T>(q, k, v, out, B, S, K, H, Hkv, st, causal,
+      return launch<256, T>(q, k, v, out, lse, B, S, K, H, Hkv, st, causal,
                             window, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -274,7 +285,8 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 }  // namespace
 
 // q (B, S, H, D), k and v (B, K, Hkv, D), out (B, S, H, D), all of one type:
-// bf16 when is_bf16, else f32.  strides: 12 element strides, the (b, s, h)
+// bf16 when is_bf16, else f32; lse null or f32 (B, H, S), contiguous.
+// strides: 12 element strides, the (b, s, h)
 // strides of q, k, v and out in that order; the d axis is unit-stride.
 // Requires B, S, H >= 1, H <= 65535, B <= 65535, H % Hkv == 0 and K >= S when
 // causal (every query then has a key), as the Python wrapper checks; a D
@@ -283,15 +295,16 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* out,
 // success).
 extern "C" int flash_attention_fwd_launch(const void* q, const void* k,
                                           const void* v, void* out,
-                                          int is_bf16, int B, int S, int K,
+                                          float* lse, int is_bf16, int B,
+                                          int S, int K,
                                           int H, int Hkv, int D,
                                           const long long* strides,
                                           int causal, int window,
                                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_d<__nv_bfloat16>(D, q, k, v, out, B, S, K, H, Hkv, strides,
-                                   causal, window, s);
-  return launch_d<float>(D, q, k, v, out, B, S, K, H, Hkv, strides, causal,
-                         window, s);
+    return launch_d<__nv_bfloat16>(D, q, k, v, out, lse, B, S, K, H, Hkv,
+                                   strides, causal, window, s);
+  return launch_d<float>(D, q, k, v, out, lse, B, S, K, H, Hkv, strides,
+                         causal, window, s);
 }

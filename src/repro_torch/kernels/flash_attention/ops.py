@@ -1,13 +1,14 @@
-"""``flash_attention``: the attention of the LM forward.
+"""``flash_attention``: the attention of the LM.
 
-On CUDA tensors it launches the Hopper kernel (``kernel.py``); on CPU
-tensors it runs the plain version (``ref.py``).  There is no fallback from
-one to the other.
+On CUDA tensors it launches the Hopper kernels (``kernel.py``, and
+``bwd.py`` when a gradient is wanted); on CPU tensors it runs their plain
+versions (``ref.py``).  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
 import torch
 
+from .bwd import FlashAttention
 from .kernel import flash_attention_cuda
 from .ref import attention_ref
 
@@ -19,10 +20,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``window`` is a Python ``int`` (0 or less: unbounded); a tensor window
     raises rather than being dropped.  With ``causal``, K must be at least
-    S.  A CUDA call whose inputs require grad raises: the kernel has no
-    backward yet.
+    S.  Where grad is enabled and an input requires it, the call goes
+    through ``bwd.FlashAttention``, whose backward is the dq and dk/dv
+    kernels on CUDA tensors and their plain version on CPU tensors.
 
-    ``flash_attention.launches`` counts kernel launches (CUDA tensors).
+    ``flash_attention.launches`` counts forward kernel launches (CUDA
+    tensors); ``bwd.flash_bwd_dq.launches`` and
+    ``bwd.flash_bwd_dkv.launches`` count the backward kernels'.
     """
     # the contract on every device; flash_attention_cuda checks what the
     # kernel itself needs (type, head width, strides)
@@ -39,21 +43,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"key")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
-    if q.is_cuda:
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention has no backward kernel yet: training on "
-                "CUDA waits for the training slice (ROADMAP queue 1, "
-                "item 1); call it under torch.no_grad()")
+    if not q.is_cuda and q.device.type != "cpu":
+        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = FlashAttention.apply(q, k, v, causal, window)
+    elif q.is_cuda:
         out = flash_attention_cuda(q, k, v, causal=causal, window=window)
-        if q.numel():   # an empty q launches nothing
-            flash_attention.launches += 1
-        return out
-    if q.device.type == "cpu":
+    else:
         return attention_ref(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
-                     f"{q.device}")
+    if q.is_cuda and q.numel():   # an empty q launches nothing
+        flash_attention.launches += 1
+    return out
 
 
 flash_attention.launches = 0

@@ -1,0 +1,61 @@
+"""The LM training step: the counterpart of the JAX package's
+``launch/steps.py::lm_train_step`` (the other families' steps come with
+their models, ROADMAP queue 1, item 11).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from ..models.transformer import TransformerLM
+from ..optim import adamw
+
+
+def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
+                  opt_state: Dict, tokens, labels) -> Dict[str, torch.Tensor]:
+    """One step: forward, backward and AdamW, in place on ``model``'s
+    parameters and ``opt_state``.  Returns the metrics ``loss``, ``nll``,
+    ``aux``, ``lr`` and ``grad_norm`` as tensors.
+
+    With ``cfg.n_microbatches`` n > 1 the batch is split into n equal
+    microbatches along B, one backward each; their gradients accumulate
+    in the parameters' f32 ``.grad`` and are divided by n, and the loss is
+    the microbatches' mean (the reference's scan).  Activation memory is
+    that of one microbatch.
+    """
+    cfg = model.cfg
+    tokens = torch.as_tensor(tokens, device=model.device).long()
+    labels = torch.as_tensor(labels, device=model.device).long()
+    n_micro = max(cfg.n_microbatches, 1)
+    B = tokens.shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} does not split into {n_micro} "
+                         f"microbatches")
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.grad = None
+    if n_micro == 1:
+        loss, metrics = model.loss_fn(tokens, labels)
+        loss.backward()
+        loss, metrics = loss.detach(), {k: v.detach()
+                                        for k, v in metrics.items()}
+    else:
+        mb = B // n_micro
+        loss_sum = aux_sum = 0.0
+        for i in range(n_micro):
+            part = slice(i * mb, (i + 1) * mb)
+            loss_i, m = model.loss_fn(tokens[part], labels[part])
+            loss_i.backward()
+            loss_sum = loss_sum + loss_i.detach()
+            aux_sum = aux_sum + m["aux"].detach()
+        for p in named.values():
+            p.grad.div_(n_micro)
+        loss = loss_sum / n_micro
+        metrics = {"nll": loss, "aux": aux_sum / n_micro}
+    # every parameter takes part in the loss, so every one has a grad
+    grads = {n: p.grad for n, p in named.items()}
+    _, opt_metrics = adamw.apply_updates(opt_cfg, named, grads, opt_state)
+    for p in named.values():
+        p.grad = None
+    return {"loss": loss, **metrics, **opt_metrics}

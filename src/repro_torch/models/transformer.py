@@ -1,5 +1,6 @@
 """The decoder-only LM of the JAX package's ``models/transformer.py``, for
-the dense architectures: its forward (logits and loss of one batch).
+the dense architectures: its forward (logits and loss of one batch) and,
+through autograd, its gradients (``launch/steps.py::lm_train_step``).
 
 One config-driven module:
   * dense SwiGLU FFN
@@ -7,6 +8,11 @@ One config-driven module:
   * full, sliding-window, or local:global attention patterns
   * one module per layer, looped in Python, so each layer's window is a
     plain ``int``
+  * ``remat``: "none"; "full", each layer under non-reentrant activation
+    checkpointing (the reference's ``jax.checkpoint``); "dots", selective
+    checkpointing that saves the outputs of the plain matmuls
+    (``aten.mm``/``addmm``, the reference's
+    ``dots_with_no_batch_dims_saveable``) and recomputes the rest
 
 ``attention_impl="pallas"`` sends every layer's attention to
 ``kernels.flash_attention`` (the CUDA kernel on the card, its plain version
@@ -16,7 +22,7 @@ on the CPU); ``"xla"`` runs ``layers.attention_xla``.  The reference's
 configs the port's ``pallas`` path equals the reference's ``xla`` path.
 
 Not in this slice (each raises, naming its ROADMAP queue 1 item): MoE
-configs, ``remat``, ``n_microbatches > 1``, the chunked XLA attention at
+configs, the chunked XLA attention at
 S >= ``CHUNKED_ATTN_THRESHOLD`` and a non-default value of its settings
 (``attn_chunk_q``, ``attn_chunk_kv``, ``attn_p_bf16``,
 ``attn_static_skip``) or of ``moe_local_dispatch``, ``prefill`` and
@@ -25,11 +31,14 @@ S >= ``CHUNKED_ATTN_THRESHOLD`` and a non-default value of its settings
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import (AttnParamsSpec, attention_xla, attn_qkv, init_attn,
@@ -38,7 +47,6 @@ from .layers import (AttnParamsSpec, attention_xla, attn_qkv, init_attn,
 # sequences >= this use the chunked (flash-style) XLA attention path
 CHUNKED_ATTN_THRESHOLD = 2048
 
-_TRAINING = "LM training (ROADMAP queue 1, item 1)"
 _SERVING = "LM serving (ROADMAP queue 1, item 3)"
 _MOE = "MoE LM (ROADMAP queue 1, item 4)"
 
@@ -125,6 +133,16 @@ class TransformerConfig:
         return V * d + L * per_layer + head + d
 
 
+REMAT = ("none", "full", "dots")
+# the matmuls "dots" keeps: a 2-D product has no batch dims
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 # settings that tune code not ported yet; the port reads none of them, so a
 # value other than the default raises rather than being ignored
 _UNREAD_SETTINGS = {"attn_chunk_q": ("the chunked XLA attention", _SERVING),
@@ -139,12 +157,8 @@ def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
                                   f"yet: {_MOE}")
-    if cfg.remat != "none":
-        raise NotImplementedError(f"remat={cfg.remat!r} belongs to "
-                                  f"{_TRAINING}")
-    if cfg.n_microbatches != 1:
-        raise NotImplementedError(f"n_microbatches={cfg.n_microbatches} "
-                                  f"belongs to {_TRAINING}")
+    if cfg.remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
     for f in dataclasses.fields(cfg):
         if f.name in _UNREAD_SETTINGS and getattr(cfg, f.name) != f.default:
             what, item = _UNREAD_SETTINGS[f.name]
@@ -192,22 +206,17 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    # the forward has no backward kernel yet: parameters carry no grad
-    return nn.Parameter(t, requires_grad=False)
-
-
 class Block(nn.Module):
     """One decoder layer's parameters."""
 
     def __init__(self, p: Dict):
         super().__init__()
-        self.attn = nn.ParameterDict({k: _frozen(v)
+        self.attn = nn.ParameterDict({k: nn.Parameter(v)
                                       for k, v in p["attn"].items()})
-        self.mlp = nn.ParameterDict({k: _frozen(v)
+        self.mlp = nn.ParameterDict({k: nn.Parameter(v)
                                      for k, v in p["mlp"].items()})
-        self.ln1 = _frozen(p["ln1"])
-        self.ln2 = _frozen(p["ln2"])
+        self.ln1 = nn.Parameter(p["ln1"])
+        self.ln2 = nn.Parameter(p["ln2"])
 
 
 class TransformerLM(nn.Module):
@@ -217,7 +226,11 @@ class TransformerLM(nn.Module):
     ``repro_torch.convert.lm_params_from_reference`` carries it over from
     the JAX package); without it the parameters are drawn from a
     ``torch.Generator`` seeded with ``seed`` on the device, in ``dtype``.
-    Parameters keep their dtype and are cast to ``cfg.dtype`` at use.  The
+    The module takes the given tensors as its parameters without a copy
+    (on their device), so training updates them in place.
+    Parameters keep their dtype and are cast to ``cfg.dtype`` at use, so
+    their gradients flow back through the casts in the parameters' own
+    dtype (f32 by default, as the reference's training keeps them).  The
     module runs on CUDA unless ``device`` asks for the CPU; it raises where
     CUDA is missing.
     """
@@ -237,11 +250,11 @@ class TransformerLM(nn.Module):
         if cfg.tie_embeddings == ("lm_head" in params):
             raise ValueError("an lm_head is wanted exactly when the config "
                              "does not tie embeddings")
-        self.embed = _frozen(params["embed"])
+        self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ModuleList(Block(p) for p in params["layers"])
-        self.final_norm = _frozen(params["final_norm"])
+        self.final_norm = nn.Parameter(params["final_norm"])
         if not cfg.tie_embeddings:
-            self.lm_head = _frozen(params["lm_head"])
+            self.lm_head = nn.Parameter(params["lm_head"])
         self.to(dev)
         self.windows = [int(w) for w in cfg.layer_windows()]
 
@@ -254,6 +267,17 @@ class TransformerLM(nn.Module):
             return flash_attention(q, k, v, causal=True, window=window)
         mask = make_attention_mask(positions, positions, window, causal=True)
         return attention_xla(q, k, v, mask[:, None, None, :, :])
+
+    def _layer(self, layer: Block, window: int, x, positions):
+        """One decoder layer: x (B, S, d) -> x (B, S, d)."""
+        B, S, _ = x.shape
+        h = rms_norm(x, layer.ln1)
+        q, k, v = attn_qkv(layer.attn, h, self.cfg.attn_spec, positions,
+                           self.cfg.rope_theta)
+        attn_out = self._attention(q, k, v, window, positions)
+        x = x + attn_out.reshape(B, S, -1) @ layer.attn["wo"].to(x.dtype)
+        h2 = rms_norm(x, layer.ln2)
+        return x + mlp_swiglu(layer.mlp, h2)
 
     def forward(self, tokens):
         """tokens: (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux_loss)."""
@@ -268,15 +292,18 @@ class TransformerLM(nn.Module):
         x = self.embed[tokens].to(cfg.dtype)
         positions = torch.arange(S, dtype=torch.int32,
                                  device=self.device).expand(B, S)
-        spec = cfg.attn_spec
         for layer, window in zip(self.layers, self.windows):
-            h = rms_norm(x, layer.ln1)
-            q, k, v = attn_qkv(layer.attn, h, spec, positions,
-                               cfg.rope_theta)
-            attn_out = self._attention(q, k, v, window, positions)
-            x = x + attn_out.reshape(B, S, -1) @ layer.attn["wo"].to(x.dtype)
-            h2 = rms_norm(x, layer.ln2)
-            x = x + mlp_swiglu(layer.mlp, h2)
+            if cfg.remat == "none":
+                x = self._layer(layer, window, x, positions)
+            elif cfg.remat == "full":
+                x = checkpoint(self._layer, layer, window, x, positions,
+                               use_reentrant=False)
+            else:
+                x = checkpoint(self._layer, layer, window, x, positions,
+                               use_reentrant=False,
+                               context_fn=functools.partial(
+                                   create_selective_checkpoint_contexts,
+                                   _dots_policy))
         x = rms_norm(x, self.final_norm)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = x @ head.to(cfg.dtype)
@@ -295,13 +322,53 @@ class TransformerLM(nn.Module):
         raise NotImplementedError(f"decode_step belongs to {_SERVING}")
 
 
+# rows of logits taken to f32 at once by the loss (2^26 elements, 256 MiB)
+LOSS_CHUNK_ELEMENTS = 1 << 26
+
+
+class _NextTokenNLL(torch.autograd.Function):
+    """mean(logsumexp(logits) - logits[label]) over every position, in f32,
+    a few rows at a time: neither the f32 logits nor their f32 gradient is
+    ever whole.  The gradient, (softmax - onehot) / N, is written in the
+    logits' own type, as autograd through the reference's ``astype(f32)``
+    would cast it.  For qwen3-4b at S 4096 this keeps some 7 GiB of f32
+    logit-sized tensors out of the training step's peak."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        V = logits.shape[-1]
+        flat, lab = logits.reshape(-1, V), labels.reshape(-1)
+        rows = max(1, LOSS_CHUNK_ELEMENTS // V)
+        logz = torch.empty(flat.shape[0], dtype=torch.float32,
+                           device=logits.device)
+        gold = torch.empty_like(logz)
+        for r in range(0, flat.shape[0], rows):
+            x = flat[r:r + rows].float()
+            logz[r:r + rows] = torch.logsumexp(x, dim=-1)
+            gold[r:r + rows] = torch.gather(x, -1, lab[r:r + rows, None])[:, 0]
+        ctx.save_for_backward(logits, labels, logz)
+        return (logz - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels, logz = ctx.saved_tensors
+        V = logits.shape[-1]
+        flat, lab = logits.reshape(-1, V), labels.reshape(-1)
+        rows = max(1, LOSS_CHUNK_ELEMENTS // V)
+        scale = g / flat.shape[0]
+        grad = torch.empty_like(flat)
+        for r in range(0, flat.shape[0], rows):
+            p = torch.exp(flat[r:r + rows].float() - logz[r:r + rows, None])
+            p.scatter_add_(-1, lab[r:r + rows, None],
+                           torch.full_like(p[:, :1], -1.0))
+            grad[r:r + rows] = p.mul_(scale)
+        return grad.reshape(logits.shape), None
+
+
 def lm_loss(logits: torch.Tensor, aux: torch.Tensor, labels,
             aux_weight: float = 0.01):
     """The reference ``loss_fn``'s loss from ``forward``'s outputs: mean
     next-token NLL in f32, plus ``aux_weight * aux``."""
     labels = torch.as_tensor(labels, device=logits.device).long()
-    logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    nll = (logz - gold).mean()
+    nll = _NextTokenNLL.apply(logits, labels)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}

@@ -124,11 +124,18 @@ def test_flash_kernel_takes_strided_inputs(card):
 
 
 def test_flash_kernel_refuses_grad_and_bad_shapes(card):
-    from repro_torch.kernels.flash_attention import ops as fops
+    """A CUDA input that requires grad goes through the backward kernels
+    (one launch each); a head width the kernels do not take raises."""
+    from repro_torch.kernels.flash_attention import bwd, ops as fops
     q = torch.randn(1, 64, 2, 64, device=card, requires_grad=True)
     k = torch.randn(1, 64, 2, 64, device=card)
-    with pytest.raises(NotImplementedError, match="training"):
-        fops.flash_attention(q, k, k)
+    counts = (fops.flash_attention.launches, bwd.flash_bwd_dq.launches,
+              bwd.flash_bwd_dkv.launches)
+    out = fops.flash_attention(q, k, k)
+    (dq,) = torch.autograd.grad(out.sum(), (q,))
+    assert (fops.flash_attention.launches, bwd.flash_bwd_dq.launches,
+            bwd.flash_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    assert dq.shape == q.shape and bool(torch.isfinite(dq).all())
     with pytest.raises(ValueError, match="head width"):
         fops.flash_attention(torch.randn(1, 64, 2, 48, device=card),
                              torch.randn(1, 64, 2, 48, device=card),
@@ -185,3 +192,153 @@ def test_cuda_lm_forward_equals_cpu_forward(card, arch):
     assert err <= 1e-4, err
     got, _ = model.loss_fn(tokens, labels)
     assert abs(got.item() - want.item()) <= 1e-4
+
+
+# ------------------------------------------------- flash attention backward
+# the backward kernels against their plain version (ref.attention_bwd_ref)
+# on the same q, k, v, o, lse and do, element by element within
+# ref.grad_limit: one ulp of each bf16 element's own size or 2^-14 of an f32
+# one, above a floor of 2 n 2^-24 for a sum of n terms (dq: K keys; dk, dv:
+# G * S query rows; the forward kernel's lse: K keys)
+BWD_CASES = [
+    (2, 256, 256, 4, 2, True, 0),       # GQA, causal
+    (1, 256, 256, 4, 4, True, 64),      # sliding window
+    (1, 128, 384, 8, 2, True, 100),     # K > S with a window
+    (2, 200, 200, 4, 2, True, 0),       # ragged S = K
+    (1, 77, 300, 4, 1, True, 37),       # ragged S and K, window
+    (1, 192, 160, 4, 2, False, 0),      # not causal, K < S
+    (1, 130, 130, 2, 1, False, 50),     # not causal, window
+]
+
+
+def _bwd_inputs(card, B, S, K, H, Hkv, D, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(*shape, device=card, generator=g).to(dtype)
+            for shape in ((B, S, H, D), (B, K, Hkv, D), (B, K, Hkv, D),
+                          (B, S, H, D))]
+
+
+def _assert_within(got, want, n, what):
+    from repro_torch.kernels.flash_attention.ref import grad_limit
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    over = ((got.float() - want.float()).abs() / grad_limit(want, n)).max()
+    assert float(over) <= 1.0, f"{what}: {float(over)} times its limit"
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,S,K,H,Hkv,causal,window", BWD_CASES)
+def test_flash_bwd_kernels_match_plain_version(card, D, dtype, B, S, K, H,
+                                               Hkv, causal, window):
+    """dq and dk/dv within their limits, the forward kernel's lse within
+    its own, each kernel launched once a call, and a second run equal to
+    the first bit for bit (no atomics)."""
+    from repro_torch.kernels.flash_attention import bwd, kernel
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_lse_ref)
+    q, k, v, do = _bwd_inputs(card, B, S, K, H, Hkv, D, dtype, D + S + K)
+    o, lse = attention_fwd_lse_ref(q, k, v, causal, window)
+    _, lse_kernel = kernel.flash_attention_cuda(q, k, v, causal, window,
+                                                with_lse=True)
+    _assert_within(lse_kernel, lse, K, "lse")
+    delta = bwd.row_delta(o, do)
+    before = (bwd.flash_bwd_dq.launches, bwd.flash_bwd_dkv.launches)
+    runs = [(bwd.flash_bwd_dq(q, k, v, do, lse, delta, causal, window),
+             *bwd.flash_bwd_dkv(q, k, v, do, lse, delta, causal, window))
+            for _ in range(2)]
+    assert (bwd.flash_bwd_dq.launches, bwd.flash_bwd_dkv.launches) == \
+        (before[0] + 2, before[1] + 2)
+    want = attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    torch.cuda.synchronize()
+    G = H // Hkv
+    for name, got, ref, n in zip(("dq", "dk", "dv"), runs[0], want,
+                                 (K, G * S, G * S)):
+        _assert_within(got, ref, n, name)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_flash_bwd_kernels_take_strided_inputs(card):
+    """q, k, v and do as views with a unit-stride last axis give the
+    gradients of their contiguous copies, bit for bit."""
+    from repro_torch.kernels.flash_attention import bwd
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_lse_ref
+    g = torch.Generator(device=card).manual_seed(6)
+    big = torch.randn(2, 256, 20, 64, device=card, generator=g)
+    q, k, v, do = big[:, :, :8], big[:, :, 8:10], big[:, :, 10:12], \
+        big[:, :, 12:]
+    o, lse = attention_fwd_lse_ref(q, k, v, True, 0)
+    delta = bwd.row_delta(o, do)
+    views = (bwd.flash_bwd_dq(q, k, v, do, lse, delta),
+             *bwd.flash_bwd_dkv(q, k, v, do, lse, delta))
+    c = [t.contiguous() for t in (q, k, v, do)]
+    copies = (bwd.flash_bwd_dq(*c, lse, delta),
+              *bwd.flash_bwd_dkv(*c, lse, delta))
+    assert all(torch.equal(a, b) for a, b in zip(views, copies))
+
+
+def test_flash_function_grads_on_card_equal_cpu_grads(card):
+    """autograd through ``ops.flash_attention`` on the card (the three
+    kernels) against the same Function on the CPU (the plain versions), in
+    f32, within the kernels' limits: the card's o and lse come from the
+    forward kernel and differ from the plain ones by f32 rounding only."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, S, K, H, Hkv, D, window = 1, 160, 224, 8, 2, 64, 48
+    q, k, v, do = _bwd_inputs(card, B, S, K, H, Hkv, D, torch.float32, 11)
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        out = fops.flash_attention(*leaves, causal=True, window=window)
+        grads[dev.type] = torch.autograd.grad(out, leaves, do.to(dev))
+    for name, got, ref, n in zip(("dq", "dk", "dv"), grads["cuda"],
+                                 grads["cpu"], (K, 4 * S, 4 * S)):
+        _assert_within(got.cpu(), ref, n, name)
+
+
+@pytest.mark.parametrize("n_micro,remat", [(1, "none"), (2, "full"),
+                                           (2, "dots")])
+def test_cuda_lm_train_step_equals_cpu_step(card, n_micro, remat):
+    """One f32 ``lm_train_step`` of the qwen3-4b smoke config on the card
+    (the kernels) equals the same step on the CPU (the plain versions):
+    loss and grad norm within 1e-4 relative, every parameter within 2 lr
+    (one AdamW step moves an element by at most lr per unit of
+    m̂ / sqrt(v̂), whose sign a near-zero gradient may flip), the
+    launch counts those of the layers."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.kernels.flash_attention import bwd, ops as fops
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models.transformer import TransformerLM, init_params
+    from repro_torch.optim import adamw
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(registry.get("qwen3-4b").smoke_config,
+                              dtype=torch.float32, attention_impl="pallas",
+                              n_microbatches=n_micro, remat=remat)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    tokens, labels = batch_at_step(TokenStreamConfig(cfg.vocab, 64, 2), 0)
+    out = {}
+    for dev in ("cpu", card):
+        # the model trains its given tensors in place: each gets a copy
+        model = TransformerLM(cfg, copy.deepcopy(params), device=dev)
+        state = adamw.init_state(model, opt_cfg)
+        counts = (fops.flash_attention.launches, bwd.flash_bwd_dq.launches,
+                  bwd.flash_bwd_dkv.launches)
+        metrics = lm_train_step(model, opt_cfg, state, tokens, labels)
+        launched = (fops.flash_attention.launches - counts[0],
+                    bwd.flash_bwd_dq.launches - counts[1],
+                    bwd.flash_bwd_dkv.launches - counts[2])
+        out[str(dev)] = (model, metrics, launched)
+    cpu, gpu = out["cpu"], out[str(card)]
+    L = cfg.n_layers
+    assert cpu[2] == (0, 0, 0)
+    assert gpu[2] == ((2 if remat != "none" else 1) * L * n_micro,
+                      L * n_micro, L * n_micro)
+    for key in ("loss", "grad_norm"):
+        a, b = float(gpu[1][key]), float(cpu[1][key])
+        assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+    for (name, p), (_, p_cpu) in zip(gpu[0].named_parameters(),
+                                     cpu[0].named_parameters()):
+        err = float((p.detach().cpu() - p_cpu.detach()).abs().max())
+        assert err <= 2 * opt_cfg.lr, (name, err)

@@ -38,7 +38,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.dht_gather.ops, "
             "repro_torch.kernels.flash_attention, "
             "repro_torch.models.transformer, repro_torch.configs.registry, "
-            "repro_torch.data.tokens; "
+            "repro_torch.data.tokens, repro_torch.optim.adamw, "
+            "repro_torch.launch.steps, repro_torch.launch.train, "
+            "repro_torch.checkpoint.checkpointer, "
+            "repro_torch.kernels.flash_attention.bwd; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "assert not bad, bad; print('ok')")
