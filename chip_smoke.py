@@ -8,7 +8,7 @@ CUDA toolkit.  It:
 
 1. prints the card's name and power limit (``nvidia-smi``) and the torch /
    CUDA versions;
-2. builds the kernels of both main paths from ``src/`` (one ``nvcc`` per
+2. builds the kernels of every path from ``src/`` (one ``nvcc`` per
    source, started together, into ``build/``) and prints the build time
    and each kernel's register report;
 3. holds ``dht_gather`` against its plain PyTorch version on the card at
@@ -58,10 +58,31 @@ CUDA toolkit.  It:
 9. holds every gradient of a 4-layer qwen3-4b (full widths, B 1, S 1024,
    f32, TF32 off) through the kernels against the same gradients through
    ``attention_impl="xla"`` and against ``remat="full"``;
-10. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+10. trains gin-tu at full width (5 layers, d_hidden 64, f32, d_feat 602,
+   AdamW of the reference's ``specs._opt_cfg()``) on ``minibatch_lg``
+   blocks: ``rmat(18, 437)`` (2^18 vertices, 78,980,768 directed edges),
+   seeded standard-normal features put on the card once, 1024 seeds and
+   fanout (15, 10) (169,984 nodes, 168,960 edges, one seeded graph label
+   a block).  One ``gnn_forward_step`` and three ``gnn_train_step``s on
+   fresh blocks, the launch counts set to 0 just before each and read just
+   after: 5 ``segment_matmul`` launches each and no other kernel's; the
+   block's ``nbr`` with 15 valid slots on the seeds, 10 on hop 1, none on
+   hop 2; the forward's logits against the same forward through the plain
+   version and through the reference's edge-list layer within
+   ``GNN_RTOL`` of the largest; the first step's loss against the
+   edge-list layer's; finite metrics, a grad norm positive exactly when
+   the loss is; every parameter changed, AdamW's count 3.  The kernel is
+   held against its plain version on layer 0's and layer 1's own inputs
+   (and layer 0's in bf16) within ``ref.product_limit``, its f32 sums
+   equal bit for bit, twice equal bit for bit, and timed beside the plain
+   version and ``embedding_bag`` + ``matmul``.  Prints the host sampling,
+   feature gather and step times, seeds/s, peak memory, and the last
+   step's device time by kind of kernel (``torch.profiler``);
+11. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read; the flash forward: the first
-   layer's own q, k, v; dq and dk/dv: the training path's shape) and as
-   its last line ``{"ok": true, "device": {...}}``.
+   layer's own q, k, v; dq and dk/dv: the training path's shape;
+   segment_matmul: GIN layer 0's own inputs in the forward) and as its
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits nonzero.
@@ -110,6 +131,22 @@ TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 2, 2, 3
 # elements near zero.  (The RMS is over nonzero elements because the
 # embedding's gradient lives in the few rows the batch reads.)
 GRAD_LAYERS, GRAD_SEQ, GRAD_RTOL, GRAD_FLOOR = 4, 1024, 1e-3, 1e-4
+# gin-tu x minibatch_lg: an RMAT graph of 2^18 vertices (Reddit has
+# 232,965) at average degree 437 (78,980,768 directed edges, 69% of
+# Reddit's), f32 features of the cell's width 602 from seed 0, 1024-seed
+# blocks of fanout (15, 10) from the sampler's seed 1; the seeds and
+# each block's graph label from seed 2
+GNN_ARCH, GNN_SHAPE = "gin-tu", "minibatch_lg"
+GNN_RMAT_LOG2, GNN_RMAT_DEG, GNN_GRAPH_SEED = 18, 437.0, 0
+GNN_FEAT_SEED, GNN_PARAM_SEED, GNN_SAMPLER_SEED, GNN_SEED_SEED = 0, 0, 1, 2
+GNN_STEPS = 3
+# the forward's logits (and the loss) through the kernel against the same
+# forward through the plain version and through the reference's edge-list
+# layer (gather, scatter_sum, then W1), f32 with TF32 off: the three sum
+# the same terms in other orders, each layer's D-term product within
+# 2 D 2^-24 of its sum of |terms|, carried through 5 layers and a sum over
+# 169,984 nodes: |a - b| <= GNN_RTOL max |b|
+GNN_RTOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -772,18 +809,22 @@ def fingerprint(p):
 def launch_counts():
     from repro_torch.kernels.dht_gather import ops as dht_ops
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
+    from repro_torch.kernels.segment_matmul import ops as seg_ops
     return {"fwd": flash_ops.flash_attention.launches,
             "dq": bwd.flash_bwd_dq.launches,
             "dkv": bwd.flash_bwd_dkv.launches,
-            "dht_gather": dht_ops.dht_gather.launches}
+            "dht_gather": dht_ops.dht_gather.launches,
+            "segment_matmul": seg_ops.segment_matmul.launches}
 
 
 def zero_launch_counts():
     from repro_torch.kernels.dht_gather import ops as dht_ops
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
+    from repro_torch.kernels.segment_matmul import ops as seg_ops
     flash_ops.flash_attention.launches = 0
     bwd.flash_bwd_dq.launches = bwd.flash_bwd_dkv.launches = 0
     dht_ops.dht_gather.launches = 0
+    seg_ops.segment_matmul.launches = 0
 
 
 # kernel names of the step's parts, as the profiler reports them
@@ -793,12 +834,12 @@ KERNEL_KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
                 ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
 
 
-def device_time_by_kind(prof, wall_ms):
-    """Device time (ms) of the profiled region by kind of kernel, the
-    device's busy share of the host wall time, and the ten slowest other
-    kernels."""
+def device_time_by_kind(prof, wall_ms, kinds=KERNEL_KINDS):
+    """Device time (ms) of the profiled region by kind of kernel (``kinds``:
+    (kind, name patterns) pairs), the device's busy share of the host wall
+    time, and the ten slowest other kernels."""
     import torch
-    by_kind = {kind: 0.0 for kind, _ in KERNEL_KINDS}
+    by_kind = {kind: 0.0 for kind, _ in kinds}
     other, count = {}, 0
     for e in prof.key_averages():
         # the device's own events only: a CPU op's self device time repeats
@@ -810,7 +851,7 @@ def device_time_by_kind(prof, wall_ms):
         if ms <= 0:
             continue
         count += e.count
-        kind = next((kind for kind, pats in KERNEL_KINDS
+        kind = next((kind for kind, pats in kinds
                      if any(p in e.key.lower() for p in pats)), None)
         if kind:
             by_kind[kind] += ms
@@ -867,7 +908,8 @@ def lm_train_phase():
                                seed=LM_DATA_SEED)
     want = {"fwd": 2 * TRAIN_MICRO * cfg.n_layers,
             "dq": TRAIN_MICRO * cfg.n_layers,
-            "dkv": TRAIN_MICRO * cfg.n_layers, "dht_gather": 0}
+            "dkv": TRAIN_MICRO * cfg.n_layers, "dht_gather": 0,
+            "segment_matmul": 0}
     total = dict.fromkeys(want, 0)
     losses = []
     profiled = TRAIN_STEPS - 1   # the last step runs under the profiler
@@ -956,7 +998,7 @@ def lm_train_vs_xla_phase():
         torch.backends.cuda.matmul.allow_tf32 = tf32
     L = GRAD_LAYERS
     check(launched["pallas"] == {"fwd": L, "dq": L, "dkv": L,
-                                 "dht_gather": 0},
+                                 "dht_gather": 0, "segment_matmul": 0},
           f"pallas gradients launched {launched['pallas']}")
     check(launched["xla"] == dict.fromkeys(launched["xla"], 0),
           f"xla gradients launched {launched['xla']}")
@@ -988,19 +1030,348 @@ def lm_train_vs_xla_phase():
 
 
 # --------------------------------------------------------------------------
+# phase: gin-tu training on Reddit-scale sampled blocks
+# --------------------------------------------------------------------------
+GNN_KERNEL_KINDS = (("segment_matmul", ("segment_matmul_kernel",)),
+                    ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
+                    ("index_add", ("indexfunc",)),
+                    ("gather", ("gather_kernel", "indexselect")))
+
+
+def seg_case(name, x, nbr, w, timed):
+    """``segment_matmul`` kernel (twice, and once with the f32 sum) against
+    its plain version on one input, per element within
+    ``ref.product_limit``; timings when ``timed``, with the library
+    yardstick (``F.embedding_bag`` then ``torch.matmul``)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.segment_matmul import kernel
+    from repro_torch.kernels.segment_matmul.ref import (
+        neighbor_sum, product_limit, segment_matmul_ref)
+    out = kernel.segment_matmul_cuda(x, nbr, w)
+    again = kernel.segment_matmul_cuda(x, nbr, w)
+    out_agg, agg = kernel.segment_matmul_cuda(x, nbr, w, with_agg=True)
+    want_agg = neighbor_sum(x, nbr)
+    want = segment_matmul_ref(x, nbr, w)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again) and torch.equal(out, out_agg),
+          f"segment_matmul differs between runs at {name}")
+    check(torch.equal(agg, want_agg),
+          f"segment_matmul's f32 sum differs from the plain one at {name}")
+    check(bool(torch.isfinite(out).all()), f"segment_matmul not finite at "
+          f"{name}")
+    diff = (out.float() - want.float()).abs()
+    limit = product_limit(want_agg, w, x.dtype)
+    over = diff > limit
+    check(not bool(over.any()), f"segment_matmul differs from its plain "
+          f"version at {name} in {int(over.sum())} elements")
+    worst = float((diff / limit.clamp(min=1e-30)).max())
+    (M, K), (N, D), F_ = nbr.shape, x.shape, w.shape[1]
+    valid = nbr >= 0
+    rows_read = int(torch.unique(nbr[valid]).numel())
+    rows_with = int(valid.any(1).sum())
+    es = x.element_size()
+    # least bytes: each row that a valid slot names read once, nbr and W
+    # read once, out written once (and the f32 sum, when asked for);
+    # operations: the valid slots' adds and the product of the rows that
+    # have a neighbour, in f32 on the CUDA cores
+    nbytes = rows_read * D * es + M * K * 4 + D * F_ * es + M * F_ * es
+    agg_bytes = M * D * 4
+    flops = int(valid.sum()) * D + 2 * rows_with * D * F_
+    op_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    row = {"shape": name, "M": M, "N": N, "K": K, "D": D, "F": F_,
+           "dtype": str(x.dtype).replace("torch.", ""),
+           "valid_slots": int(valid.sum()), "rows_read": rows_read,
+           "rows_with_neighbours": rows_with,
+           "max_abs_err": float(diff.max()), "err_over_limit": worst,
+           "bytes": nbytes, "flops": flops,
+           "bound_ms": max(nbytes / HBM_BYTES_PER_S * 1e3, op_ms),
+           "bound_by": "operations" if op_ms > nbytes / HBM_BYTES_PER_S
+           * 1e3 else "bytes",
+           "bound_with_agg_ms": max((nbytes + agg_bytes) / HBM_BYTES_PER_S
+                                    * 1e3, op_ms)}
+    del diff, limit, over, want, want_agg, agg, out_agg, again
+    if timed:
+        buf = torch.empty_like(out)
+        agg_buf = torch.empty((M, D), dtype=torch.float32, device=x.device)
+        idx = nbr.clamp(0, N - 1)
+        weights = valid.to(x.dtype)
+        row.update(
+            ms=time_ms(lambda: kernel.launch(x, nbr, w, buf)),
+            with_agg_ms=time_ms(lambda: kernel.launch(x, nbr, w, buf,
+                                                      agg_buf)),
+            plain_ms=time_ms(lambda: segment_matmul_ref(x, nbr, w), reps=5,
+                             warmup=1),
+            library_ms=time_ms(lambda: torch.matmul(F.embedding_bag(
+                idx, x, mode="sum", per_sample_weights=weights), w)),
+            library="F.embedding_bag(mode='sum', per_sample_weights=valid) "
+                    "then torch.matmul")
+    return row
+
+
+def coo_logits(model, batch):
+    """GIN's logits through the reference's edge-list layer: gather the
+    senders' rows, ``scatter_sum`` them into the receivers, then
+    ``mlp2((1 + eps) x + agg)``, as ``models/gnn/gin.py`` of the JAX
+    package computes it; no kernel."""
+    import torch
+    from repro_torch.models.gnn.common import (gather, graph_readout,
+                                               linear, mlp2, scatter_sum)
+    with torch.no_grad():
+        x = batch.node_feat.to(model.cfg.dtype)
+        for layer in model.layers:
+            agg = scatter_sum(gather(x, batch.senders), batch.receivers,
+                              batch.n_nodes, batch.edge_mask)
+            x = mlp2(layer.mlp, (1.0 + layer.eps) * x + agg, act=torch.relu)
+        pooled = graph_readout(x, batch.graph_ids, batch.n_graphs,
+                               batch.node_mask, op="sum")
+        return linear(model.readout, pooled)
+
+
+def check_close(name, got, want):
+    """|got - want| <= GNN_RTOL max |want|; returns the difference's share
+    of that limit."""
+    got, want = got.double(), want.double()
+    limit = GNN_RTOL * float(want.abs().max())
+    share = float((got - want).abs().max()) / limit
+    check(share <= 1.0, f"{name}: {share} times the limit {limit}")
+    return share
+
+
+def gnn_phase():
+    """gin-tu at full width (5 layers, d_hidden 64, d_feat 602, f32) on
+    1024-seed (15, 10) blocks of a Reddit-scale RMAT graph: one
+    ``gnn_forward_step``, then ``GNN_STEPS`` ``gnn_train_step``s on fresh
+    blocks, the launch counts set to 0 just before each and read just
+    after.  Returns the launches of the four runs and the kernel's rows
+    on layer 0's and layer 1's own inputs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import GNN_SHAPES, sampled_block_sizes
+    from repro_torch.data.graphs import NeighborSampler
+    from repro_torch.graph import generators as gen
+    from repro_torch.kernels.segment_matmul import ops as seg_ops
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    from repro_torch.launch.steps import gnn_forward_step, gnn_train_step
+    from repro_torch.models.gnn import gin
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    shape = GNN_SHAPES[GNN_SHAPE]
+    n_seeds, fanout = shape.batch_nodes, shape.fanout
+    n_block, e_block = sampled_block_sizes(shape)
+    t0 = time.perf_counter()
+    g = gen.rmat(GNN_RMAT_LOG2, GNN_RMAT_DEG, seed=GNN_GRAPH_SEED)
+    graph_s = time.perf_counter() - t0
+    deg = g.degrees()
+    t0 = time.perf_counter()
+    sampler = NeighborSampler(g, fanout, seed=GNN_SAMPLER_SEED, device=dev)
+    csr_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    feat = np.random.default_rng(GNN_FEAT_SEED).standard_normal(
+        (g.n, shape.d_feat)).astype(np.float32)
+    feat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    table = torch.from_numpy(feat).to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del feat
+    cfg = dataclasses.replace(registry.get(GNN_ARCH).config,
+                              d_feat=shape.d_feat)
+    model = gin.GIN(cfg, seed=GNN_PARAM_SEED, device=dev)
+    check(model.device.type == "cuda", f"model on {model.device}, not cuda")
+    opt_cfg = adamw.AdamWConfig()   # the reference's specs._opt_cfg()
+    state = adamw.init_state(model, opt_cfg)
+    named = dict(model.named_parameters())
+    before = {n: fingerprint(p) for n, p in named.items()}
+    emit({"phase": "gnn_setup", "arch": GNN_ARCH, "shape": GNN_SHAPE,
+          "n": g.n, "m": g.m, "directed_edges": 2 * g.m,
+          "max_degree": int(deg.max()), "rmat_s": graph_s, "csr_s": csr_s,
+          "features_s": feat_s, "upload_s": upload_s,
+          "table_gib": table.numel() * 4 / 2**30,
+          "params": sum(p.numel() for p in named.values()),
+          "block_nodes": n_block, "block_edges": e_block})
+    del deg
+    seed_rng = np.random.default_rng(GNN_SEED_SEED)
+
+    def next_block():
+        seeds = seed_rng.integers(0, g.n, n_seeds)
+        label = int(seed_rng.integers(0, cfg.n_classes))
+        t0 = time.perf_counter()
+        sample = sampler.sample(seeds)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        block = sampler.to_block(sample, table, None)
+        torch.cuda.synchronize()
+        gather_s = time.perf_counter() - t0
+        block = dataclasses.replace(block, labels=torch.tensor(
+            [label], device=dev))
+        check(block.n_nodes == n_block and block.senders.shape[0]
+              == e_block, f"block of {block.n_nodes} nodes and "
+              f"{block.senders.shape[0]} edges")
+        hop1 = n_seeds * fanout[0]
+        valid = (block.nbr >= 0).sum(1)
+        check(tuple(block.nbr.shape) == (n_block, max(fanout))
+              and bool((valid[:n_seeds] == fanout[0]).all())
+              and bool((valid[n_seeds:n_seeds + hop1] == fanout[1]).all())
+              and bool((valid[n_seeds + hop1:] == 0).all()),
+              "nbr is not 15 slots on the seeds, 10 on hop 1, 0 on hop 2")
+        return block, {"label": label, "sample_s": host_s,
+                       "gather_s": gather_s}
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernel_call = seg_ops.segment_matmul
+    check(gin.segment_matmul is kernel_call,
+          "GIN does not call ops.segment_matmul")
+    recorded = []
+
+    def recording(x, nbr, w):
+        if len(recorded) < 2:
+            recorded.append((x.detach(), nbr, w.detach()))
+        return kernel_call(x, nbr, w)
+
+    total = dict.fromkeys(launch_counts(), 0)
+    want = dict(total, segment_matmul=cfg.n_layers)
+    try:
+        # one forward, through the kernel, then through the plain version
+        # and the reference's edge-list layer on the same block
+        block, times = next_block()
+        gin.segment_matmul = recording
+        zero_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = gnn_forward_step(model, block)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        gin.segment_matmul = kernel_call
+        check(launches == want, f"the forward launched {launches}, expected "
+              f"{want}")
+        total = {k: total[k] + launches[k] for k in total}
+        check(tuple(logits.shape) == (1, cfg.n_classes)
+              and bool(torch.isfinite(logits).all()), "logits")
+        gin.segment_matmul = segment_matmul_ref
+        plain = gnn_forward_step(model, block)
+        gin.segment_matmul = kernel_call
+        coo = coo_logits(model, block)
+        share_plain = check_close("logits against the plain version", logits,
+                                  plain)
+        share_coo = check_close("logits against the edge-list layer", logits,
+                                coo)
+        emit({"phase": "gnn_forward", "forward_s": wall, **times,
+              "seeds_per_s": n_seeds / (wall + times["sample_s"]
+                                        + times["gather_s"]),
+              "launches": launches, "logits": logits.tolist(),
+              "plain_logits": plain.tolist(), "coo_logits": coo.tolist(),
+              "err_over_limit_plain": share_plain,
+              "err_over_limit_coo": share_coo, "rtol_of_max": GNN_RTOL,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        check(len(recorded) == 2, f"recorded {len(recorded)} layers")
+        rows = [seg_case("gin_layer0", *recorded[0], timed=True),
+                seg_case("gin_layer1", *recorded[1], timed=True)]
+        x0, nbr0, w0 = recorded[0]
+        rows.append(seg_case("gin_layer0_bf16", x0.bfloat16(), nbr0,
+                             w0.bfloat16(), timed=True))
+        del recorded[:], x0, w0, nbr0, block, logits, plain, coo
+
+        losses = []
+        profiled = GNN_STEPS - 1   # the last step runs under the profiler
+        for step in range(GNN_STEPS):
+            block, times = next_block()
+            ref_loss = None
+            if step == 0:
+                logits = coo_logits(model, block).float()
+                ref_loss = float(torch.logsumexp(logits, -1)[0]
+                                 - logits[0, times["label"]])
+            zero_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA],
+                    record_shapes=False) if step == profiled \
+                    else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                metrics = gnn_train_step(model, opt_cfg, state, block)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = launch_counts()
+            check(launches == want, f"step {step} launched {launches}, "
+                  f"expected {want}")
+            total = {k: total[k] + launches[k] for k in total}
+            m = {k: float(v) for k, v in metrics.items()}
+            losses.append(m["loss"])
+            check(all(math.isfinite(x) for x in m.values()),
+                  f"step {step} metrics not finite: {m}")
+            # at initialization the sum readout saturates the softmax: a
+            # block whose label is the larger logit has loss 0 and a zero
+            # gradient, any other a loss and gradient of that gap's size
+            check(m["grad_norm"] > 0 if m["loss"] > 0
+                  else m["grad_norm"] == 0,
+                  f"step {step} grad norm {m['grad_norm']} at loss "
+                  f"{m['loss']}")
+            if ref_loss is not None:
+                # the sum readout over 169,984 nodes gives logits of some
+                # 1e4-1e5 at initialization, so the loss is the gap between
+                # two of them, not ln 2: it is held against the edge-list
+                # layer's loss on the same block and parameters instead,
+                # within the logits' limit twice (logsumexp and the gold
+                # logit each move by at most the largest logit's error)
+                limit = 2 * GNN_RTOL * float(logits.abs().max())
+                check(abs(m["loss"] - ref_loss) <= limit,
+                      f"step 0 loss {m['loss']} vs the edge-list layer's "
+                      f"{ref_loss} (limit {limit})")
+            emit({"phase": "gnn_train", "step": step, "step_s": wall,
+                  **times, "seeds_per_s": n_seeds / (
+                      wall + times["sample_s"] + times["gather_s"]),
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "profiled": step == profiled, "launches": launches,
+                  "edge_list_loss": ref_loss, **m})
+            if step == profiled:
+                emit({"phase": "gnn_train_profile", "step": step,
+                      "wall_ms": wall * 1e3,
+                      **device_time_by_kind(prof, wall * 1e3,
+                                            GNN_KERNEL_KINDS)})
+            del block
+    finally:
+        gin.segment_matmul = kernel_call
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    check(int(state["step"]) == GNN_STEPS,
+          f"AdamW step count {int(state['step'])}")
+    # with a gradient in some step every parameter moves; without one only
+    # weight decay moves them, and it leaves the zeros (eps, biases) alone
+    unchanged = [n for n, p in named.items() if fingerprint(p) == before[n]
+                 and (max(losses) > 0 or bool(p.any()))]
+    check(not unchanged, f"parameters unchanged by training: {unchanged}")
+    emit({"phase": "gnn_train_summary", "losses": losses, "launches": total})
+    del model, state, named, table, sampler, g
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+# --------------------------------------------------------------------------
 def build_kernels():
     """Build every kernel from its source: one ``nvcc`` each, all started
     together."""
     from repro_torch.kernels.dht_gather import kernel as dht_gather_kernel
     from repro_torch.kernels.flash_attention import bwd as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.segment_matmul import kernel as seg_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = {"dht_gather": pool.submit(dht_gather_kernel.build, True),
                    "flash_attention_fwd": pool.submit(flash_kernel.build,
                                                       True),
                    "flash_attention_bwd": pool.submit(flash_bwd.build,
-                                                      True)}
+                                                      True),
+                   "segment_matmul": pool.submit(seg_kernel.build, True)}
         logs = {name: f.result() for name, f in futures.items()}
     return time.perf_counter() - t0, logs
 
@@ -1072,6 +1443,13 @@ def main() -> int:
     lm_train_vs_xla_phase()
     bwd_row = bwd_rows[0]   # the training path's shape
 
+    gnn_launches, seg_rows = gnn_phase()
+    for row in seg_rows:
+        emit({"phase": "kernel", "name": "segment_matmul", **row})
+    check(gnn_launches["segment_matmul"] > 0,
+          "the GNN path launched no segment_matmul kernel")
+    seg_row = seg_rows[0]   # layer 0's own inputs, the forward's call
+
     main_row = rows[0]   # the first cc solve's root-label read
     flash_row = flash_rows[0]   # the first layer's own q, k, v
     emit({"kernels": [{
@@ -1118,7 +1496,18 @@ def main() -> int:
                    f"and dv together",
         "shapes": bwd_rows}
         for kname, line, grads in (("dq", 34, ("dq",)),
-                                   ("dkv", 80, ("dk", "dv")))]})
+                                   ("dkv", 80, ("dk", "dv")))] + [{
+        "name": "segment_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/segment_matmul/csrc/"
+                  "segment_matmul.cu",
+        "replaces": "src/repro/kernels/segment_matmul/kernel.py:22",
+        "launches": gnn_launches["segment_matmul"],
+        "max_abs_err": max(r["max_abs_err"] for r in seg_rows),
+        "max_err_over_limit": max(r["err_over_limit"] for r in seg_rows),
+        "ms": seg_row["ms"], "plain_ms": seg_row["plain_ms"],
+        "bound_ms": seg_row["bound_ms"], "bound_by": seg_row["bound_by"],
+        "library_ms": seg_row["library_ms"], "library": seg_row["library"],
+        "shapes": seg_rows}]})
     emit({"host_reads_total": rounds.HOST_READS})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

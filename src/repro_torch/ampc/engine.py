@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.rounds import RoundLedger
+from ..devices import resolve_device
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from . import registry
@@ -96,15 +97,6 @@ class SolveContext:
     device: torch.device
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "AmpcEngine runs on CUDA and no CUDA device is available; pass "
-            "device='cpu' to solve on the host")
-    return dev
-
-
 class AmpcEngine:
     """Session object for AMPC graph solves.
 
@@ -126,7 +118,7 @@ class AmpcEngine:
     def __init__(self, dht_backend="local", epsilon: float = 0.5,
                  seed: int = 0, *, trace=None, metrics=None,
                  record_events: Optional[bool] = None, device=None):
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "AmpcEngine")
         self.dht = resolve_backend(dht_backend)
         self.epsilon = float(epsilon)
         self.seed = int(seed)

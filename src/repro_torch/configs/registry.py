@@ -2,8 +2,9 @@
 
 Each entry: family, full config, smoke config, the shape set it pairs
 with, and the shapes it skips.  The port registers the five LM
-architectures; the GNN and RecSys entries of the JAX package's registry
-come with their slices, and ``get`` names the ROADMAP item for each.
+architectures and gin-tu; the other GNN entries and the RecSys entry of
+the JAX package's registry come with their slices, and ``get`` names the
+ROADMAP item for each.
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import dataclasses
 from typing import Any, Dict
 
 from . import lm_archs
-from .shapes import LM_SHAPES, ShapeSpec
+from ..models.gnn.gin import GINConfig
+from .shapes import GNN_SHAPES, LM_SHAPES, ShapeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,11 +30,10 @@ REGISTRY: Dict[str, ArchEntry] = {}
 
 # in the JAX package's registry, not ported yet
 NOT_PORTED = {
-    "mace": "GNN models (ROADMAP queue 1, item 11)",
-    "gin-tu": "GNN models (ROADMAP queue 1, item 11)",
-    "schnet": "GNN models (ROADMAP queue 1, item 11)",
-    "gcn-cora": "GNN models (ROADMAP queue 1, item 11)",
-    "sasrec": "RecSys models (ROADMAP queue 1, item 11)",
+    "mace": "GNN models (ROADMAP queue 1, item 2)",
+    "schnet": "GNN models (ROADMAP queue 1, item 2)",
+    "gcn-cora": "GNN models (ROADMAP queue 1, item 2)",
+    "sasrec": "RecSys models (ROADMAP queue 1, item 2)",
 }
 
 
@@ -57,6 +58,11 @@ _reg(ArchEntry("llama4-scout-17b-a16e", "lm", lm_archs.LLAMA4_SCOUT,
                 "not reproduced"}))
 _reg(ArchEntry("mixtral-8x22b", "lm", lm_archs.MIXTRAL_8X22B,
                lm_archs.smoke(lm_archs.MIXTRAL_8X22B), LM_SHAPES))
+
+# the reference's _gnn_smoke caps d_hidden at 16, which GINConfig(d_hidden=16)
+# already is
+_reg(ArchEntry("gin-tu", "gnn", GINConfig(), GINConfig(d_hidden=16),
+               GNN_SHAPES))
 
 
 def get(arch_id: str) -> ArchEntry:

@@ -1,9 +1,10 @@
 """Assigned input-shape sets per architecture family.
 
 LM shapes: seq_len x global_batch; decode_*/long_* lower ``serve_step``
-(1 new token against a KV cache), not ``train_step``.  The GNN and RecSys
-sets of the JAX package's ``configs/shapes.py`` come with their models
-(ROADMAP queue 1, item 11); ``ShapeSpec`` keeps their fields.
+(1 new token against a KV cache), not ``train_step``.  GNN shapes:
+graph-scale regimes.  The RecSys set of the JAX package's
+``configs/shapes.py`` comes with its model (ROADMAP queue 1, item 2);
+``ShapeSpec`` keeps its fields.
 """
 from __future__ import annotations
 
@@ -38,3 +39,30 @@ LM_SHAPES = {
     "long_500k": ShapeSpec("long_500k", "decode", seq_len=524288,
                            global_batch=1),
 }
+
+GNN_SHAPES = {
+    # Cora-scale full batch
+    "full_graph_sm": ShapeSpec("full_graph_sm", "gnn_full", n_nodes=2708,
+                               n_edges=10556, d_feat=1433),
+    # Reddit-scale sampled minibatch (fanout 15,10 from 1024 seeds)
+    "minibatch_lg": ShapeSpec("minibatch_lg", "gnn_sampled", n_nodes=232965,
+                              n_edges=114615892, d_feat=602,
+                              batch_nodes=1024, fanout=(15, 10)),
+    # ogbn-products full batch
+    "ogb_products": ShapeSpec("ogb_products", "gnn_full", n_nodes=2449029,
+                              n_edges=61859140, d_feat=100),
+    # batched small molecules
+    "molecule": ShapeSpec("molecule", "gnn_batched", n_nodes=30, n_edges=64,
+                          n_graphs=128),
+}
+
+
+def sampled_block_sizes(spec: ShapeSpec):
+    """Layer-wise sampled-subgraph sizes for minibatch_lg: node/edge counts
+    of the padded 2-hop block (seeds=1024, fanout 15 then 10)."""
+    seeds = spec.batch_nodes
+    l1 = seeds * spec.fanout[0]
+    l2 = l1 * spec.fanout[1]
+    n_nodes = seeds + l1 + l2
+    n_edges = l1 + l2
+    return n_nodes, n_edges

@@ -1,7 +1,8 @@
 """Deterministic synthetic graph generators (numpy, host side).
 
 Copies of the JAX package's ``repro.graph.generators`` that the port's
-solvers and checks use; the same seed gives array-equal graphs.
+solvers, data pipelines and checks use; the same seed gives array-equal
+graphs.
 """
 from __future__ import annotations
 
@@ -63,6 +64,21 @@ def grid2d(h: int, w: int) -> UGraph:
     horiz = np.stack([idx[:, :-1].ravel(), idx[:, 1:].ravel()], axis=1)
     vert = np.stack([idx[:-1, :].ravel(), idx[1:, :].ravel()], axis=1)
     return UGraph(h * w, np.concatenate([horiz, vert]).astype(np.int32))
+
+
+def random_geometric(n: int, radius: float, seed: int = 0, dim: int = 3):
+    """Point cloud + radius graph; returns (graph, positions, species).
+
+    Used for the molecular GNN batches (``data.graphs.molecules``).
+    """
+    rng = np.random.default_rng(seed)
+    box = (n / 0.05) ** (1.0 / dim) * radius / 10.0 + radius
+    pos = rng.random((n, dim)).astype(np.float32) * box
+    d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+    iu, iv = np.where(np.triu(d2 <= radius * radius, k=1))
+    g = UGraph(n, np.stack([iu, iv], axis=1).astype(np.int32))
+    species = rng.integers(0, 8, size=n).astype(np.int32)
+    return g, pos, species
 
 
 def disjoint_components(sizes, avg_deg: float = 4.0, seed: int = 0) -> UGraph:

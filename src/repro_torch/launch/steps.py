@@ -1,6 +1,7 @@
-"""The LM training step: the counterpart of the JAX package's
-``launch/steps.py::lm_train_step`` (the other families' steps come with
-their models, ROADMAP queue 1, item 11).
+"""Step functions: the counterparts of the JAX package's
+``launch/steps.py::lm_train_step``, ``gnn_train_step`` and
+``gnn_forward_step`` (GIN; the other families' steps come with their
+models, ROADMAP queue 1, item 2).
 """
 from __future__ import annotations
 
@@ -8,6 +9,8 @@ from typing import Dict
 
 import torch
 
+from ..models.gnn.common import GraphBatch
+from ..models.gnn.gin import GIN
 from ..models.transformer import TransformerLM
 from ..optim import adamw
 
@@ -59,3 +62,27 @@ def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
     for p in named.values():
         p.grad = None
     return {"loss": loss, **metrics, **opt_metrics}
+
+
+def gnn_train_step(model: GIN, opt_cfg: adamw.AdamWConfig, opt_state: Dict,
+                   batch: GraphBatch) -> Dict[str, torch.Tensor]:
+    """One step: loss, backward and AdamW, in place on ``model``'s
+    parameters and ``opt_state``.  Returns the metrics ``loss``, ``nll``,
+    ``lr`` and ``grad_norm`` as tensors."""
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.grad = None
+    loss, metrics = model.loss_fn(batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in named.items()}
+    _, opt_metrics = adamw.apply_updates(opt_cfg, named, grads, opt_state)
+    for p in named.values():
+        p.grad = None
+    return {"loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}
+
+
+@torch.no_grad()
+def gnn_forward_step(model: GIN, batch: GraphBatch) -> torch.Tensor:
+    """The logits (n_graphs, n_classes) of one batch, without gradients."""
+    return model(batch)

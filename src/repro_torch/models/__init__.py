@@ -1,2 +1,2 @@
 """Models of the port: the decoder-only LM (``transformer``) and its
-building blocks (``layers``)."""
+building blocks (``layers``), and the GNNs (``gnn``)."""

@@ -1,0 +1,125 @@
+"""GNN substrate of the port: the JAX package's ``models/gnn/common.py`` in
+torch.
+
+Message passing is gather (edge source features) -> edge transform ->
+``index_add_`` scatter over a padded, statically shaped edge list.  The
+port's ``GraphBatch`` may also carry ``nbr``, the padded in-neighbour
+table that the ``segment_matmul`` kernel reads; :func:`padded_neighbors`
+builds it from the edge list.  It adds no feature: a sum over ``nbr``
+equals the edge list's ``scatter_sum`` up to f32 summation order.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass
+class GraphBatch:
+    """Padded, statically shaped graph batch of torch tensors.
+
+    senders/receivers: (E,) int32 (pad edges point at node N - 1, masked)
+    node_feat: (N, F) float or None
+    positions: (N, 3) float or None; species: (N,) int or None
+    node_mask: (N,) bool; edge_mask: (E,) bool
+    graph_ids: (N,) int32 (graph membership for readout); n_graphs: int
+    labels: optional (N,) or (n_graphs,) targets
+    nbr: optional (N, K) int32 in-neighbour table, -1 as padding: row n
+        lists the senders of n's unmasked edges in edge order
+    """
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    node_mask: torch.Tensor
+    edge_mask: torch.Tensor
+    graph_ids: torch.Tensor
+    n_graphs: int
+    node_feat: Optional[torch.Tensor] = None
+    positions: Optional[torch.Tensor] = None
+    species: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
+    nbr: Optional[torch.Tensor] = None
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.node_mask.shape[0])
+
+
+def _mask_rows(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask.reshape((-1,) + (1,) * (vals.dim() - 1)), vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+def scatter_sum(edge_vals, receivers, n_nodes, edge_mask=None):
+    if edge_mask is not None:
+        edge_vals = _mask_rows(edge_vals, edge_mask)
+    out = torch.zeros((n_nodes,) + tuple(edge_vals.shape[1:]),
+                      dtype=edge_vals.dtype, device=edge_vals.device)
+    return out.index_add_(0, receivers.long(), edge_vals)
+
+
+def gather(node_vals, idx):
+    return node_vals.index_select(0, idx.long())
+
+
+def degree(receivers, n_nodes, edge_mask=None):
+    ones = torch.ones(receivers.shape[0], dtype=torch.float32,
+                      device=receivers.device)
+    return scatter_sum(ones, receivers, n_nodes, edge_mask)
+
+
+def graph_readout(node_vals, graph_ids, n_graphs, node_mask, op="sum"):
+    s = scatter_sum(_mask_rows(node_vals, node_mask), graph_ids, n_graphs)
+    if op == "sum":
+        return s
+    cnt = scatter_sum(node_mask.float(), graph_ids, n_graphs)
+    return s / torch.clamp(cnt[:, None], min=1.0)
+
+
+def padded_neighbors(senders, receivers, edge_mask, n_nodes) -> torch.Tensor:
+    """The (n_nodes, K) int32 in-neighbour table of an edge list, -1 as
+    padding, K the largest in-degree (at least 1): row n holds the senders
+    of the unmasked edges into n, in edge order (a stable sort on the
+    receiver)."""
+    keep = edge_mask.bool()
+    s, r = senders[keep].long(), receivers[keep].long()
+    r_sorted, order = torch.sort(r, stable=True)
+    counts = torch.bincount(r, minlength=n_nodes)
+    K = max(int(counts.max()) if r.numel() else 0, 1)
+    start = torch.cumsum(counts, 0) - counts
+    col = torch.arange(r.numel(), device=r.device) - start[r_sorted]
+    nbr = torch.full((n_nodes, K), -1, dtype=torch.int32, device=r.device)
+    nbr[r_sorted, col] = s[order].to(torch.int32)
+    return nbr
+
+
+def init_linear(generator: torch.Generator, d_in, d_out,
+                dtype=torch.float32, bias=True):
+    """{"w": (d_in, d_out) ~ N(0, 1/d_in), "b": zeros}, drawn from
+    ``generator`` on its device (the reference's shapes and scales)."""
+    dev = generator.device
+    p = {"w": torch.randn((d_in, d_out), generator=generator, device=dev,
+                          dtype=dtype) / np.sqrt(d_in)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
+    return p
+
+
+def linear(p, x):
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def init_mlp2(generator: torch.Generator, d_in, d_hidden, d_out,
+              dtype=torch.float32):
+    return {"l1": init_linear(generator, d_in, d_hidden, dtype),
+            "l2": init_linear(generator, d_hidden, d_out, dtype)}
+
+
+def mlp2(p, x, act=F.silu):
+    return linear(p["l2"], act(linear(p["l1"], x)))

@@ -40,6 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..devices import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
 from .layers import (AttnParamsSpec, attention_xla, attn_qkv, init_attn,
                      init_mlp, make_attention_mask, mlp_swiglu, rms_norm)
@@ -197,15 +198,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "TransformerLM runs on CUDA and no CUDA device is available; "
-            "pass device='cpu' to run on the host")
-    return dev
-
-
 class Block(nn.Module):
     """One decoder layer's parameters."""
 
@@ -240,7 +232,7 @@ class TransformerLM(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        dev = _resolve_device(device)
+        dev = resolve_device(device, "TransformerLM")
         if params is None:
             params = init_params(
                 cfg, torch.Generator(device=dev).manual_seed(seed), dtype)

@@ -342,3 +342,169 @@ def test_cuda_lm_train_step_equals_cpu_step(card, n_micro, remat):
                                      cpu[0].named_parameters()):
         err = float((p.detach().cpu() - p_cpu.detach()).abs().max())
         assert err <= 2 * opt_cfg.lr, (name, err)
+
+
+# ------------------------------------------------------------ segment_matmul
+# kernel against its plain version on the same inputs: the f32 neighbour
+# sums are equal bit for bit (both add the valid slots in order from 0),
+# and the outputs within ``ref.product_limit`` (the D-term product in two
+# f32 orders, and for bf16 one unit of the final rounding).  Cases: (M rows
+# of nbr, N rows of x, K, D, F, layout).
+SEG_CASES = [
+    (169984, 169984, 15, 602, 64, "block"),   # GIN layer 1, minibatch_lg
+    (169984, 169984, 15, 64, 64, "block"),    # GIN layers 2-5
+    (1001, 1001, 7, 37, 24, "random"),        # ragged M, D 37
+    (96, 96, 6, 70, 16, "empty_rows"),        # rows without a neighbour
+    (40, 40, 1, 16, 8, "random"),             # K 1
+    (64, 64, 3, 20, 130, "random"),           # F past one CTA's 64
+    (50, 21, 4, 9, 8, "out_of_range"),        # M != N, clipped indices
+    (70, 70, 300, 12, 8, "random"),           # K 300: over 48 KB of smem
+    (33, 33, 0, 12, 8, "random"),             # K 0: no slot at all
+]
+
+
+def _seg_inputs(card, M, N, K, D, F, layout, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N, D)).astype(np.float32)
+    w = (rng.standard_normal((D, F)) / np.sqrt(max(D, 1))).astype(np.float32)
+    nbr = rng.integers(-1, N, (M, K)).astype(np.int32)
+    if layout == "block":       # 1024 seeds with K slots, then K' = 10
+        nbr[:] = -1
+        hop1 = 1024 * K
+        nbr[:1024] = (1024 + np.arange(hop1)).reshape(1024, K)
+        nbr[1024:1024 + hop1, :10] = (1024 + hop1 + np.arange(
+            hop1 * 10)).reshape(hop1, 10)
+    elif layout == "empty_rows":
+        nbr[::3] = -1
+    elif layout == "out_of_range":
+        nbr = rng.integers(-1, N + 5, (M, K)).astype(np.int32)
+    return (torch.from_numpy(x).to(card).to(dtype),
+            torch.from_numpy(nbr).to(card),
+            torch.from_numpy(w).to(card).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,N,K,D,F,layout", SEG_CASES)
+def test_segment_matmul_kernel_matches_plain_version(card, monkeypatch, M, N,
+                                                     K, D, F, layout, dtype):
+    from repro_torch.kernels.segment_matmul import kernel as skernel
+    from repro_torch.kernels.segment_matmul import ops as sops
+    from repro_torch.kernels.segment_matmul.ref import (neighbor_sum,
+                                                        product_limit,
+                                                        segment_matmul_ref)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x, nbr, w = _seg_inputs(card, M, N, K, D, F, layout, dtype)
+    before = sops.segment_matmul.launches
+    out = sops.segment_matmul(x, nbr, w)
+    again = sops.segment_matmul(x, nbr, w)
+    assert sops.segment_matmul.launches == before + 2
+    out_agg, agg = skernel.segment_matmul_cuda(x, nbr, w, with_agg=True)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and tuple(out.shape) == (M, F)
+    assert torch.equal(out, again) and torch.equal(out, out_agg)
+    want_agg = neighbor_sum(x, nbr)
+    assert torch.equal(agg, want_agg)
+    want = segment_matmul_ref(x, nbr, w)
+    limit = product_limit(want_agg, w, dtype)
+    assert bool(((out.float() - want.float()).abs() <= limit).all())
+
+
+def test_segment_matmul_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.segment_matmul import kernel as skernel
+    from repro_torch.kernels.segment_matmul import ops as sops
+    x, nbr, w = _seg_inputs(card, 16, 16, 3, 8, 4, "random", torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        sops.segment_matmul(x, nbr, w.bfloat16())
+    with pytest.raises(ValueError, match="int32"):
+        sops.segment_matmul(x, nbr.long(), w)
+    with pytest.raises(ValueError, match="slots"):
+        skernel.segment_matmul_cuda(
+            x, torch.zeros(16, skernel.MAX_K + 1, dtype=torch.int32,
+                           device=card), w)
+    with pytest.raises(ValueError, match="same device"):
+        sops.segment_matmul(x, nbr.cpu(), w)
+    before = sops.segment_matmul.launches
+    empty = sops.segment_matmul(x, nbr[:0], w)
+    assert empty.shape == (0, 4) and sops.segment_matmul.launches == before
+
+
+def test_segment_matmul_function_grads_match_the_plain_version(card,
+                                                              monkeypatch):
+    """The Function's gradients (kernel forward with ``agg``, dW by
+    ``torch.matmul``, dx by ``index_add_``) against autograd through the
+    plain version on the card: within 1e-5 of each element plus 1e-5 of
+    the tensor's largest |value| (dx's atomics and the plain version's
+    scatter add in orders that vary)."""
+    from repro_torch.kernels.segment_matmul import ops as sops
+    from repro_torch.kernels.segment_matmul.ref import segment_matmul_ref
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for case in SEG_CASES[1:4]:
+        x, nbr, w = _seg_inputs(card, *case, torch.float32, seed=1)
+        dout = torch.randn(case[0], case[4], device=card,
+                           generator=torch.Generator(card).manual_seed(2))
+        grads = []
+        for fn in (sops.segment_matmul, segment_matmul_ref):
+            xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+            grads.append(torch.autograd.grad(fn(xa, nbr, wa), (xa, wa),
+                                             dout))
+        for got, want in zip(*grads):
+            scale = float(want.abs().max())
+            torch.testing.assert_close(got, want, rtol=1e-5,
+                                       atol=1e-5 * scale)
+
+
+def test_cuda_gnn_train_step_equals_cpu_step(card, monkeypatch):
+    """One f32 ``gnn_train_step`` of the gin-tu smoke config on a sampled
+    block, on the card (the kernel, 5 launches) and on the CPU (the plain
+    version): loss and grad norm within 1e-4 relative, every parameter
+    within 2 lr; and the forward's logits within 1e-5 relative of the
+    largest."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import graphs
+    from repro_torch.kernels.segment_matmul import ops as sops
+    from repro_torch.launch.steps import gnn_forward_step, gnn_train_step
+    from repro_torch.models.gnn.gin import GIN, init_params
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = registry.get("gin-tu").smoke_config
+    g = gen.rmat(10, 10.0, seed=0)
+    feat = np.random.default_rng(0).standard_normal(
+        (g.n, cfg.d_feat)).astype(np.float32)
+    seeds = np.random.default_rng(1).integers(0, g.n, 64)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    label = None
+    for dev in ("cpu", card):
+        sampler = graphs.NeighborSampler(g, (15, 10), seed=1, device=dev)
+        block = sampler.sample_block(seeds, torch.from_numpy(feat).to(dev),
+                                     None)
+        model = GIN(cfg, copy.deepcopy(params), device=dev)
+        if label is None:
+            # the smaller logit: the sum readout saturates the softmax at
+            # initialization, and the other label would give no gradient
+            label = int(gnn_forward_step(model, dataclasses.replace(
+                block, labels=torch.zeros(1, dtype=torch.long))).argmin())
+        block = dataclasses.replace(block, labels=torch.tensor(
+            [label], device=dev))
+        state = adamw.init_state(model, opt_cfg)
+        before = sops.segment_matmul.launches
+        logits = gnn_forward_step(model, block)
+        metrics = gnn_train_step(model, opt_cfg, state, block)
+        out[str(dev)] = (model, metrics, logits.cpu(),
+                         sops.segment_matmul.launches - before)
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[3] == 0 and gpu[3] == 2 * cfg.n_layers
+    assert float(cpu[1]["loss"]) > 0 and float(cpu[1]["grad_norm"]) > 0
+    scale = float(cpu[2].abs().max())
+    torch.testing.assert_close(gpu[2], cpu[2], rtol=1e-5, atol=1e-5 * scale)
+    for key in ("loss", "grad_norm"):
+        a, b = float(gpu[1][key]), float(cpu[1][key])
+        assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+    lr = float(cpu[1]["lr"])
+    for (name, p), (_, q) in zip(gpu[0].named_parameters(),
+                                 cpu[0].named_parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= 2 * lr, \
+            name

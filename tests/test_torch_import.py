@@ -41,7 +41,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.data.tokens, repro_torch.optim.adamw, "
             "repro_torch.launch.steps, repro_torch.launch.train, "
             "repro_torch.checkpoint.checkpointer, "
-            "repro_torch.kernels.flash_attention.bwd; "
+            "repro_torch.kernels.flash_attention.bwd, "
+            "repro_torch.kernels.segment_matmul.ops, "
+            "repro_torch.models.gnn.gin, repro_torch.data.graphs, "
+            "repro_torch.configs.shapes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "assert not bad, bad; print('ok')")
