@@ -78,11 +78,38 @@ CUDA toolkit.  It:
    version and ``embedding_bag`` + ``matmul``.  Prints the host sampling,
    feature gather and step times, seeds/s, peak memory, and the last
    step's device time by kind of kernel (``torch.profiler``);
-11. prints one ``{"kernels": [...]}`` line (dht_gather: the first
-   connectivity solve's root-label read; the flash forward: the first
-   layer's own q, k, v; dq and dk/dv: the training path's shape;
-   segment_matmul: GIN layer 0's own inputs in the forward) and as its
-   last line ``{"ok": true, "device": {...}}``.
+11. drives SASRec at full size (the registry's ``sasrec``: 1,000,000
+   items, d 50, 2 blocks, 1 head, seq 50; f32 parameters from seed 0) on
+   the cells of ``REC_SHAPES``, every call with the launch counts set to 0
+   just before and read just after: ``serve_p99`` (``rec_serve_step`` at B
+   512, 1024 seeded candidates a user, five calls), ``serve_bulk`` (262,144
+   users in 8 calls of 32,768), ``retrieval_cand`` (``rec_retrieval_step``
+   at B 1: 1,000,000 scores, five calls) and ``train_batch`` (3
+   ``rec_train_step``s at B 65,536, AdamW of ``specs._opt_cfg()``).  Every
+   item read is ``dht_gather``: 2 launches a serve call, 1 a retrieval call,
+   3 a training step, and no other kernel's.  One ``serve_p99`` call's
+   scores must equal bit for bit the same call with the gather swapped for
+   its plain version; retrieval's top 1024 scores must equal the same items
+   scored as candidates within 1e-5 of the largest; every output is finite,
+   the step-0 loss within 0.05 of ln 2, every parameter changed, AdamW's
+   count 3.  Prints wall times, users/s, peak memory and the last step's
+   device time by kind of kernel (``torch.profiler``), and holds
+   ``dht_gather`` against its plain version on the training batch's
+   histories (3,276,800 keys into the trained table);
+12. calls ``embedding_bag`` (the op's own entry point; no model of either
+   package reaches it) on the trained item table with step 0's 65,536
+   histories as bags, the counts set to 0 just before and read just after:
+   one launch.  The kernel is held against its plain version bit for bit
+   (and twice equal) there, in bf16, at ``tests/test_kernels.py``'s shapes
+   in f32 and bf16 and at edge cases (D 37, L 0 and 1, a ragged B, ids
+   below 0 and past the table, L 300), and timed beside the plain version
+   and ``F.embedding_bag(mode="sum", padding_idx=0)``;
+13. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+   connectivity solve's root-label read, with its launches by phase; the
+   flash forward: the first layer's own q, k, v; dq and dk/dv: the
+   training path's shape; segment_matmul: GIN layer 0's own inputs in the
+   forward; embedding_bag: the trained item table and step 0's histories)
+   and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and the last line is
 not printed.  Without a CUDA card, or outside a checkout, it exits nonzero.
@@ -147,6 +174,25 @@ GNN_STEPS = 3
 # 2 D 2^-24 of its sum of |terms|, carried through 5 layers and a sum over
 # 169,984 nodes: |a - b| <= GNN_RTOL max |b|
 GNN_RTOL = 1e-4
+# sasrec: the registry's config at full size (1,000,000 items, d 50, 2
+# blocks, 1 head, seq 50), f32 parameters from seed 0; histories from
+# batch_at_step's seed 0; 1024 candidates a user from seed 0, drawn in
+# [1, n_items) as the JAX package's launch/specs.py and
+# tests/test_sasrec.py draw them
+REC_ARCH = "sasrec"
+REC_PARAM_SEED, REC_DATA_SEED, REC_CAND_SEED = 0, 0, 0
+REC_CANDIDATES = 1024
+REC_SERVE_REPS = 5        # serve_p99 and retrieval_cand calls
+REC_BULK_CALLS = 8        # serve_bulk's 262,144 users in calls of 32,768
+REC_TRAIN_STEPS = 3
+# untrained, the states' dot products with the 0.02-scale item rows differ
+# by some 0.1-0.2 between a positive and a negative item, so the BPR loss
+# log1p(exp(-z)) sits within E[z^2] / 8 < 0.01 of ln 2
+REC_LOSS0_TOL = 0.05
+# embedding_bag: tests/test_kernels.py's (V, D, B, L), then edge cases
+EMBAG_TEST_SHAPES = ((64, 16, 16, 4), (256, 32, 32, 10), (1024, 64, 8, 50))
+EMBAG_EDGE_SHAPES = ((300, 37, 13, 7), (50, 8, 5, 0), (50, 8, 5, 1),
+                     (20000, 50, 1001, 50), (500, 130, 3, 300))
 
 
 class SmokeFailure(RuntimeError):
@@ -808,23 +854,27 @@ def fingerprint(p):
 
 def launch_counts():
     from repro_torch.kernels.dht_gather import ops as dht_ops
+    from repro_torch.kernels.embedding_bag import ops as embag_ops
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
     from repro_torch.kernels.segment_matmul import ops as seg_ops
     return {"fwd": flash_ops.flash_attention.launches,
             "dq": bwd.flash_bwd_dq.launches,
             "dkv": bwd.flash_bwd_dkv.launches,
             "dht_gather": dht_ops.dht_gather.launches,
-            "segment_matmul": seg_ops.segment_matmul.launches}
+            "segment_matmul": seg_ops.segment_matmul.launches,
+            "embedding_bag": embag_ops.embedding_bag.launches}
 
 
 def zero_launch_counts():
     from repro_torch.kernels.dht_gather import ops as dht_ops
+    from repro_torch.kernels.embedding_bag import ops as embag_ops
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
     from repro_torch.kernels.segment_matmul import ops as seg_ops
     flash_ops.flash_attention.launches = 0
     bwd.flash_bwd_dq.launches = bwd.flash_bwd_dkv.launches = 0
     dht_ops.dht_gather.launches = 0
     seg_ops.segment_matmul.launches = 0
+    embag_ops.embedding_bag.launches = 0
 
 
 # kernel names of the step's parts, as the profiler reports them
@@ -909,7 +959,7 @@ def lm_train_phase():
     want = {"fwd": 2 * TRAIN_MICRO * cfg.n_layers,
             "dq": TRAIN_MICRO * cfg.n_layers,
             "dkv": TRAIN_MICRO * cfg.n_layers, "dht_gather": 0,
-            "segment_matmul": 0}
+            "segment_matmul": 0, "embedding_bag": 0}
     total = dict.fromkeys(want, 0)
     losses = []
     profiled = TRAIN_STEPS - 1   # the last step runs under the profiler
@@ -998,7 +1048,8 @@ def lm_train_vs_xla_phase():
         torch.backends.cuda.matmul.allow_tf32 = tf32
     L = GRAD_LAYERS
     check(launched["pallas"] == {"fwd": L, "dq": L, "dkv": L,
-                                 "dht_gather": 0, "segment_matmul": 0},
+                                 "dht_gather": 0, "segment_matmul": 0,
+                                 "embedding_bag": 0},
           f"pallas gradients launched {launched['pallas']}")
     check(launched["xla"] == dict.fromkeys(launched["xla"], 0),
           f"xla gradients launched {launched['xla']}")
@@ -1357,21 +1408,333 @@ def gnn_phase():
 
 
 # --------------------------------------------------------------------------
+# phase: SASRec serving and training on the 1M-item table
+# --------------------------------------------------------------------------
+REC_KERNEL_KINDS = (("dht_gather", ("dht_gather_kernel",)),
+                    ("matmul", ("gemm", "xmma", "nvjet", "cutlass")),
+                    ("index_add", ("indexfunc",)),
+                    ("sort", ("sort",)),
+                    ("softmax", ("softmax",)))
+
+
+@contextlib.contextmanager
+def plain_item_reads():
+    """Every SASRec item read (``core.dht.DedupGather``) takes
+    ``dht_gather``'s plain version on the card inside this context."""
+    from repro_torch.kernels.dht_gather import ops as dht_ops
+    kernel_call = dht_ops.dht_gather
+    dht_ops.dht_gather = plain_dht_gather
+    try:
+        yield
+    finally:
+        dht_ops.dht_gather = kernel_call
+
+
+def rec_phase():
+    """SASRec at full size on the card, cell by cell of ``REC_SHAPES``:
+    ``serve_p99``, ``serve_bulk``, ``retrieval_cand`` and ``train_batch``,
+    every call with the launch counts set to 0 just before and read just
+    after.  Returns the ``dht_gather`` launches by cell, the kernel's row
+    on the training batch's history read, the trained item table and step
+    0's histories (the ``embedding_bag`` phase's table and bags)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import RecStreamConfig, batch_at_step
+    from repro_torch.launch.steps import (rec_retrieval_step, rec_serve_step,
+                                          rec_train_step)
+    from repro_torch.models.sasrec import SASRec
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda")
+    entry = registry.get(REC_ARCH)
+    cfg, shapes = entry.config, entry.shapes
+    t0 = time.perf_counter()
+    model = SASRec(cfg, seed=REC_PARAM_SEED, device=dev)
+    torch.cuda.synchronize()
+    check(model.device.type == "cuda", f"model on {model.device}, not cuda")
+    named = dict(model.named_parameters())
+    emit({"phase": "rec_setup", "arch": REC_ARCH, "n_items": cfg.n_items,
+          "embed_dim": cfg.embed_dim, "n_blocks": cfg.n_blocks,
+          "n_heads": cfg.n_heads, "seq_len": cfg.seq_len,
+          "params": sum(p.numel() for p in named.values()),
+          "init_s": time.perf_counter() - t0})
+    cand_rng = np.random.default_rng(REC_CAND_SEED)
+    none = dict.fromkeys(launch_counts(), 0)
+
+    def batch(B, step):
+        """(item_seq, pos, neg) of the stream at batch B, on the card."""
+        arrays = batch_at_step(RecStreamConfig(
+            cfg.n_items, cfg.seq_len, B, seed=REC_DATA_SEED), step)
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    def candidates(B):
+        return torch.from_numpy(cand_rng.integers(
+            1, cfg.n_items, (B, REC_CANDIDATES)).astype(np.int32)).to(dev)
+
+    def counted(name, fn, want):
+        """One call of ``fn`` between the counts' reset and their reading:
+        (its result, its wall seconds ending in a synchronize)."""
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check(launches == want, f"{name} launched {launches}, expected "
+              f"{want}")
+        check(bool(torch.isfinite(out if torch.is_tensor(out)
+                                  else out["loss"]).all()),
+              f"{name}: output not finite")
+        return out, wall
+
+    serve = dict(none, dht_gather=2)      # the history's and candidates'
+    by_cell = {}
+
+    # serve_p99: one batch of 512 users, 1024 candidates each
+    B = shapes["serve_p99"].global_batch
+    seq, _, _ = batch(B, 0)
+    cands = candidates(B)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for rep in range(REC_SERVE_REPS):
+        scores, wall = counted("serve_p99", lambda: rec_serve_step(
+            model, seq, cands), serve)
+        walls.append(wall)
+    check(tuple(scores.shape) == (B, REC_CANDIDATES), "serve_p99 shape")
+    with plain_item_reads():
+        plain = rec_serve_step(model, seq, cands)
+    torch.cuda.synchronize()
+    check(torch.equal(scores, plain), "serve_p99 scores through the kernel "
+          "differ from the plain gather's")
+    by_cell["rec_serve_p99"] = serve["dht_gather"] * REC_SERVE_REPS
+    emit({"phase": "rec_serve_p99", "batch": B, "candidates": REC_CANDIDATES,
+          "walls_s": walls, "users_per_s": B / sorted(walls)[len(walls) // 2],
+          "equal_to_plain_gather": True,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del scores, plain, seq, cands
+
+    # serve_bulk: 262,144 users in calls of 32,768
+    shape = shapes["serve_bulk"]
+    B = shape.global_batch // REC_BULK_CALLS
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for call in range(REC_BULK_CALLS):
+        seq, _, _ = batch(B, call)
+        cands = candidates(B)
+        scores, wall = counted("serve_bulk", lambda: rec_serve_step(
+            model, seq, cands), serve)
+        check(tuple(scores.shape) == (B, REC_CANDIDATES), "serve_bulk shape")
+        walls.append(wall)
+        del scores, seq, cands
+    by_cell["rec_serve_bulk"] = serve["dht_gather"] * REC_BULK_CALLS
+    emit({"phase": "rec_serve_bulk", "users": shape.global_batch,
+          "calls": REC_BULK_CALLS, "batch": B, "walls_s": walls,
+          "wall_s": sum(walls), "users_per_s": shape.global_batch
+          / sum(walls),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+    # retrieval_cand: one user against every item
+    shape = shapes["retrieval_cand"]
+    seq, _, _ = batch(shape.global_batch, 0)
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for rep in range(REC_SERVE_REPS):
+        ret, wall = counted("retrieval_cand", lambda: rec_retrieval_step(
+            model, seq), dict(none, dht_gather=1))
+        walls.append(wall)
+    check(tuple(ret.shape) == (shape.global_batch, shape.n_candidates),
+          f"retrieval scores of shape {tuple(ret.shape)}")
+    # the top 1024 items scored as candidates: the same dot products, by
+    # another product (bmm against mm), within 1e-5 of the largest
+    top = ret.topk(REC_CANDIDATES, dim=-1)
+    again = rec_serve_step(model, seq, top.indices.to(torch.int32))
+    share = float((again - top.values).abs().max()) / (
+        1e-5 * float(top.values.abs().max()))
+    check(share <= 1.0, f"retrieval's top scores against candidate "
+          f"scoring: {share} of the limit")
+    by_cell["rec_retrieval_cand"] = REC_SERVE_REPS
+    emit({"phase": "rec_retrieval_cand", "batch": shape.global_batch,
+          "scores": shape.n_candidates, "walls_s": walls,
+          "users_per_s": shape.global_batch
+          / sorted(walls)[len(walls) // 2],
+          "top_vs_candidates_err_over_limit": share,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del ret, top, again, seq
+
+    # train_batch: AdamW steps at 65,536 users
+    B = shapes["train_batch"].global_batch
+    opt_cfg = adamw.AdamWConfig()   # the reference's specs._opt_cfg()
+    state = adamw.init_state(model, opt_cfg)
+    before = {n: fingerprint(p) for n, p in named.items()}
+    step_want = dict(none, dht_gather=3)   # history, positives, negatives
+    losses, bags = [], None
+    profiled = REC_TRAIN_STEPS - 1   # the last step runs under the profiler
+    for step in range(REC_TRAIN_STEPS):
+        seq, pos, neg = batch(B, step)
+        if step == 0:
+            bags = seq
+        torch.cuda.reset_peak_memory_stats()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA],
+                record_shapes=False) if step == profiled \
+                else contextlib.nullcontext() as prof:
+            metrics, wall = counted("train_batch", lambda: rec_train_step(
+                model, opt_cfg, state, seq, pos, neg), step_want)
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m["loss"])
+        check(all(math.isfinite(x) for x in m.values()),
+              f"step {step} metrics not finite: {m}")
+        check(m["grad_norm"] > 0, f"step {step} grad norm {m['grad_norm']}")
+        if step == 0:
+            check(abs(m["loss"] - math.log(2)) <= REC_LOSS0_TOL,
+                  f"step 0 loss {m['loss']}, not within {REC_LOSS0_TOL} "
+                  f"of ln 2")
+        emit({"phase": "rec_train", "step": step, "batch": B, "step_s": wall,
+              "users_per_s": B / wall, "tokens_per_s": B * cfg.seq_len / wall,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "profiled": step == profiled, **m})
+        if step == profiled:
+            emit({"phase": "rec_train_profile", "step": step,
+                  "wall_ms": wall * 1e3,
+                  **device_time_by_kind(prof, wall * 1e3,
+                                        REC_KERNEL_KINDS)})
+        del seq, pos, neg, metrics
+    check(int(state["step"]) == REC_TRAIN_STEPS,
+          f"AdamW step count {int(state['step'])}")
+    unchanged = [n for n, p in named.items() if fingerprint(p) == before[n]]
+    check(not unchanged, f"parameters unchanged by training: {unchanged}")
+    by_cell["rec_train_batch"] = step_want["dht_gather"] * REC_TRAIN_STEPS
+    emit({"phase": "rec_train_summary", "losses": losses,
+          "dht_gather_launches": by_cell})
+    table = model.item_embed.detach()
+    row = dht_gather_case("sasrec_train_history", table, bags.reshape(-1),
+                          timed=True)
+    del model, state, named
+    torch.cuda.empty_cache()
+    return by_cell, row, table, bags
+
+
+def embag_case(name, table, ids, timed):
+    """The ``embedding_bag`` kernel (twice) against its plain version on
+    one input, bit for bit; its bound and, when ``timed``, kernel, plain
+    and library times (the library call on f32 tables of in-range ids)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    out = kernel.embedding_bag_cuda(table, ids)
+    again = kernel.embedding_bag_cuda(table, ids)
+    want = embedding_bag_ref(table, ids)
+    torch.cuda.synchronize()
+    check(torch.equal(out, want), f"embedding_bag differs from its plain "
+          f"version at {name}")
+    check(torch.equal(out, again), f"embedding_bag differs between runs at "
+          f"{name}")
+    (V, D), (B, L) = table.shape, ids.shape
+    valid = ids > 0
+    rows_read = int(torch.unique(ids[valid].clamp(max=V - 1)).numel())
+    es = table.element_size()
+    # least bytes: each distinct row a valid id names read once, the ids
+    # read once, the sums written once; one f32 add per valid element
+    nbytes = rows_read * D * es + B * L * 4 + B * D * es
+    flops = int(valid.sum()) * D
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    err = 0.0
+    if out.numel():
+        err = float((out.double() - want.double()).abs().max())
+    row = {"shape": name, "V": V, "D": D, "B": B, "L": L,
+           "dtype": str(table.dtype).replace("torch.", ""),
+           "valid_ids": int(valid.sum()), "rows_read": rows_read,
+           "max_abs_err": err, "bytes": nbytes, "flops": flops,
+           "bound_ms": max(byte_ms, op_ms),
+           "bound_by": "operations" if op_ms > byte_ms else "bytes"}
+    if timed:
+        buf = torch.empty_like(out)
+        row.update(ms=time_ms(lambda: kernel.launch(table, ids, buf)),
+                   plain_ms=time_ms(lambda: embedding_bag_ref(table, ids),
+                                    reps=5, warmup=1),
+                   library_ms=None)
+        if table.dtype == torch.float32 and bool(
+                ((ids >= 0) & (ids < V)).all()):
+            lib = F.embedding_bag(ids, table, mode="sum", padding_idx=0)
+            row.update(
+                library_ms=time_ms(lambda: F.embedding_bag(
+                    ids, table, mode="sum", padding_idx=0)),
+                library="F.embedding_bag(mode='sum', padding_idx=0)",
+                library_max_abs_diff=float((lib - out).abs().max()))
+    return row
+
+
+def embedding_bag_phase(table, bags):
+    """``embedding_bag`` on SASRec's trained item table with step 0's
+    65,536 histories as bags: one call of the op, the counts set to 0 just
+    before and read just after; then the kernel against its plain version
+    there, in bf16, at the JAX package's test shapes and at edge cases.
+    Returns the op's launches and the rows."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.embedding_bag import ops
+    dev = torch.device("cuda")
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ops.embedding_bag(table, bags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    want = dict.fromkeys(launches, 0)
+    want["embedding_bag"] = 1
+    check(launches == want, f"embedding_bag launched {launches}")
+    check(tuple(out.shape) == (bags.shape[0], table.shape[1])
+          and bool(torch.isfinite(out).all()), "embedding_bag output")
+    emit({"phase": "embedding_bag", "bags": list(bags.shape),
+          "table": list(table.shape), "wall_s": wall, "launches": launches})
+    rows = [embag_case("sasrec_train_history", table, bags, timed=True),
+            embag_case("sasrec_train_history_bf16", table.bfloat16(), bags,
+                       timed=True)]
+    # tests/test_kernels.py's shapes and draw, then D 37, L 0 and 1, a
+    # ragged B, ids below 0 and past the table, L past a staging chunk
+    for dtype in (torch.float32, torch.bfloat16):
+        for V, D, B, L in EMBAG_TEST_SHAPES:
+            rng = np.random.default_rng(3)
+            t = torch.from_numpy(rng.standard_normal((V, D)).astype(
+                np.float32)).to(dev).to(dtype)
+            ids = rng.integers(0, V, (B, L)).astype(np.int32)
+            ids[:, -1] = 0
+            rows.append(embag_case(f"test_{V}x{D}_{B}x{L}", t,
+                                   torch.from_numpy(ids).to(dev), False))
+        for V, D, B, L in EMBAG_EDGE_SHAPES:
+            rng = np.random.default_rng(4)
+            t = torch.from_numpy(rng.standard_normal((V, D)).astype(
+                np.float32)).to(dev).to(dtype)
+            ids = rng.integers(-3, V + 5, (B, L)).astype(np.int32)
+            rows.append(embag_case(f"edge_{V}x{D}_{B}x{L}", t,
+                                   torch.from_numpy(ids).to(dev), False))
+    return launches["embedding_bag"], rows
+
+
+# --------------------------------------------------------------------------
 def build_kernels():
     """Build every kernel from its source: one ``nvcc`` each, all started
     together."""
     from repro_torch.kernels.dht_gather import kernel as dht_gather_kernel
+    from repro_torch.kernels.embedding_bag import kernel as embag_kernel
     from repro_torch.kernels.flash_attention import bwd as flash_bwd
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.segment_matmul import kernel as seg_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         futures = {"dht_gather": pool.submit(dht_gather_kernel.build, True),
                    "flash_attention_fwd": pool.submit(flash_kernel.build,
                                                       True),
                    "flash_attention_bwd": pool.submit(flash_bwd.build,
                                                       True),
-                   "segment_matmul": pool.submit(seg_kernel.build, True)}
+                   "segment_matmul": pool.submit(seg_kernel.build, True),
+                   "embedding_bag": pool.submit(embag_kernel.build, True)}
         logs = {name: f.result() for name, f in futures.items()}
     return time.perf_counter() - t0, logs
 
@@ -1450,18 +1813,30 @@ def main() -> int:
           "the GNN path launched no segment_matmul kernel")
     seg_row = seg_rows[0]   # layer 0's own inputs, the forward's call
 
+    rec_launches, rec_row, item_table, bags = rec_phase()
+    emit({"phase": "kernel", "name": "dht_gather", **rec_row})
+    check(all(n > 0 for n in rec_launches.values()),
+          f"a SASRec cell launched no dht_gather kernel: {rec_launches}")
+    embag_launches, embag_rows = embedding_bag_phase(item_table, bags)
+    for row in embag_rows:
+        emit({"phase": "kernel", "name": "embedding_bag", **row})
+    check(embag_launches > 0, "the embedding_bag path launched no kernel")
+    embag_row = embag_rows[0]   # the trained table, step 0's histories
+    del item_table, bags
+
     main_row = rows[0]   # the first cc solve's root-label read
     flash_row = flash_rows[0]   # the first layer's own q, k, v
     emit({"kernels": [{
         "name": "dht_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/dht_gather/csrc/dht_gather.cu",
         "replaces": "src/repro/kernels/dht_gather/kernel.py:28",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "launches": launches + sum(rec_launches.values()),
+        "launches_by_phase": {"ampc_solves": launches, **rec_launches},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + [rec_row]),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"],
-        "shapes": rows}, {
+        "shapes": rows + [rec_row]}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
                   "flash_attention_fwd.cu",
@@ -1507,7 +1882,17 @@ def main() -> int:
         "ms": seg_row["ms"], "plain_ms": seg_row["plain_ms"],
         "bound_ms": seg_row["bound_ms"], "bound_by": seg_row["bound_by"],
         "library_ms": seg_row["library_ms"], "library": seg_row["library"],
-        "shapes": seg_rows}]})
+        "shapes": seg_rows}, {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                  "embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:16",
+        "launches": embag_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in embag_rows),
+        "ms": embag_row["ms"], "plain_ms": embag_row["plain_ms"],
+        "bound_ms": embag_row["bound_ms"], "bound_by": embag_row["bound_by"],
+        "library_ms": embag_row["library_ms"],
+        "library": embag_row["library"], "shapes": embag_rows}]})
     emit({"host_reads_total": rounds.HOST_READS})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,7 @@ current one.  A backend binds a value tensor and a ledger into a
 ``ShardedDHT.lookup`` — the single accounting choke point.
 
 Only the ``local`` backend is ported; ``routed`` (the all-to-all router)
-and the batched ``lookup_many`` wait for ROADMAP queue 1, steps 9 and 8.
+and the batched ``lookup_many`` wait for ROADMAP queue 1, items 9 and 8.
 """
 from __future__ import annotations
 
@@ -65,7 +65,7 @@ def resolve_backend(spec) -> DhtBackend:
         if spec == "routed":
             raise NotImplementedError(
                 "dht_backend='routed' is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, step 9)")
+                "(ROADMAP.md queue 1, item 9)")
         raise ValueError(
             f"unknown dht_backend {spec!r}; expected 'local' or a "
             "DhtBackend instance")

@@ -13,7 +13,7 @@ and the seed/epsilon defaults, and resolves problems through
 :mod:`repro_torch.ampc.registry`.  It runs on ``"cuda"`` unless the caller
 passes another ``device`` (the tests pass ``device="cpu"``).
 
-Not ported yet: ``solve_many`` (ROADMAP queue 1, step 8), ``session`` and
+Not ported yet: ``solve_many`` (ROADMAP queue 1, item 8), ``session`` and
 ``submit`` (step 8), the routed backend (step 9).
 """
 from __future__ import annotations
@@ -192,17 +192,17 @@ class AmpcEngine:
     def solve_many(self, graphs, problem: str, **kw):
         raise NotImplementedError(
             "solve_many is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, step 8)")
+            "(ROADMAP.md queue 1, item 8)")
 
     def session(self, graph):
         raise NotImplementedError(
             "session is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, step 8)")
+            "(ROADMAP.md queue 1, item 8)")
 
     def submit(self, graph, problem: str, **kw):
         raise NotImplementedError(
             "submit is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, step 8)")
+            "(ROADMAP.md queue 1, item 8)")
 
     def metrics_report(self) -> str:
         """Plain-text dump of this engine's metrics registry."""

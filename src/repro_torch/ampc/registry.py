@@ -34,11 +34,11 @@ _ALIASES: Dict[str, str] = {}
 # ROADMAP item that ports them
 NOT_PORTED: Dict[str, str] = {
     **dict.fromkeys(("matching", "mm", "maximal-matching", "weighted-matching",
-                     "mwm", "vertex-cover"), "queue 1, step 4"),
-    **dict.fromkeys(("one-vs-two", "1v2c"), "queue 1, step 6"),
+                     "mwm", "vertex-cover"), "queue 1, item 5"),
+    **dict.fromkeys(("one-vs-two", "1v2c"), "queue 1, item 6"),
     **dict.fromkeys(("mis-mpc", "matching-mpc", "matching-levels",
                      "matching-vertex-process", "msf-mpc", "msf-kkt",
-                     "connectivity-mpc", "one-vs-two-mpc"), "queue 1, step 7"),
+                     "connectivity-mpc", "one-vs-two-mpc"), "queue 1, item 7"),
 }
 
 

@@ -2,9 +2,9 @@
 
 Each entry: family, full config, smoke config, the shape set it pairs
 with, and the shapes it skips.  The port registers the five LM
-architectures and gin-tu; the other GNN entries and the RecSys entry of
-the JAX package's registry come with their slices, and ``get`` names the
-ROADMAP item for each.
+architectures, gin-tu and sasrec; the other GNN entries of the JAX
+package's registry come with their slice, and ``get`` names the ROADMAP
+item for each.
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from typing import Any, Dict
 
 from . import lm_archs
 from ..models.gnn.gin import GINConfig
-from .shapes import GNN_SHAPES, LM_SHAPES, ShapeSpec
+from ..models.sasrec import SASRecConfig
+from .shapes import GNN_SHAPES, LM_SHAPES, REC_SHAPES, ShapeSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,7 +34,6 @@ NOT_PORTED = {
     "mace": "GNN models (ROADMAP queue 1, item 2)",
     "schnet": "GNN models (ROADMAP queue 1, item 2)",
     "gcn-cora": "GNN models (ROADMAP queue 1, item 2)",
-    "sasrec": "RecSys models (ROADMAP queue 1, item 2)",
 }
 
 
@@ -63,6 +63,9 @@ _reg(ArchEntry("mixtral-8x22b", "lm", lm_archs.MIXTRAL_8X22B,
 # already is
 _reg(ArchEntry("gin-tu", "gnn", GINConfig(), GINConfig(d_hidden=16),
                GNN_SHAPES))
+_reg(ArchEntry("sasrec", "recsys", SASRecConfig(),
+               dataclasses.replace(SASRecConfig(), n_items=2048),
+               REC_SHAPES))
 
 
 def get(arch_id: str) -> ArchEntry:

@@ -2,9 +2,9 @@
 
 LM shapes: seq_len x global_batch; decode_*/long_* lower ``serve_step``
 (1 new token against a KV cache), not ``train_step``.  GNN shapes:
-graph-scale regimes.  The RecSys set of the JAX package's
-``configs/shapes.py`` comes with its model (ROADMAP queue 1, item 2);
-``ShapeSpec`` keeps its fields.
+graph-scale regimes.  RecSys shapes: users per call of SASRec's training,
+serving and full-table retrieval steps.  A copy of the JAX package's
+``configs/shapes.py``.
 """
 from __future__ import annotations
 
@@ -54,6 +54,14 @@ GNN_SHAPES = {
     # batched small molecules
     "molecule": ShapeSpec("molecule", "gnn_batched", n_nodes=30, n_edges=64,
                           n_graphs=128),
+}
+
+REC_SHAPES = {
+    "train_batch": ShapeSpec("train_batch", "rec_train", global_batch=65536),
+    "serve_p99": ShapeSpec("serve_p99", "rec_serve", global_batch=512),
+    "serve_bulk": ShapeSpec("serve_bulk", "rec_serve", global_batch=262144),
+    "retrieval_cand": ShapeSpec("retrieval_cand", "rec_retrieval",
+                                global_batch=1, n_candidates=1_000_000),
 }
 
 

@@ -9,9 +9,11 @@ shares its weights: :func:`lm_params_from_reference` turns the reference's
 parameter pytree (as numpy arrays) into the port's parameter dict, and
 :func:`lm_params_to_reference` a port model's parameters back into the
 reference's layout; :func:`gnn_params_from_reference` and
-:func:`gnn_params_to_reference` do the same for GIN, and
-:func:`adamw_state_from_reference` carries the optimizer state of either
-over, so both packages can start a training step from one state.
+:func:`gnn_params_to_reference` do the same for GIN,
+:func:`rec_params_from_reference` and :func:`rec_params_to_reference` for
+SASRec, and :func:`adamw_state_from_reference` carries the optimizer state
+of any of them over, so both packages can start a training step from one
+state.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from .graph.coo import UGraph
 from .models.gnn.gin import GINConfig
+from .models.sasrec import SASRecConfig
 
 
 def graph_from_arrays(n: int, edges: np.ndarray,
@@ -155,15 +158,54 @@ def gnn_params_to_reference(model) -> Dict:
             "readout": lin(model.readout)}
 
 
+def rec_params_from_reference(cfg: SASRecConfig, params) -> Dict:
+    """The port's SASRec parameters (``models.sasrec.init_params`` layout,
+    CPU tensors) from the JAX package's ``sasrec.init_params`` pytree
+    ({"item_embed", "pos_embed", "blocks": [{"wq", ..., "ln2"}]}) of
+    array-likes.  Weights keep the reference's ``x @ W`` orientation."""
+    if len(params["blocks"]) != cfg.n_blocks:
+        raise ValueError(f"reference params have {len(params['blocks'])} "
+                         f"blocks, config {cfg.name} has {cfg.n_blocks}")
+    return {"item_embed": _tensor(params["item_embed"]),
+            "pos_embed": _tensor(params["pos_embed"]),
+            "blocks": [{k: _tensor(a) for k, a in blk.items()}
+                       for blk in params["blocks"]]}
+
+
+def named_rec_params(params: Dict) -> Dict[str, torch.Tensor]:
+    """A SASRec ``init_params``-layout dict flattened to the names of
+    ``SASRec.named_parameters()`` ("item_embed", "pos_embed",
+    "blocks.0.wq", ..., "blocks.1.ln2")."""
+    out = {"item_embed": params["item_embed"],
+           "pos_embed": params["pos_embed"]}
+    for i, blk in enumerate(params["blocks"]):
+        for k, t in blk.items():
+            out[f"blocks.{i}.{k}"] = t
+    return out
+
+
+def rec_params_to_reference(model) -> Dict:
+    """A port ``SASRec``'s parameters as numpy in the reference's
+    layout."""
+    return {"item_embed": _array(model.item_embed),
+            "pos_embed": _array(model.pos_embed),
+            "blocks": [{k: _array(t) for k, t in blk.items()}
+                       for blk in model.blocks]}
+
+
 def adamw_state_from_reference(cfg, opt_state) -> Dict:
     """The port's AdamW state (``optim.adamw``: moments keyed by parameter
     name, CPU tensors) from the JAX package's ``adamw.init_state`` /
     ``apply_updates`` state, whose "m" and "v" are pytrees like the
     parameters (f32 or bf16 arrays) and "step" a scalar.  ``cfg`` is the
-    model's config: a ``GINConfig`` or an LM's ``TransformerConfig``."""
+    model's config: a ``GINConfig``, a ``SASRecConfig`` or an LM's
+    ``TransformerConfig``."""
     if isinstance(cfg, GINConfig):
         def named(tree):
             return named_gnn_params(gnn_params_from_reference(cfg, tree))
+    elif isinstance(cfg, SASRecConfig):
+        def named(tree):
+            return named_rec_params(rec_params_from_reference(cfg, tree))
     else:
         def named(tree):
             return named_lm_params(lm_params_from_reference(cfg, tree))

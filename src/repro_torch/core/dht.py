@@ -11,9 +11,12 @@ gather implementations:
   * ``"cuda"`` — the ``kernels.dht_gather`` cached-gather kernel, whose hit
     count feeds the same ledger counters.  The default on CUDA tensors.
 
+``dedup_gather`` reads a table that trains (SASRec's item table) through
+the same kernel, with a gradient (:class:`DedupGather`).
+
 Every count a lookup produces stays on the device and goes to the ledger
 through ``RoundLedger.record_queries_deferred``.  The routed (all-to-all)
-backend is not ported yet (ROADMAP queue 1, step 9).
+backend is not ported yet (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -77,6 +80,53 @@ def lookup(values: torch.Tensor, keys: torch.Tensor, dedup: bool = True):
     safe = torch.where(uniq == INT_MAX, 0, uniq).clamp(0, last).long()
     fetched = values[safe]
     return fetched[inv.long()], n_unique
+
+
+class DedupGather(torch.autograd.Function):
+    """``apply(values, keys)`` -> ``values[keys]`` (Q, D) for a (V, D)
+    table and (Q,) int32 keys, read as the reference's ``lookup(values,
+    keys, dedup=True)`` reads them: negative keys read row 0, keys past the
+    end read row V - 1.
+
+    The forward is ``kernels.dht_gather``'s sorted, deduplicated gather:
+    the Hopper kernel on CUDA tensors, its plain version on CPU tensors.
+    The backward adds each output row's gradient into the row it read
+    (``index_add_``), a dense (V, D) gradient as ``jax.grad`` of the
+    reference's gather gives; on the card its atomics make the f32 bits
+    of rows read more than once vary from run to run.
+    """
+
+    @staticmethod
+    def forward(ctx, values, keys):
+        from ..kernels.dht_gather.ops import dht_gather
+
+        # the kernel's padding is -1 (a zero row); the reference reads row
+        # 0 for a negative key, so those keys ask for row 0
+        rows = keys.clamp(min=0)
+        out, _ = dht_gather(values, rows)
+        ctx.save_for_backward(rows)
+        ctx.n_rows = values.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        (rows,) = ctx.saved_tensors
+        grad = torch.zeros((ctx.n_rows, dout.shape[1]), dtype=dout.dtype,
+                           device=dout.device)
+        grad.index_add_(0, rows.clamp(max=ctx.n_rows - 1).long(), dout)
+        return grad, None
+
+
+def dedup_gather(values: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``values[keys]`` for a (V, D) table that may train and keys of any
+    shape: (keys.shape + (D,)), through :class:`DedupGather`."""
+    if values.dim() != 2:
+        raise ValueError(f"values must be (V, D), got {tuple(values.shape)}")
+    if values.shape[0] == 0:
+        raise ValueError("cannot gather from a table without rows")
+    keys = torch.as_tensor(keys, device=values.device).to(torch.int32)
+    out = DedupGather.apply(values, keys.reshape(-1))
+    return out.reshape(keys.shape + (values.shape[1],))
 
 
 def _fused_local_lookup(values, keys, row_bytes: int, dedup: bool):

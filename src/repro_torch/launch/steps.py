@@ -1,7 +1,8 @@
 """Step functions: the counterparts of the JAX package's
 ``launch/steps.py::lm_train_step``, ``gnn_train_step`` and
-``gnn_forward_step`` (GIN; the other families' steps come with their
-models, ROADMAP queue 1, item 2).
+``gnn_forward_step`` (GIN; the other GNN models' steps come with them,
+ROADMAP queue 1, item 2), and ``rec_train_step``, ``rec_serve_step`` and
+``rec_retrieval_step`` (SASRec).
 """
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ import torch
 
 from ..models.gnn.common import GraphBatch
 from ..models.gnn.gin import GIN
+from ..models.sasrec import SASRec
 from ..models.transformer import TransformerLM
 from ..optim import adamw
 
@@ -86,3 +88,38 @@ def gnn_train_step(model: GIN, opt_cfg: adamw.AdamWConfig, opt_state: Dict,
 def gnn_forward_step(model: GIN, batch: GraphBatch) -> torch.Tensor:
     """The logits (n_graphs, n_classes) of one batch, without gradients."""
     return model(batch)
+
+
+def rec_train_step(model: SASRec, opt_cfg: adamw.AdamWConfig,
+                   opt_state: Dict, item_seq, pos_items,
+                   neg_items) -> Dict[str, torch.Tensor]:
+    """One step: the BPR loss, backward and AdamW, in place on ``model``'s
+    parameters and ``opt_state``.  The item table's gradient is dense, as
+    ``jax.grad`` gives it.  Returns the metrics ``loss``, ``bpr``, ``lr``
+    and ``grad_norm`` as tensors."""
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.grad = None
+    loss, metrics = model.loss_fn(item_seq, pos_items, neg_items)
+    loss.backward()
+    grads = {n: p.grad for n, p in named.items()}
+    _, opt_metrics = adamw.apply_updates(opt_cfg, named, grads, opt_state)
+    for p in named.values():
+        p.grad = None
+    return {"loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}
+
+
+@torch.no_grad()
+def rec_serve_step(model: SASRec, item_seq, candidates) -> torch.Tensor:
+    """Scores (B, C) of each user's candidates, from the state at the last
+    position of their (B, S) history."""
+    states = model.encode(item_seq)
+    return model.score_candidates(states[:, -1], candidates)
+
+
+@torch.no_grad()
+def rec_retrieval_step(model: SASRec, item_seq) -> torch.Tensor:
+    """Scores (B, n_items) of each user against the whole item table."""
+    states = model.encode(item_seq)
+    return model.retrieval_scores(states[:, -1])

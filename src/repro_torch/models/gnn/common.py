@@ -4,9 +4,10 @@ torch.
 Message passing is gather (edge source features) -> edge transform ->
 ``index_add_`` scatter over a padded, statically shaped edge list.  The
 port's ``GraphBatch`` may also carry ``nbr``, the padded in-neighbour
-table that the ``segment_matmul`` kernel reads; :func:`padded_neighbors`
-builds it from the edge list.  It adds no feature: a sum over ``nbr``
-equals the edge list's ``scatter_sum`` up to f32 summation order.
+table that the ``segment_matmul`` kernel reads; :func:`split_neighbors`
+builds it from the edge list, no wider than a cap, with the edges past the
+cap apart.  It adds no feature: a sum over ``nbr`` and the overflow equals
+the edge list's ``scatter_sum`` up to f32 summation order.
 """
 from __future__ import annotations
 
@@ -79,21 +80,38 @@ def graph_readout(node_vals, graph_ids, n_graphs, node_mask, op="sum"):
     return s / torch.clamp(cnt[:, None], min=1.0)
 
 
+def split_neighbors(senders, receivers, edge_mask, n_nodes,
+                    cap: Optional[int] = None):
+    """An edge list's in-neighbour table, at most ``cap`` slots a row, and
+    the edges past the cap: (nbr (n_nodes, K) int32 with -1 as padding,
+    overflow senders (E_over,), overflow receivers (E_over,)), K the
+    largest in-degree capped at ``cap`` (at least 1).
+
+    Row n holds the senders of the first K unmasked edges into n, in edge
+    order (a stable sort on the receiver); the rest of n's edges come back
+    as the overflow pair, sorted by receiver and in edge order within one.
+    Without a cap the overflow is empty."""
+    keep = edge_mask.bool()
+    s, r = senders[keep].long(), receivers[keep].long()
+    r_sorted, order = torch.sort(r, stable=True)
+    s_sorted = s[order]
+    counts = torch.bincount(r, minlength=n_nodes)
+    K = int(counts.max()) if r.numel() else 0
+    K = max(K if cap is None else min(K, cap), 1)
+    start = torch.cumsum(counts, 0) - counts
+    col = torch.arange(r.numel(), device=r.device) - start[r_sorted]
+    fits = col < K
+    nbr = torch.full((n_nodes, K), -1, dtype=torch.int32, device=r.device)
+    nbr[r_sorted[fits], col[fits]] = s_sorted[fits].to(torch.int32)
+    return nbr, s_sorted[~fits], r_sorted[~fits]
+
+
 def padded_neighbors(senders, receivers, edge_mask, n_nodes) -> torch.Tensor:
     """The (n_nodes, K) int32 in-neighbour table of an edge list, -1 as
     padding, K the largest in-degree (at least 1): row n holds the senders
     of the unmasked edges into n, in edge order (a stable sort on the
     receiver)."""
-    keep = edge_mask.bool()
-    s, r = senders[keep].long(), receivers[keep].long()
-    r_sorted, order = torch.sort(r, stable=True)
-    counts = torch.bincount(r, minlength=n_nodes)
-    K = max(int(counts.max()) if r.numel() else 0, 1)
-    start = torch.cumsum(counts, 0) - counts
-    col = torch.arange(r.numel(), device=r.device) - start[r_sorted]
-    nbr = torch.full((n_nodes, K), -1, dtype=torch.int32, device=r.device)
-    nbr[r_sorted, col] = s[order].to(torch.int32)
-    return nbr
+    return split_neighbors(senders, receivers, edge_mask, n_nodes)[0]
 
 
 def init_linear(generator: torch.Generator, d_in, d_out,

@@ -11,6 +11,14 @@ the sum, and the port takes it so:
 where ``segment_matmul`` is the Hopper kernel's ``(sum_k x[nbr[n, k]]) @
 W1`` on the card (its plain version on the CPU), one launch a layer.  This
 equals the reference's layer up to f32 rounding.
+
+A batch that carries ``nbr`` (a sampled block) is read through it alone.
+An edge-list batch gets a table no wider than ``K_CAP``; the in-edges of a
+row past its first ``K_CAP`` (a hub's) are summed apart, by ``index_add_``
+of their senders' rows into an f32 sum for the hub rows only, multiplied
+by W1 and added into those rows: W1 distributes over that sum too.  Which
+layout a batch takes follows from its shape, never from a failed build or
+launch.
 """
 from __future__ import annotations
 
@@ -22,7 +30,17 @@ from torch import nn
 from ...devices import resolve_device
 from ...kernels.segment_matmul.ops import segment_matmul
 from .common import (GraphBatch, graph_readout, init_linear, init_mlp2,
-                     linear, padded_neighbors)
+                     linear, split_neighbors)
+
+# Slots of an edge-list batch's in-neighbour table.  The table then takes
+# O(N K_CAP) memory whatever the largest in-degree (at ogb_products' scale,
+# 2^22 rows, 512 MiB instead of the 2.3 TB of a table as wide as its
+# largest in-degree, 137,718), and the edges past it O(E).  32 is above the
+# sampled blocks' 15 slots and above the average in-degree of the
+# full-batch GNN_SHAPES graphs (Cora 3.9, ogb_products' RMAT stand-in
+# 24.3), so most rows fit whole and segment_matmul reads their edges; only
+# the tails of hubs go to the edge list.
+K_CAP = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,15 +123,24 @@ class GIN(nn.Module):
             raise ValueError(f"batch on {batch.node_feat.device}, model on "
                              f"{self.device}")
         x = batch.node_feat.to(self.cfg.dtype)
-        nbr = batch.nbr
+        nbr, hubs = batch.nbr, None
         if nbr is None:
-            nbr = padded_neighbors(batch.senders, batch.receivers,
-                                   batch.edge_mask, batch.n_nodes)
+            nbr, over_s, over_r = split_neighbors(
+                batch.senders, batch.receivers, batch.edge_mask,
+                batch.n_nodes, cap=K_CAP)
+            if over_r.numel():
+                hubs, hub_of = torch.unique_consecutive(over_r,
+                                                        return_inverse=True)
         for layer in self.layers:
             l1 = layer.mlp["l1"]
             w1 = l1["w"].to(x.dtype)
             h = ((1.0 + layer.eps.to(x.dtype)) * (x @ w1)
                  + segment_matmul(x, nbr, w1) + l1["b"].to(x.dtype))
+            if hubs is not None:
+                agg = torch.zeros((hubs.shape[0], x.shape[1]),
+                                  dtype=torch.float32, device=x.device)
+                agg.index_add_(0, hub_of, x[over_s].float())
+                h = h.index_add(0, hubs, (agg @ w1.float()).to(h.dtype))
             x = linear(layer.mlp["l2"], torch.relu(h))
         pooled = graph_readout(x, batch.graph_ids, batch.n_graphs,
                                batch.node_mask, op="sum")

@@ -508,3 +508,171 @@ def test_cuda_gnn_train_step_equals_cpu_step(card, monkeypatch):
                                  cpu[0].named_parameters()):
         assert float((p.detach().cpu() - q.detach()).abs().max()) <= 2 * lr, \
             name
+
+
+# -------------------------------------------------------------- embedding_bag
+# the kernel sums each bag's rows in f32 in slot order and rounds once, as
+# its plain version does: equal bit for bit.  (V, D, B, L): the JAX
+# package's test shapes, D 37, L 0 and 1, a ragged B, L past the kernel's
+# 128-id staging chunk, SASRec's table width with a ragged B
+EMBAG_CASES = [(64, 16, 16, 4), (256, 32, 32, 10), (1024, 64, 8, 50),
+               (300, 37, 13, 7), (50, 8, 5, 0), (50, 8, 5, 1),
+               (500, 130, 3, 300), (20000, 50, 1001, 50)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("V,D,B,L", EMBAG_CASES)
+def test_embedding_bag_kernel_matches_plain_version(card, V, D, B, L, dtype):
+    """Ids over [-3, V + 5): padding (0, negative) and ids past the table."""
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    rng = np.random.default_rng(7)
+    table = torch.from_numpy(rng.standard_normal((V, D)).astype(
+        np.float32)).to(card).to(dtype)
+    ids = rng.integers(-3, V + 5, (B, L)).astype(np.int32)
+    if L:
+        ids[:, -1] = 0
+    ids = torch.from_numpy(ids).to(card)
+    before = eops.embedding_bag.launches
+    got = eops.embedding_bag(table, ids)
+    again = eops.embedding_bag(table, ids)
+    assert eops.embedding_bag.launches == before + 2
+    want = embedding_bag_ref(table, ids)
+    assert got.dtype == dtype and got.device == table.device
+    assert torch.equal(got, want) and torch.equal(got, again)
+    # on the CPU, the same op runs the plain version: the same bits
+    assert torch.equal(got.cpu(), eops.embedding_bag(table.cpu(), ids.cpu()))
+
+
+def test_embedding_bag_kernel_refuses_what_it_does_not_take(card):
+    from repro_torch.kernels.embedding_bag import kernel as ekernel
+    from repro_torch.kernels.embedding_bag import ops as eops
+    table = torch.randn(16, 8, device=card)
+    ids = torch.ones(4, 3, dtype=torch.int32, device=card)
+    before = eops.embedding_bag.launches
+    with pytest.raises(ValueError, match="no backward"):
+        eops.embedding_bag(table.clone().requires_grad_(True), ids)
+    with pytest.raises(ValueError, match="int32"):
+        eops.embedding_bag(table, ids.long())
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        eops.embedding_bag(table.half(), ids)
+    with pytest.raises(ValueError, match=r"\(B, L\)"):
+        eops.embedding_bag(table, ids[0])
+    with pytest.raises(ValueError, match="same device"):
+        eops.embedding_bag(table, ids.cpu())
+    with pytest.raises(ValueError, match="CUDA device"):
+        ekernel.embedding_bag_cuda(table.cpu(), ids.cpu())
+    assert eops.embedding_bag.launches == before
+    # no bags, or rows of width 0: nothing launched, nothing counted
+    assert eops.embedding_bag(table, ids[:0]).shape == (0, 8)
+    assert eops.embedding_bag(table[:, :0], ids).shape == (4, 0)
+    assert eops.embedding_bag.launches == before
+    with torch.no_grad():
+        out = eops.embedding_bag(table.clone().requires_grad_(True), ids)
+    assert eops.embedding_bag.launches == before + 1
+    assert torch.equal(out, 3 * table[1].expand(4, 8))
+
+
+def _rec_on(dev, cfg, params):
+    import copy
+    from repro_torch.models.sasrec import SASRec
+    return SASRec(cfg, copy.deepcopy(params), device=dev)
+
+
+def test_cuda_rec_serve_equals_cpu_serve(card, monkeypatch):
+    """The smoke config's serve and retrieval steps on the card (the
+    ``dht_gather`` kernel: 2 launches a serve call, 1 a retrieval call) and
+    on the CPU: candidate scores within 1e-5 of the largest |score| (TF32
+    off; the two devices' f32 matmuls and reductions sum in other
+    orders)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import RecStreamConfig, batch_at_step
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.launch.steps import rec_retrieval_step, rec_serve_step
+    from repro_torch.models.sasrec import init_params
+    cfg = registry.get("sasrec").smoke_config
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    seq, _, _ = batch_at_step(RecStreamConfig(cfg.n_items, cfg.seq_len, 64),
+                              0)
+    cands = np.random.default_rng(0).integers(1, cfg.n_items, (64, 256))
+    out = {}
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for dev in ("cpu", card):
+        model = _rec_on(dev, cfg, params)
+        counts = (ops.dht_gather.launches, eops.embedding_bag.launches)
+        scores = rec_serve_step(model, seq, cands)
+        mid = ops.dht_gather.launches
+        ret = rec_retrieval_step(model, seq[:1])
+        out[str(dev)] = (scores.cpu(), ret.cpu(),
+                         mid - counts[0], ops.dht_gather.launches - mid,
+                         eops.embedding_bag.launches - counts[1])
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[2:] == (0, 0, 0) and gpu[2:] == (2, 1, 0)
+    for a, b in zip(gpu[:2], cpu[:2]):
+        assert bool(torch.isfinite(a).all())
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * scale)
+
+
+def test_cuda_rec_train_step_equals_cpu_step(card, monkeypatch):
+    """One f32 ``rec_train_step`` of the smoke config on the card (3
+    ``dht_gather`` launches) and on the CPU: loss and grad norm within 1e-4
+    relative, every parameter within 2 lr (TF32 off)."""
+    from repro_torch.configs import registry
+    from repro_torch.data.recsys import RecStreamConfig, batch_at_step
+    from repro_torch.launch.steps import rec_train_step
+    from repro_torch.models.sasrec import init_params
+    from repro_torch.optim import adamw
+    cfg = registry.get("sasrec").smoke_config
+    params = init_params(cfg, torch.Generator().manual_seed(1))
+    seq, pos, neg = batch_at_step(RecStreamConfig(cfg.n_items, cfg.seq_len,
+                                                  32), 2)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for dev in ("cpu", card):
+        model = _rec_on(dev, cfg, params)
+        state = adamw.init_state(model, opt_cfg)
+        before = ops.dht_gather.launches
+        metrics = rec_train_step(model, opt_cfg, state, seq, pos, neg)
+        out[str(dev)] = (model, metrics, ops.dht_gather.launches - before)
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[2] == 0 and gpu[2] == 3
+    for key in ("loss", "grad_norm"):
+        a, b = float(gpu[1][key]), float(cpu[1][key])
+        assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+    lr = float(cpu[1]["lr"])
+    for (name, p), (_, q) in zip(gpu[0].named_parameters(),
+                                 cpu[0].named_parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= 2 * lr, \
+            name
+
+
+def test_cuda_gin_on_an_edge_list_with_a_hub(card, monkeypatch):
+    """gin-tu's smoke config on a star of in-degree 20,000 as an edge list:
+    a table of ``K_CAP`` slots through the kernel (5 launches) and the
+    hub's other in-edges by ``index_add_``, on the card and on the CPU;
+    logits within 1e-4 of the largest |logit| (TF32 off)."""
+    import copy
+    from repro_torch.configs import registry
+    from repro_torch.data import graphs
+    from repro_torch.kernels.segment_matmul import ops as sops
+    from repro_torch.models.gnn.gin import GIN, init_params
+    cfg = registry.get("gin-tu").smoke_config
+    g = gen.star(20_001)
+    feat = np.random.default_rng(0).standard_normal(
+        (g.n, cfg.d_feat)).astype(np.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    out = {}
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    for dev in ("cpu", card):
+        batch = graphs._to_batch(g, node_feat=feat, device=dev)
+        model = GIN(cfg, copy.deepcopy(params), device=dev)
+        before = sops.segment_matmul.launches
+        out[str(dev)] = (model(batch).detach().cpu(),
+                         sops.segment_matmul.launches - before)
+    cpu, gpu = out["cpu"], out[str(card)]
+    assert cpu[1] == 0 and gpu[1] == cfg.n_layers
+    scale = float(cpu[0].abs().max())
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=0, atol=1e-4 * scale)
+

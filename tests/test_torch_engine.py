@@ -175,6 +175,19 @@ def test_unported_surface_names_its_roadmap_item():
     assert eng.solve(g, "cc").problem == "connectivity"
 
 
+@pytest.mark.parametrize("problem,item", [
+    ("matching", 5), ("weighted-matching", 5), ("vertex-cover", 5),
+    ("one-vs-two", 6), ("1v2c", 6), ("mis-mpc", 7), ("msf-kkt", 7)])
+def test_unported_problem_names_the_roadmap_item_that_ports_it(problem,
+                                                              item):
+    """ROADMAP queue 1 numbers its items: the matching family is item 5,
+    one-vs-two item 6, the MPC baselines item 7 (item 4 is the MoE LM)."""
+    eng = AmpcEngine(device="cpu")
+    g = graph_from_arrays(3, np.array([[0, 1], [1, 2]]))
+    with pytest.raises(KeyError, match=f"queue 1, item {item}\\)"):
+        eng.solve(g, problem)
+
+
 def test_graph_from_arrays_copies_and_casts():
     edges = np.array([[0, 1], [1, 2]], np.int64)
     w = np.array([1.5, 2.5])

@@ -15,7 +15,13 @@ Tolerances, stated before measuring:
 - one ``gnn_train_step`` from one state: loss and grad norm within 1e-5
   relative; the new moments within 1e-3 of each element plus 1e-3 of the
   tensor's RMS; the new parameters within 2 lr of the reference's (one
-  step moves an element by at most about lr per unit of m̂ / sqrt(v̂)).
+  step moves an element by at most about lr per unit of m̂ / sqrt(v̂));
+- edge-list batches with hubs (a star of in-degree 10^5, an RMAT graph),
+  where the port sums a hub's first ``K_CAP`` in-edges in the table and
+  the rest apart: logits within 1e-4 of the largest |logit|, and the
+  gradients to x, each W1 and each eps within 1e-4 of the largest element
+  of the reference's gradient of that tensor (five layers of sums in
+  other orders, the hub's over 10^5 terms).
 """
 import dataclasses
 
@@ -41,7 +47,8 @@ from repro_torch.graph import generators as gen
 from repro_torch.kernels.segment_matmul import ops as seg_ops
 from repro_torch.launch.steps import gnn_forward_step, gnn_train_step
 from repro_torch.models.gnn import gin
-from repro_torch.models.gnn.common import GraphBatch, padded_neighbors
+from repro_torch.models.gnn.common import (GraphBatch, padded_neighbors,
+                                           split_neighbors)
 from repro_torch.optim import adamw
 
 BATCH_FIELDS = ("senders", "receivers", "node_mask", "edge_mask",
@@ -168,6 +175,29 @@ def test_padded_neighbors_equals_a_brute_force_table():
     assert empty.shape == (4, 1) and bool((empty == -1).all())
 
 
+def test_split_neighbors_caps_the_table_and_keeps_every_edge():
+    """Under a cap, the table is the uncapped one's first columns and the
+    overflow lists the rest of each row's senders, in order."""
+    rng = np.random.default_rng(6)
+    n, e = 17, 200
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = rng.integers(0, 4, e).astype(np.int32)   # four rows take every edge
+    mask = rng.random(e) < 0.9
+    args = (torch.from_numpy(s), torch.from_numpy(r), torch.from_numpy(mask),
+            n)
+    full = padded_neighbors(*args).numpy()
+    nbr, over_s, over_r = split_neighbors(*args, cap=5)
+    np.testing.assert_array_equal(nbr.numpy(), full[:, :5])
+    for v in range(n):
+        row = full[v][full[v] >= 0]
+        np.testing.assert_array_equal(over_s.numpy()[over_r.numpy() == v],
+                                      row[5:])
+    assert bool((over_r[1:] >= over_r[:-1]).all())
+    narrow, o_s, _ = split_neighbors(*args, cap=10 ** 6)
+    np.testing.assert_array_equal(narrow.numpy(), full)
+    assert o_s.numel() == 0
+
+
 # ------------------------------------------------------------------- model
 def _configs(d_feat, d_hidden):
     return (jax_gin.GINConfig(d_feat=d_feat, d_hidden=d_hidden,
@@ -271,6 +301,71 @@ def test_gnn_train_step_matches_jax(case):
     assert all(p.grad is None for p in model.parameters())
 
 
+def _edge_list_batches(case, d_feat):
+    """The same edge-list batch for both packages, with three padding nodes
+    and seven masked padding edges: a star whose centre has in-degree
+    10^5, or rmat(11, 8) (largest in-degree 369, so both have rows
+    past ``K_CAP``)."""
+    if case == "star":
+        jg, pg = jax_gen.star(100_001), gen.star(100_001)
+    else:
+        jg, pg = jax_gen.rmat(11, 8.0, seed=0), gen.rmat(11, 8.0, seed=0)
+    feat = np.random.default_rng(8).standard_normal(
+        (pg.n, d_feat)).astype(np.float32)
+    pad = dict(pad_nodes=pg.n + 3, pad_edges=2 * pg.m + 7)
+    return (jax_graphs._to_batch(jg, node_feat=feat, **pad),
+            graphs._to_batch(pg, node_feat=feat, device="cpu", **pad))
+
+
+@pytest.mark.parametrize("case", ["star", "rmat"])
+def test_gin_on_edge_lists_with_hubs_matches_jax(case, monkeypatch):
+    """An edge-list batch with rows of in-degree far past ``K_CAP`` goes
+    through a table of ``K_CAP`` slots and the overflow's edge list, and
+    its logits and gradients equal the reference's edge-list layer's."""
+    d_feat = 8
+    jcfg, pcfg = _configs(d_feat, 16)
+    ref_batch, batch = _edge_list_batches(case, d_feat)
+    counts = torch.bincount(batch.receivers[batch.edge_mask].long())
+    assert int(counts.max()) > gin.K_CAP
+    params = jax_gin.init_params(jcfg, jax.random.PRNGKey(2))
+    model = gin.GIN(pcfg, gnn_params_from_reference(
+        pcfg, jax.tree.map(np.asarray, params)), device="cpu")
+    widths = []
+
+    def recording(x, nbr, w):
+        widths.append(tuple(nbr.shape))
+        return seg_ops.segment_matmul(x, nbr, w)
+
+    monkeypatch.setattr(gin, "segment_matmul", recording)
+    feat = batch.node_feat.clone().requires_grad_(True)
+    logits = model(dataclasses.replace(batch, node_feat=feat))
+    # never a table as wide as the largest in-degree
+    assert widths == [(batch.n_nodes, gin.K_CAP)] * pcfg.n_layers
+    want = jax_gin.forward(jcfg, params, ref_batch)
+    limit = 1e-4 * float(np.abs(np.asarray(want)).max())
+    assert float(np.abs(logits.detach().numpy() - np.asarray(want)).max()) \
+        <= limit
+
+    cot = np.random.default_rng(9).standard_normal(
+        tuple(logits.shape)).astype(np.float32)
+    (logits * torch.from_numpy(cot)).sum().backward()
+
+    def weighted(p, f):
+        out = jax_gin.forward(jcfg, p, dataclasses.replace(ref_batch,
+                                                           node_feat=f))
+        return (out * cot).sum()
+
+    gp, gf = jax.grad(weighted, argnums=(0, 1))(params, ref_batch.node_feat)
+    pairs = [(feat.grad, gf)]
+    for layer, jl in zip(model.layers, gp["layers"]):
+        pairs += [(layer.mlp["l1"]["w"].grad, jl["mlp"]["l1"]["w"]),
+                  (layer.eps.grad, jl["eps"])]
+    for got, ref in pairs:
+        ref = np.asarray(ref, np.float64)
+        err = np.abs(got.double().numpy() - ref).max()
+        assert err <= 1e-4 * np.abs(ref).max(), (err, np.abs(ref).max())
+
+
 def test_sampled_training_lowers_the_loss():
     """Sampled-minibatch GIN training, as the reference's
     ``test_integration_gnn.py`` trains GCN: two disjoint components whose
@@ -323,9 +418,10 @@ def test_registry_resolves_gin_and_names_the_rest():
     assert entry.family == "gnn" and entry.config == gin.GINConfig()
     assert entry.smoke_config.d_hidden == 16
     assert "minibatch_lg" in entry.shapes
-    for arch in ("gcn-cora", "schnet", "mace", "sasrec"):
+    for arch in ("gcn-cora", "schnet", "mace"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
             registry.get(arch)
+    assert registry.get("sasrec").family == "recsys"   # ported since
 
 
 def test_gnn_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):

@@ -44,7 +44,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.flash_attention.bwd, "
             "repro_torch.kernels.segment_matmul.ops, "
             "repro_torch.models.gnn.gin, repro_torch.data.graphs, "
-            "repro_torch.configs.shapes; "
+            "repro_torch.configs.shapes, "
+            "repro_torch.kernels.embedding_bag.ops, "
+            "repro_torch.models.sasrec, repro_torch.data.recsys; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "assert not bad, bad; print('ok')")

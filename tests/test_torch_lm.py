@@ -273,7 +273,7 @@ def test_configs_match_jax(name):
 
 def test_registry_and_shapes_match_jax():
     lm = {aid for aid, e in jax_registry.REGISTRY.items() if e.family == "lm"}
-    ported = lm | {"gin-tu"}
+    ported = lm | {"gin-tu", "sasrec"}
     assert set(registry.REGISTRY) == ported
     for aid in ported:
         e, je = registry.get(aid), jax_registry.get(aid)
