@@ -9,8 +9,9 @@ CUDA toolkit.  It:
 1. prints the card's name and power limit (``nvidia-smi``) and the torch /
    CUDA versions;
 2. builds the kernels of every path from ``src/`` (one ``nvcc`` per
-   source, started together, into ``build/``) and prints the build time
-   and each kernel's register report;
+   source, started together, into ``build/``; the flash forward has two,
+   the wgmma route's and the SIMT route's) and prints the build time and
+   each kernel's register report;
 3. holds ``dht_gather`` against its plain PyTorch version on the card at
    the shapes the AMPC path gives it (and a few more), exactly (tolerance
    0), and times kernel / plain version / library call with CUDA events;
@@ -22,36 +23,41 @@ CUDA toolkit.  It:
    greedy-MIS oracle) and the Table-3 shuffle counts.  The label maps each
    connectivity solve reads through the DHT go through the kernel and its
    plain version once more, after the counts are read, and must agree;
-5. holds the flash-attention forward kernel against its plain version on
-   the card, element by element (bf16 within 2^-7 of each output plus
+5. holds the flash-attention forward kernels against their plain version
+   on the card, element by element (bf16 within 2^-7 of each output plus
    1e-3, f32 within 1e-5: the kernel sums in another order) at the LM
-   path's shape and at D 256 with a window, K > S, and f32 with and
-   without a window, and times kernel / plain version / SDPA;
+   path's shape and at D 256 with a window, K > S (bf16: the wgmma route),
+   and f32 with and without a window (the SIMT route), each row naming its
+   route; times kernel / plain version / SDPA, and at the path's shape the
+   SIMT kernel on the same bf16 inputs (the design the wgmma route
+   replaced there);
 6. drives the qwen3-4b LM forward (the registry's config at full width and
    depth, ``attention_impl="pallas"``, seeded bf16 weights on the card) on
    one batch of ``LM_SHAPES["train_4k"]`` cut to B 2 (S 4096), twice, with
    the launch counts set to 0 just before and read just after: 36 flash
-   launches per forward, finite logits and loss, an untrained loss near
-   ln(vocab).  The first and last layer's q, k, v go through the kernel and
-   its plain version after the counts are read.  At S 1024 the whole
-   forward, in f32 on the same weights with TF32 off, is held against
-   ``attention_impl="xla"`` within 1e-4;
+   launches per forward, all on the wgmma route, finite logits and loss,
+   an untrained loss near ln(vocab).  The first and last layer's q, k, v
+   go through the kernel and its plain version after the counts are
+   read.  At S 1024 the whole forward, in f32 on the same weights with
+   TF32 off (the SIMT route), is held against ``attention_impl="xla"``
+   within 1e-4;
 7. holds the flash-attention backward kernels (dq, dk/dv) against their
    plain version on the card, element by element (``ref.grad_limit``: one
    ulp of each bf16 element or 2^-14 of an f32 one, above a floor of
-   2 n 2^-24 for a sum of n terms), with the forward kernel's ``lse``, at
-   the training path's shape, at D 256 with a window, K > S ragged, f32
-   with and without a window and on strided heads; runs each kernel twice
-   and asks for equal bits; times kernels / plain version / SDPA's
-   backward;
+   2 n 2^-24 for a sum of n terms), the kernels fed the forward kernel's
+   ``lse``, which is held against the plain one too, at the training
+   path's shape, at D 256 with a window, K > S ragged, f32 with and
+   without a window and on strided heads; runs each kernel twice and asks
+   for equal bits; times kernels / plain version / SDPA's backward;
 8. trains qwen3-4b at full width and depth (f32 parameters, bf16
    compute, ``remat="full"``, AdamW with f32 state) for three steps of
    ``LM_SHAPES["train_4k"]`` cut to a global batch of 2 in 2 microbatches
    (S 4096) through ``launch.steps.lm_train_step``, with the launch counts
    set to 0 just before each step and read just after: 144 forward (two
-   microbatches, each layer's forward and its remat recompute), 72 dq and
-   72 dk/dv launches, finite losses near ln(vocab) at step 0, a finite
-   positive grad norm, every parameter changed, AdamW's step count 3;
+   microbatches, each layer's forward and its remat recompute; all on the
+   wgmma route), 72 dq and 72 dk/dv launches, finite losses near
+   ln(vocab) at step 0, a finite positive grad norm, every parameter
+   changed, AdamW's step count 3;
    prints step time, tokens/s, peak memory, the lr and loss of each step,
    and the last step's device time by kind of kernel (``torch.profiler``;
    that step's wall time carries the profiler's cost);
@@ -106,7 +112,8 @@ CUDA toolkit.  It:
    and ``F.embedding_bag(mode="sum", padding_idx=0)``;
 13. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase; the
-   flash forward: the first layer's own q, k, v; dq and dk/dv: the
+   flash forward: the first layer's own q, k, v, its kernel route and the
+   SIMT kernel's time there; dq and dk/dv: the
    training path's shape; segment_matmul: GIN layer 0's own inputs in the
    forward; embedding_bag: the trained item table and step 0's histories)
    and as its last line ``{"ok": true, "device": {...}}``.
@@ -144,6 +151,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"bfloat16": (2 ** -7, 1e-3), "float32": (0.0, 1e-5)}
 LM_ARCH, LM_SHAPE, LM_BATCH, LM_SEED, LM_DATA_SEED = \
     "qwen3-4b", "train_4k", 2, 0, 0
+# the flash forward's source by route: flash_attention_fwd{suffix}.cu
+FWD_SOURCE = {"wgmma": "_wgmma", "simt": ""}
 XLA_SEQ = 1024          # under the chunked-attention threshold
 # the pallas and xla forwards in f32 with TF32 off: every matmul outside
 # attention is the same call on the same inputs, so the logits differ only
@@ -460,8 +469,9 @@ def attention_pairs(S, K, causal, window):
 
 def flash_case(name, q, k, v, window, timed, library):
     """Kernel vs plain version on one causal input; timings when
-    ``timed``, the SDPA time when ``library`` (causal, K == S, no window:
-    the same function)."""
+    ``timed``; the SDPA time when ``library`` (causal, K == S, no window:
+    the same function), and there, for a wgmma-route input, the SIMT
+    kernel's time on the same inputs."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel, ops
@@ -492,9 +502,9 @@ def flash_case(name, q, k, v, window, timed, library):
         * q.element_size()
     op_ms = flops / PEAK_FLOPS[dtype] * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    row = {"shape": name, "B": B, "S": S, "K": K, "H": H, "Hkv": Hkv,
-           "D": D, "window": window, "dtype": dtype, "max_abs_err": err,
-           "err_over_limit": worst,
+    row = {"shape": name, "kernel_route": kernel.route(q), "B": B, "S": S,
+           "K": K, "H": H, "Hkv": Hkv, "D": D, "window": window,
+           "dtype": dtype, "max_abs_err": err, "err_over_limit": worst,
            "flops": flops, "bytes": nbytes, "bound_ms": max(op_ms, byte_ms),
            "bound_by": "operations" if op_ms >= byte_ms else "bytes"}
     if timed:
@@ -511,6 +521,10 @@ def flash_case(name, q, k, v, window, timed, library):
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=True, enable_gqa=True), reps=10)
+            if row["kernel_route"] == "wgmma":
+                row["simt_ms"] = time_ms(
+                    lambda: kernel.launch(q, k, v, buf, True, window,
+                                          which="simt"), reps=5)
     return row
 
 
@@ -607,6 +621,7 @@ def lm_phase():
     try:
         for rep in range(2):
             kernel_call.launches = 0
+            kernel_call.launches_by_route = {"wgmma": 0, "simt": 0}
             dht_ops.dht_gather.launches = 0
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
@@ -619,11 +634,15 @@ def lm_phase():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = kernel_call.launches
+            by_route = dict(kernel_call.launches_by_route)
             dht = dht_ops.dht_gather.launches
             main_launches += launches
             check(launches == cfg.n_layers,
                   f"forward launched the flash kernel {launches} times, "
                   f"expected {cfg.n_layers}")
+            check(by_route == {"wgmma": cfg.n_layers, "simt": 0},
+                  f"forward launched {by_route} by route, expected all "
+                  f"{cfg.n_layers} on the wgmma route")
             check(dht == 0, f"the LM forward launched dht_gather {dht} "
                   f"times")
             check(tuple(logits.shape) == (LM_BATCH, shape.seq_len,
@@ -639,7 +658,8 @@ def lm_phase():
             emit({"phase": "lm_forward", "rep": rep, "forward_s": fwd,
                   "forward_and_loss_s": wall,
                   "tokens_per_s": LM_BATCH * shape.seq_len / fwd,
-                  "flash_launches": launches, "loss": float(loss),
+                  "flash_launches": launches,
+                  "flash_launches_by_route": by_route, "loss": float(loss),
                   "nll": nll,
                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
             del logits, loss, metrics
@@ -730,8 +750,8 @@ def sdpa_backward_ms(q, k, v, do):
 
 
 def bwd_case(name, q, k, v, do, window, timed, library):
-    """dq and dk/dv kernels (twice each) and the forward kernel's lse
-    against the plain version on one causal input; timings when
+    """dq and dk/dv kernels (twice each), fed the forward kernel's lse, and
+    that lse against the plain version on one causal input; timings when
     ``timed``, SDPA's backward when ``library``."""
     import torch
     from repro_torch.kernels.flash_attention import bwd, kernel
@@ -743,17 +763,18 @@ def bwd_case(name, q, k, v, do, window, timed, library):
     _, lse_kernel = kernel.flash_attention_cuda(q, k, v, True, window,
                                                 with_lse=True)
     delta = bwd.row_delta(o, do)
-    runs = [(bwd.flash_bwd_dq(q, k, v, do, lse, delta, True, window),
-             *bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True, window))
+    runs = [(bwd.flash_bwd_dq(q, k, v, do, lse_kernel, delta, True, window),
+             *bwd.flash_bwd_dkv(q, k, v, do, lse_kernel, delta, True,
+                                window))
             for _ in range(2)]
     want = attention_bwd_ref(q, k, v, o, lse, do, True, window)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(*runs)),
           f"backward kernels differ between two runs at {name}")
     dtype = str(q.dtype).replace("torch.", "")
-    row = {"shape": name, "B": B, "S": S, "K": K, "H": H, "Hkv": Hkv,
-           "D": D, "window": window, "dtype": dtype,
-           "strided": not q.is_contiguous()}
+    row = {"shape": name, "fwd_kernel_route": kernel.route(q), "B": B,
+           "S": S, "K": K, "H": H, "Hkv": Hkv, "D": D, "window": window,
+           "dtype": dtype, "strided": not q.is_contiguous()}
     G = H // Hkv
     for what, got, ref, n in (("lse", lse_kernel, lse, K),
                               ("dq", runs[0][0], want[0], K),
@@ -857,7 +878,9 @@ def launch_counts():
     from repro_torch.kernels.embedding_bag import ops as embag_ops
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
     from repro_torch.kernels.segment_matmul import ops as seg_ops
+    by_route = flash_ops.flash_attention.launches_by_route
     return {"fwd": flash_ops.flash_attention.launches,
+            "fwd_wgmma": by_route["wgmma"], "fwd_simt": by_route["simt"],
             "dq": bwd.flash_bwd_dq.launches,
             "dkv": bwd.flash_bwd_dkv.launches,
             "dht_gather": dht_ops.dht_gather.launches,
@@ -871,6 +894,7 @@ def zero_launch_counts():
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
     from repro_torch.kernels.segment_matmul import ops as seg_ops
     flash_ops.flash_attention.launches = 0
+    flash_ops.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     bwd.flash_bwd_dq.launches = bwd.flash_bwd_dkv.launches = 0
     dht_ops.dht_gather.launches = 0
     seg_ops.segment_matmul.launches = 0
@@ -878,7 +902,8 @@ def zero_launch_counts():
 
 
 # kernel names of the step's parts, as the profiler reports them
-KERNEL_KINDS = (("flash_fwd", ("flash_fwd_kernel",)),
+KERNEL_KINDS = (("flash_fwd", ("flash_fwd_kernel",
+                                "flash_fwd_wgmma_kernel")),
                 ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
                 ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                 ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
@@ -957,6 +982,7 @@ def lm_train_phase():
     stream = TokenStreamConfig(cfg.vocab, shape.seq_len, TRAIN_BATCH,
                                seed=LM_DATA_SEED)
     want = {"fwd": 2 * TRAIN_MICRO * cfg.n_layers,
+            "fwd_wgmma": 2 * TRAIN_MICRO * cfg.n_layers, "fwd_simt": 0,
             "dq": TRAIN_MICRO * cfg.n_layers,
             "dkv": TRAIN_MICRO * cfg.n_layers, "dht_gather": 0,
             "segment_matmul": 0, "embedding_bag": 0}
@@ -1047,9 +1073,10 @@ def lm_train_vs_xla_phase():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     L = GRAD_LAYERS
-    check(launched["pallas"] == {"fwd": L, "dq": L, "dkv": L,
-                                 "dht_gather": 0, "segment_matmul": 0,
-                                 "embedding_bag": 0},
+    # f32: the forward takes the SIMT route
+    check(launched["pallas"] == {"fwd": L, "fwd_wgmma": 0, "fwd_simt": L,
+                                 "dq": L, "dkv": L, "dht_gather": 0,
+                                 "segment_matmul": 0, "embedding_bag": 0},
           f"pallas gradients launched {launched['pallas']}")
     check(launched["xla"] == dict.fromkeys(launched["xla"], 0),
           f"xla gradients launched {launched['xla']}")
@@ -1727,10 +1754,12 @@ def build_kernels():
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.segment_matmul import kernel as seg_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         futures = {"dht_gather": pool.submit(dht_gather_kernel.build, True),
+                   "flash_attention_fwd_wgmma": pool.submit(
+                       flash_kernel.build, "wgmma", True),
                    "flash_attention_fwd": pool.submit(flash_kernel.build,
-                                                      True),
+                                                      "simt", True),
                    "flash_attention_bwd": pool.submit(flash_bwd.build,
                                                       True),
                    "segment_matmul": pool.submit(seg_kernel.build, True),
@@ -1838,17 +1867,25 @@ def main() -> int:
         "library_ms": main_row["library_ms"],
         "shapes": rows + [rec_row]}, {
         "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": flash_row["kernel_route"],
         "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_fwd.cu",
+                  f"flash_attention_fwd{FWD_SOURCE[flash_row['kernel_route']]}"
+                  ".cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": flash_launches + train_launches["fwd"],
         "launches_by_phase": {"lm_forward": flash_launches,
                               "lm_train": train_launches["fwd"]},
+        "launches_by_route": {"wgmma": flash_launches
+                              + train_launches["fwd_wgmma"],
+                              "simt": train_launches["fwd_simt"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_err_over_limit": max(
             [r["err_over_limit"] for r in flash_rows]
             + [r["lse_err_over_limit"] for r in bwd_rows]),
         "ms": flash_row["ms"], "plain_ms": flash_row["plain_ms"],
+        "earlier_ms": flash_row.get("simt_ms"),
+        "earlier": "the SIMT kernel (flash_attention_fwd.cu) on the same "
+                   "inputs, this run",
         "bound_ms": flash_row["bound_ms"],
         "bound_by": flash_row["bound_by"],
         "library_ms": flash_row["library_ms"],

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .bwd import FlashAttention
-from .kernel import flash_attention_cuda
+from .kernel import flash_attention_cuda, route
 from .ref import attention_ref
 
 
@@ -25,8 +25,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels on CUDA tensors and their plain version on CPU tensors.
 
     ``flash_attention.launches`` counts forward kernel launches (CUDA
-    tensors); ``bwd.flash_bwd_dq.launches`` and
-    ``bwd.flash_bwd_dkv.launches`` count the backward kernels'.
+    tensors), ``flash_attention.launches_by_route`` the same launches by
+    the kernel that took them (``kernel.route``: "wgmma" or "simt");
+    ``bwd.flash_bwd_dq.launches`` and ``bwd.flash_bwd_dkv.launches`` count
+    the backward kernels'.
     """
     # the contract on every device; flash_attention_cuda checks what the
     # kernel itself needs (type, head width, strides)
@@ -54,7 +56,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal=causal, window=window)
     if q.is_cuda and q.numel():   # an empty q launches nothing
         flash_attention.launches += 1
+        flash_attention.launches_by_route[route(q)] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}

@@ -57,6 +57,58 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def split_p_block_k(D: int) -> int:
+    """Keys per kv tile of the wgmma route: 128 at D <= 128, 64 at 256."""
+    return 128 if D <= 128 else 64
+
+
+def attention_split_p_ref(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """The wgmma route's arithmetic (``csrc/flash_attention_fwd_wgmma.cu``)
+    in plain torch, for the tests and ``chip_smoke.py``: online softmax
+    over kv tiles of ``split_p_block_k(D)`` keys, f32 logits scaled to log2
+    units, masked logits -1e30, and each tile's f32 P split into P_hi =
+    bf16(P) and P_lo = bf16(P - P_hi), whose two products with V add into
+    an f32 accumulator; l sums the f32 P.  Output acc / max(l, 1e-30) in
+    q's type.  (The kernel skips the tiles the mask empties; here their P
+    is wiped by the next live tile's exp(-1e30 - m) = 0, the same
+    numbers.)"""
+    B, S, H, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    BK = split_p_block_k(D)
+    scale_log2 = float(torch.tensor(math.log2(math.e) / math.sqrt(D),
+                                    dtype=torch.float32))
+    qf = q.float().reshape(B, S, Hkv, G, D)
+    m = torch.full((B, Hkv, G, S), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, S), device=q.device)
+    acc = torch.zeros((B, Hkv, G, S, D), device=q.device)
+    qpos = torch.arange(S, device=q.device)[:, None] + (K - S)
+    for k0 in range(0, K, BK):
+        kt, vt = k[:, k0:k0 + BK].float(), v[:, k0:k0 + BK].float()
+        x = torch.einsum("bqhgd,bkhd->bhgqk", qf, kt) * scale_log2
+        diff = qpos - torch.arange(k0, k0 + kt.shape[1], device=q.device)
+        keep = torch.ones_like(diff, dtype=torch.bool)
+        if causal:
+            keep &= diff >= 0
+        if window and window > 0:
+            keep &= diff < window
+        x = torch.where(keep, x, NEG_INF)
+        mx = torch.maximum(m, x.amax(-1))
+        corr = torch.exp2(m - mx)
+        p = torch.exp2(x - mx[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        lo = (p - hi).to(torch.bfloat16).float()
+        acc = (acc * corr[..., None]
+               + torch.einsum("bhgqk,bkhd->bhgqd", hi, vt)
+               + torch.einsum("bhgqk,bkhd->bhgqd", lo, vt))
+        m = mx
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
 def attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: int = 0):
     """(out, lse): the forward and its rows' log-sum-exp, the counterpart

@@ -73,7 +73,23 @@ def degree(receivers, n_nodes, edge_mask=None):
 
 
 def graph_readout(node_vals, graph_ids, n_graphs, node_mask, op="sum"):
-    s = scatter_sum(_mask_rows(node_vals, node_mask), graph_ids, n_graphs)
+    """Per-graph sum (or mean) of the unmasked node rows.
+
+    On the CPU the sum is ``scatter_sum``'s ``index_add_``, which adds the
+    rows in order, as the reference's ``segment_sum`` does.  On CUDA
+    tensors ``index_add_`` adds with atomics in an order that changes from
+    run to run, so the sum is a one-hot (n_graphs, N) product instead: a
+    fixed order, the same bits every run, and its gradient through the
+    matmul.  (It follows the matmul settings, e.g. TF32, as every linear
+    layer of the model does.)"""
+    vals = _mask_rows(node_vals, node_mask)
+    if vals.is_cuda:
+        ids = torch.arange(n_graphs, device=vals.device)
+        onehot = (graph_ids.long()[None, :] == ids[:, None]).to(vals.dtype)
+        s = (onehot @ vals.reshape(vals.shape[0], -1)).reshape(
+            (n_graphs,) + tuple(vals.shape[1:]))
+    else:
+        s = scatter_sum(vals, graph_ids, n_graphs)
     if op == "sum":
         return s
     cnt = scatter_sum(node_mask.float(), graph_ids, n_graphs)
