@@ -9,9 +9,10 @@ CUDA toolkit.  It:
 1. prints the card's name and power limit (``nvidia-smi``) and the torch /
    CUDA versions;
 2. builds the kernels of every path from ``src/`` (one ``nvcc`` per
-   source, started together, into ``build/``; the flash forward has two,
-   the wgmma route's and the SIMT route's) and prints the build time and
-   each kernel's register report;
+   source, started together, into ``build/``; the flash forward and the
+   flash backward have two each, the wgmma route's and the SIMT route's)
+   and prints the build time and each kernel's register report (the
+   backward wgmma kernels must spill nothing);
 3. holds ``dht_gather`` against its plain PyTorch version on the card at
    the shapes the AMPC path gives it (and a few more), exactly (tolerance
    0), and times kernel / plain version / library call with CUDA events;
@@ -47,15 +48,24 @@ CUDA toolkit.  It:
    2 n 2^-24 for a sum of n terms), the kernels fed the forward kernel's
    ``lse``, which is held against the plain one too, at the training
    path's shape, at D 256 with a window, K > S ragged, f32 with and
-   without a window and on strided heads; runs each kernel twice and asks
-   for equal bits; times kernels / plain version / SDPA's backward;
+   without a window and on strided heads, each case on the route
+   ``bwd.route`` gives it (bf16 at D 64/128: wgmma; the rest: SIMT) and
+   counted there; runs each kernel twice and asks for equal bits; on the
+   wgmma route counts the elements of each gradient that are not the
+   correctly rounded f32 gradient and holds that count to
+   ``ref.rounding_miss_limit`` of the split mirror's and a bf16-only P and
+   dS mirror's (P and dS kept at f32 accuracy); times kernels / plain
+   version / SDPA's backward, and for a wgmma-route input the SIMT kernels
+   on the same inputs, and prints the split's tensor work beside the
+   bound;
 8. trains qwen3-4b at full width and depth (f32 parameters, bf16
    compute, ``remat="full"``, AdamW with f32 state) for three steps of
    ``LM_SHAPES["train_4k"]`` cut to a global batch of 2 in 2 microbatches
    (S 4096) through ``launch.steps.lm_train_step``, with the launch counts
    set to 0 just before each step and read just after: 144 forward (two
    microbatches, each layer's forward and its remat recompute; all on the
-   wgmma route), 72 dq and 72 dk/dv launches, finite losses near
+   wgmma route), 72 dq and 72 dk/dv launches (all on the wgmma route),
+   finite losses near
    ln(vocab) at step 0, a finite positive grad norm, every parameter
    changed, AdamW's step count 3;
    prints step time, tokens/s, peak memory, the lr and loss of each step,
@@ -114,7 +124,8 @@ CUDA toolkit.  It:
    connectivity solve's root-label read, with its launches by phase; the
    flash forward: the first layer's own q, k, v, its kernel route and the
    SIMT kernel's time there; dq and dk/dv: the
-   training path's shape; segment_matmul: GIN layer 0's own inputs in the
+   training path's shape, their route and the SIMT kernels' time there;
+   segment_matmul: GIN layer 0's own inputs in the
    forward; embedding_bag: the trained item table and step 0's histories)
    and as its last line ``{"ok": true, "device": {...}}``.
 
@@ -151,8 +162,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLASH_TOL = {"bfloat16": (2 ** -7, 1e-3), "float32": (0.0, 1e-5)}
 LM_ARCH, LM_SHAPE, LM_BATCH, LM_SEED, LM_DATA_SEED = \
     "qwen3-4b", "train_4k", 2, 0, 0
-# the flash forward's source by route: flash_attention_fwd{suffix}.cu
-FWD_SOURCE = {"wgmma": "_wgmma", "simt": ""}
+FLASH_CSRC = "src/repro_torch/kernels/flash_attention/csrc"
 XLA_SEQ = 1024          # under the chunked-attention threshold
 # the pallas and xla forwards in f32 with TF32 off: every matmul outside
 # attention is the same call on the same inputs, so the logits differ only
@@ -528,6 +538,13 @@ def flash_case(name, q, k, v, window, timed, library):
     return row
 
 
+def flash_source(kind, route):
+    """The repository path of the flash ``kind`` ("fwd" or "bwd") source of
+    ``route`` ("wgmma" or "simt")."""
+    suffix = "_wgmma" if route == "wgmma" else ""
+    return f"{FLASH_CSRC}/flash_attention_{kind}{suffix}.cu"
+
+
 def flash_phase():
     """The kernel at the LM path's shape (qwen3-4b, B 2, S 4096), at D 256
     with a window (gemma3-12b's heads), with K > S and ragged S, and in
@@ -756,13 +773,17 @@ def bwd_case(name, q, k, v, do, window, timed, library):
     import torch
     from repro_torch.kernels.flash_attention import bwd, kernel
     from repro_torch.kernels.flash_attention.ref import (
-        attention_bwd_ref, attention_fwd_lse_ref, grad_limit)
+        attention_bwd_ref, attention_bwd_split_ref, attention_fwd_lse_ref,
+        grad_limit, rounding_miss_limit)
     B, S, H, D = q.shape
     K, Hkv = k.shape[1], k.shape[2]
     o, lse = attention_fwd_lse_ref(q, k, v, True, window)
     _, lse_kernel = kernel.flash_attention_cuda(q, k, v, True, window,
                                                 with_lse=True)
     delta = bwd.row_delta(o, do)
+    route = bwd.route(q)
+    fns = (bwd.flash_bwd_dq, bwd.flash_bwd_dkv)
+    before = [dict(fn.launches_by_route) for fn in fns]
     runs = [(bwd.flash_bwd_dq(q, k, v, do, lse_kernel, delta, True, window),
              *bwd.flash_bwd_dkv(q, k, v, do, lse_kernel, delta, True,
                                 window))
@@ -771,10 +792,15 @@ def bwd_case(name, q, k, v, do, window, timed, library):
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(*runs)),
           f"backward kernels differ between two runs at {name}")
+    for fn, was in zip(fns, before):
+        check(fn.launches_by_route == dict(was, **{route: was[route] + 2}),
+              f"{fn.__name__} at {name} launched {fn.launches_by_route} "
+              f"by route from {was}, not twice on {route}")
     dtype = str(q.dtype).replace("torch.", "")
-    row = {"shape": name, "fwd_kernel_route": kernel.route(q), "B": B,
-           "S": S, "K": K, "H": H, "Hkv": Hkv, "D": D, "window": window,
-           "dtype": dtype, "strided": not q.is_contiguous()}
+    row = {"shape": name, "kernel_route": route,
+           "fwd_kernel_route": kernel.route(q), "B": B, "S": S, "K": K,
+           "H": H, "Hkv": Hkv, "D": D, "window": window, "dtype": dtype,
+           "strided": not q.is_contiguous()}
     G = H // Hkv
     for what, got, ref, n in (("lse", lse_kernel, lse, K),
                               ("dq", runs[0][0], want[0], K),
@@ -787,6 +813,26 @@ def bwd_case(name, q, k, v, do, window, timed, library):
         row[f"{what}_err_over_limit"] = worst
         check(worst <= 1.0, f"{what} differs from its plain version at "
               f"{name}: {worst} times its limit")
+    if route == "wgmma":
+        # P and dS at f32 accuracy: count the elements that are not the
+        # correctly rounded f32 gradient, against the split mirror's count
+        # and a bf16-only P and dS mirror's on the kernels' own lse
+        args = (q, k, v, o, lse_kernel, do, True, window)
+        target = attention_bwd_ref(*args)
+        mirrors = (attention_bwd_split_ref(*args),
+                   attention_bwd_split_ref(*args, lo=False))
+        for what, got, want_rn, split, one in zip(
+                ("dq", "dk", "dv"), runs[0], target, *mirrors):
+            misses = [int((x != want_rn).sum()) for x in (got, split, one)]
+            limit = rounding_miss_limit(*misses[1:])
+            row.update({f"{what}_rounding_misses": misses[0],
+                        f"{what}_split_mirror_misses": misses[1],
+                        f"{what}_bf16_mirror_misses": misses[2],
+                        f"{what}_miss_limit": limit})
+            check(misses[0] <= limit, f"{what} at {name}: {misses[0]} "
+                  f"elements not the rounded f32 gradient, past {limit} "
+                  f"(split mirror {misses[1]}, bf16-only {misses[2]})")
+        del target, mirrors
     del runs
     pairs = attention_pairs(S, K, True, window)
     product = 2 * D * pairs * B * H          # flops of one masked product
@@ -794,14 +840,24 @@ def bwd_case(name, q, k, v, do, window, timed, library):
     reads = (q.numel() + k.numel() + v.numel() + do.numel()) * es \
         + 2 * lse.numel() * 4                # q, k, v, do, lse, delta
     peak = PEAK_FLOPS[dtype]
-    for kname, flops, nbytes in (
-            ("dq", 3 * product, reads + q.numel() * es),
-            ("dkv", 4 * product, reads + 2 * k.numel() * es)):
+    # the wgmma route takes P and dS in two bf16 parts, so the products
+    # that read them run twice on the tensor cores: 4 products in dq (S,
+    # dP, dQ hi and lo), 6 in dk/dv (S, dP, dV and dK hi and lo)
+    split = route == "wgmma"
+    row["tensor_work"] = {}
+    for kname, n_products, n_split, nbytes in (
+            ("dq", 3, 4, reads + q.numel() * es),
+            ("dkv", 4, 6, reads + 2 * k.numel() * es)):
+        flops = n_products * product
         op_ms, byte_ms = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         row[f"{kname}_flops"] = flops
         row[f"{kname}_bound_ms"] = max(op_ms, byte_ms)
         row[f"{kname}_bound_by"] = ("operations" if op_ms >= byte_ms
                                     else "bytes")
+        tensor_flops = (n_split if split else n_products) * product
+        row["tensor_work"].update({
+            f"{kname}_tensor_flops": tensor_flops,
+            f"{kname}_tensor_ms_at_peak": tensor_flops / peak * 1e3})
     if timed:
         dq_buf = torch.empty_like(q, memory_format=torch.contiguous_format)
         dk_buf, dv_buf = torch.empty_like(k), torch.empty_like(v)
@@ -821,6 +877,14 @@ def bwd_case(name, q, k, v, do, window, timed, library):
             library_ms=None, library_backend=None)
         row["dq_tflops"] = row["dq_flops"] / row["dq_ms"] / 1e9
         row["dkv_tflops"] = row["dkv_flops"] / row["dkv_ms"] / 1e9
+        if route == "wgmma":
+            row.update(
+                dq_simt_ms=time_ms(lambda: bwd.launch_dq(
+                    q, k, v, do, lse, delta, dq_buf, True, window,
+                    which="simt"), reps=5),
+                dkv_simt_ms=time_ms(lambda: bwd.launch_dkv(
+                    q, k, v, do, lse, delta, dk_buf, dv_buf, True, window,
+                    which="simt"), reps=5))
         if library:
             row["library_ms"], row["library_backend"] = sdpa_backward_ms(
                 q, k, v, do)
@@ -879,10 +943,14 @@ def launch_counts():
     from repro_torch.kernels.flash_attention import bwd, ops as flash_ops
     from repro_torch.kernels.segment_matmul import ops as seg_ops
     by_route = flash_ops.flash_attention.launches_by_route
+    dq_route = bwd.flash_bwd_dq.launches_by_route
+    dkv_route = bwd.flash_bwd_dkv.launches_by_route
     return {"fwd": flash_ops.flash_attention.launches,
             "fwd_wgmma": by_route["wgmma"], "fwd_simt": by_route["simt"],
             "dq": bwd.flash_bwd_dq.launches,
+            "dq_wgmma": dq_route["wgmma"], "dq_simt": dq_route["simt"],
             "dkv": bwd.flash_bwd_dkv.launches,
+            "dkv_wgmma": dkv_route["wgmma"], "dkv_simt": dkv_route["simt"],
             "dht_gather": dht_ops.dht_gather.launches,
             "segment_matmul": seg_ops.segment_matmul.launches,
             "embedding_bag": embag_ops.embedding_bag.launches}
@@ -896,6 +964,8 @@ def zero_launch_counts():
     flash_ops.flash_attention.launches = 0
     flash_ops.flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
     bwd.flash_bwd_dq.launches = bwd.flash_bwd_dkv.launches = 0
+    bwd.flash_bwd_dq.launches_by_route = {"wgmma": 0, "simt": 0}
+    bwd.flash_bwd_dkv.launches_by_route = {"wgmma": 0, "simt": 0}
     dht_ops.dht_gather.launches = 0
     seg_ops.segment_matmul.launches = 0
     embag_ops.embedding_bag.launches = 0
@@ -904,8 +974,10 @@ def zero_launch_counts():
 # kernel names of the step's parts, as the profiler reports them
 KERNEL_KINDS = (("flash_fwd", ("flash_fwd_kernel",
                                 "flash_fwd_wgmma_kernel")),
-                ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+                ("flash_bwd_dq", ("flash_bwd_dq_kernel",
+                                  "flash_bwd_dq_wgmma_kernel")),
+                ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                                   "flash_bwd_dkv_wgmma_kernel")),
                 ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
 
 
@@ -984,7 +1056,10 @@ def lm_train_phase():
     want = {"fwd": 2 * TRAIN_MICRO * cfg.n_layers,
             "fwd_wgmma": 2 * TRAIN_MICRO * cfg.n_layers, "fwd_simt": 0,
             "dq": TRAIN_MICRO * cfg.n_layers,
-            "dkv": TRAIN_MICRO * cfg.n_layers, "dht_gather": 0,
+            "dq_wgmma": TRAIN_MICRO * cfg.n_layers, "dq_simt": 0,
+            "dkv": TRAIN_MICRO * cfg.n_layers,
+            "dkv_wgmma": TRAIN_MICRO * cfg.n_layers, "dkv_simt": 0,
+            "dht_gather": 0,
             "segment_matmul": 0, "embedding_bag": 0}
     total = dict.fromkeys(want, 0)
     losses = []
@@ -1073,10 +1148,12 @@ def lm_train_vs_xla_phase():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
     L = GRAD_LAYERS
-    # f32: the forward takes the SIMT route
+    # f32: the forward and the backward take the SIMT route
     check(launched["pallas"] == {"fwd": L, "fwd_wgmma": 0, "fwd_simt": L,
-                                 "dq": L, "dkv": L, "dht_gather": 0,
-                                 "segment_matmul": 0, "embedding_bag": 0},
+                                 "dq": L, "dq_wgmma": 0, "dq_simt": L,
+                                 "dkv": L, "dkv_wgmma": 0, "dkv_simt": L,
+                                 "dht_gather": 0, "segment_matmul": 0,
+                                 "embedding_bag": 0},
           f"pallas gradients launched {launched['pallas']}")
     check(launched["xla"] == dict.fromkeys(launched["xla"], 0),
           f"xla gradients launched {launched['xla']}")
@@ -1754,14 +1831,16 @@ def build_kernels():
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.segment_matmul import kernel as seg_kernel
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         futures = {"dht_gather": pool.submit(dht_gather_kernel.build, True),
                    "flash_attention_fwd_wgmma": pool.submit(
                        flash_kernel.build, "wgmma", True),
                    "flash_attention_fwd": pool.submit(flash_kernel.build,
                                                       "simt", True),
+                   "flash_attention_bwd_wgmma": pool.submit(
+                       flash_bwd.build, "wgmma", True),
                    "flash_attention_bwd": pool.submit(flash_bwd.build,
-                                                      True),
+                                                      "simt", True),
                    "segment_matmul": pool.submit(seg_kernel.build, True),
                    "embedding_bag": pool.submit(embag_kernel.build, True)}
         logs = {name: f.result() for name, f in futures.items()}
@@ -1798,8 +1877,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": seconds})
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill",
+                                       "entry function", "(C75")):
                 print(f"[{name}] {line.strip()}", flush=True)
+    # the backward's wgmma kernels, dq and dk/dv at D 64 and 128: ptxas
+    # reports each, and none spills
+    bwd_log = logs["flash_attention_bwd_wgmma"].splitlines()
+    check(sum("entry function" in line for line in bwd_log) == 4
+          and all("0 bytes spill stores, 0 bytes spill loads" in line
+                  for line in bwd_log if "spill" in line),
+          "the backward wgmma kernels' ptxas report shows a spill or a "
+          "missing kernel")
 
     t0 = time.perf_counter()
     g = gen.rmat(RMAT_LOG2, RMAT_DEG, seed=RMAT_SEED)
@@ -1868,9 +1956,7 @@ def main() -> int:
         "shapes": rows + [rec_row]}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "kernel_route": flash_row["kernel_route"],
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  f"flash_attention_fwd{FWD_SOURCE[flash_row['kernel_route']]}"
-                  ".cu",
+        "source": flash_source("fwd", flash_row["kernel_route"]),
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": flash_launches + train_launches["fwd"],
         "launches_by_phase": {"lm_forward": flash_launches,
@@ -1891,22 +1977,29 @@ def main() -> int:
         "library_ms": flash_row["library_ms"],
         "shapes": flash_rows}] + [{
         "name": f"flash_attention_bwd_{kname}", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention_bwd.cu",
+        "kernel_route": bwd_row["kernel_route"],
+        "source": flash_source("bwd", bwd_row["kernel_route"]),
         "replaces": f"src/repro/kernels/flash_attention/bwd.py:{line}",
         "launches": train_launches[kname],
+        "launches_by_route": {r: train_launches[f"{kname}_{r}"]
+                              for r in ("wgmma", "simt")},
         "max_abs_err": max(r[f"{g}_max_abs_err"] for r in bwd_rows
                            for g in grads),
         "max_err_over_limit": max(r[f"{g}_err_over_limit"]
                                   for r in bwd_rows for g in grads),
         "ms": bwd_row[f"{kname}_ms"], "plain_ms": bwd_row["plain_ms"],
         "plain_computes": "dq, dk and dv together",
+        "earlier_ms": bwd_row.get(f"{kname}_simt_ms"),
+        "earlier": "the SIMT kernel (flash_attention_bwd.cu) on the same "
+                   "inputs, this run",
         "bound_ms": bwd_row[f"{kname}_bound_ms"],
         "bound_by": bwd_row[f"{kname}_bound_by"],
         "library_ms": bwd_row["library_ms"],
         "library": f"SDPA backward ({bwd_row['library_backend']}), dq, dk "
                    f"and dv together",
-        "shapes": bwd_rows}
+        # the split's tensor work stays in the flash_bwd phase's lines
+        "shapes": [{key: x for key, x in r.items() if key != "tensor_work"}
+                   for r in bwd_rows]}
         for kname, line, grads in (("dq", 34, ("dq",)),
                                    ("dkv", 80, ("dk", "dv")))] + [{
         "name": "segment_matmul", "route": "cuda",

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -17,6 +18,7 @@ from pathlib import Path
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -31,6 +33,17 @@ def nvcc() -> str:
                        "CUDA toolkit to build")
 
 
+def is_current(source: Path, library: Path) -> bool:
+    """Whether ``library`` exists and is no older than ``source`` and the
+    headers beside it that it includes (``#include "name"``), so an edit to
+    a shared header rebuilds every library that includes it."""
+    names = _LOCAL_INCLUDE.findall(source.read_text())
+    deps = [source] + [source.parent / n for n in names
+                       if (source.parent / n).exists()]
+    return library.exists() and library.stat().st_mtime >= max(
+        p.stat().st_mtime for p in deps)
+
+
 def build(source: Path, library: Path, flags=NVCC_FLAGS,
           force: bool = False) -> str:
     """Compile ``source`` into ``library`` unless an up-to-date one exists.
@@ -41,8 +54,7 @@ def build(source: Path, library: Path, flags=NVCC_FLAGS,
     temporary name and renamed, so a concurrent reader never loads half a
     file.
     """
-    if (not force and library.exists()
-            and library.stat().st_mtime >= source.stat().st_mtime):
+    if not force and is_current(source, library):
         return ""
     library.parent.mkdir(parents=True, exist_ok=True)
     tmp = library.with_name(f"{library.stem}.{os.getpid()}.tmp.so")

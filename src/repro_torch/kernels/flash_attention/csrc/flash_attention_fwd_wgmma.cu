@@ -55,23 +55,17 @@
 // The output leaves from registers with predicated stores.  Left for later:
 // a persistent tile scheduler, FA3's ping-pong of the two consumers, and
 // overlapping the softmax with the next tile's QK^T inside a warpgroup.
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
-                   // found at run time (cudaGetDriverEntryPoint): no -lcuda
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper_wgmma.cuh"
 
 namespace {
 
 constexpr int BQ = 128;           // query rows per CTA, 64 per consumer
 constexpr int NT = 384;           // three warpgroups
-constexpr int BOX = 64;           // columns of a TMA box: 128 bytes
-constexpr int ATOM_ROW = 128;     // bytes of a box row
 constexpr int STAGES = 2;
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float MASKED = -1e30f;
-constexpr double LOG2E = 1.4426950408889634;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
@@ -82,257 +76,6 @@ struct Tile {
   // + 1024: the ring is aligned by hand to the 128-byte swizzle's period
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---------------------------------------------------------------- mbarrier
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of parity `parity`.  No
-// __trap() on a wait that never ends: with one anywhere in the kernel ptxas
-// keeps the consumers at the launch's 168 registers, not setmaxnreg's 232,
-// and spills.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-// --------------------------------------------------------------------- TMA
-// one box of a 4-D tensor map at coordinates (c0 innermost .. c3) into
-// shared memory at dst, its bytes counted on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// ------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor of a tile that TMA wrote with 128-byte
-// swizzle: start address, leading and stride byte offsets (16-byte units),
-// layout 1 (128-byte swizzle) in bits 62-63.
-//   K-major (Q as A, K as B of S = Q K^T): rows of 128 bytes, 8-row groups
-//   1024 bytes apart (SBO); a k-step of 16 columns moves the start 32 bytes
-//   inside the atom; LBO is unused.
-//   MN-major (V as B of O = P V): 8 keys of 128 bytes form an atom, the next
-//   8 keys 1024 bytes on (SBO); the next 64 columns of D are the next box
-//   (LBO, BK * 128 bytes on).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keeps the compiler from touching registers that an in-flight wgmma reads
-// or writes before the wait that ends it
-template <int N>
-__device__ __forceinline__ void operand_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void operand_fence(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// D (64 x N, f32) [+]= A (64 x 16) B (16 x N), bf16: A and B K-major in
-// shared memory; scale_d 0 starts the sum
-template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int scale_d);
-// D (64 x N, f32) += A B: A from registers (this thread's four bf16 pairs
-// a0..a3), B MN-major in shared memory
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], uint32_t a0,
-                                              uint32_t a1, uint32_t a2,
-                                              uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], uint32_t a0,
-                                              uint32_t a1, uint32_t a2,
-                                              uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], uint32_t a0,
-                                              uint32_t a1, uint32_t a2,
-                                              uint32_t a3, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14,"
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27,"
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40,"
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53,"
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66,"
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92,"
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104,"
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115,"
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126,"
-      "%127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
 
 // One kv tile's softmax on a consumer thread's S fragment, in place: s
 // holds rows r and r + 8 (hf 0, 1) at columns 8 j + c + e (register 4 j +
@@ -517,15 +260,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       // P = P_hi + P_lo, bf16 pairs: registers 4 kk .. 4 kk + 3 are the A
       // fragment of key-step kk (keys 16 kk .. 16 kk + 15)
       uint32_t p_hi[BK / 4], p_lo[BK / 4];
-#pragma unroll
-      for (int i2 = 0; i2 < BK / 4; ++i2) {
-        const __nv_bfloat162 hi =
-            __floats2bfloat162_rn(sacc[2 * i2], sacc[2 * i2 + 1]);
-        const float2 back = __bfloat1622float2(hi);
-        p_hi[i2] = bf16x2_bits(hi);
-        p_lo[i2] = bf16x2_bits(__floats2bfloat162_rn(
-            sacc[2 * i2] - back.x, sacc[2 * i2 + 1] - back.y));
-      }
+      split_bf16(sacc, p_hi, p_lo);
 
       // O += P_hi V + P_lo V over the tile's keys in steps of 16
       mbar_wait(bar_v + 8 * s, parity);
@@ -571,54 +306,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
   }
-}
-
-// ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled load_encoder() {
-  void* fn = nullptr;
-  cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-  const cudaError_t e = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-  const cudaError_t e = cudaGetDriverEntryPoint(
-      "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-  if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-  return reinterpret_cast<EncodeTiled>(fn);
-}
-
-// The 4-D map (D, rows, heads, B) of a bf16 (B, rows, heads, D) tensor with
-// element strides (sb, ss, sh) and a unit d stride: boxes of 64 columns by
-// box_rows rows, 128-byte swizzle, zeros past each axis's end.  An axis of
-// size 1 is never stepped, so its stride is the contiguous layout's.
-// Returns cuTensorMapEncodeTiled's CUresult (0 on success).
-int encode(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
-           int D, long long sb, long long ss, long long sh, int box_rows) {
-  static const EncodeTiled encode_tiled = load_encoder();
-  if (encode_tiled == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
-  rows = rows > 0 ? rows : 1;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows,
-                              (cuuint64_t)heads, (cuuint64_t)B};
-  const cuuint64_t row = 2ull * D;
-  const cuuint64_t strides[3] = {
-      rows > 1 ? 2ull * ss : row, heads > 1 ? 2ull * sh : row * rows,
-      B > 1 ? 2ull * sb : row * rows * heads};
-  const cuuint32_t box[4] = {BOX, (cuuint32_t)box_rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return (int)encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                           const_cast<void*>(ptr), dims, strides, box, unit,
-                           CU_TENSOR_MAP_INTERLEAVE_NONE,
-                           CU_TENSOR_MAP_SWIZZLE_128B,
-                           CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <int D>

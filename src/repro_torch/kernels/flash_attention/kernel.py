@@ -72,20 +72,28 @@ def _launcher(which: str):
     return _fns[which]
 
 
-def _check_tma(t: torch.Tensor, name: str) -> None:
-    """What TMA needs of a bf16 tensor's layout: a 16-byte-aligned base and
-    (b, s, h) strides of a multiple of 16 bytes on every axis longer than
-    1 (an axis of size 1 is never stepped)."""
+def tma_fault(t: torch.Tensor, name: str) -> str:
+    """Why TMA cannot load a bf16 tensor of this layout, or "" when it can:
+    TMA needs a 16-byte-aligned base and (b, s, h) strides of a multiple of
+    16 bytes on every axis longer than 1 (an axis of size 1 is never
+    stepped)."""
     es = t.element_size()
     if t.data_ptr() % TMA_ALIGN:
-        raise ValueError(f"{name}'s base is not {TMA_ALIGN}-byte aligned, "
-                         f"as the wgmma route's TMA loads need")
+        return (f"{name}'s base is not {TMA_ALIGN}-byte aligned, as the "
+                f"wgmma route's TMA loads need")
     for axis in range(3):
         if t.shape[axis] > 1 and (t.stride(axis) * es) % TMA_ALIGN:
-            raise ValueError(
-                f"{name}'s stride {t.stride(axis)} on axis {axis} is not a "
-                f"multiple of {TMA_ALIGN} bytes, as the wgmma route's TMA "
-                f"loads need")
+            return (f"{name}'s stride {t.stride(axis)} on axis {axis} is not "
+                    f"a multiple of {TMA_ALIGN} bytes, as the wgmma route's "
+                    f"TMA loads need")
+    return ""
+
+
+def _check_tma(t: torch.Tensor, name: str) -> None:
+    """Raises ``ValueError`` where :func:`tma_fault` finds a fault."""
+    fault = tma_fault(t, name)
+    if fault:
+        raise ValueError(fault)
 
 
 def check_kernel_inputs(q: torch.Tensor, k: torch.Tensor,

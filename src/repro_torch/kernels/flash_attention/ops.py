@@ -28,7 +28,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors), ``flash_attention.launches_by_route`` the same launches by
     the kernel that took them (``kernel.route``: "wgmma" or "simt");
     ``bwd.flash_bwd_dq.launches`` and ``bwd.flash_bwd_dkv.launches`` count
-    the backward kernels'.
+    the backward kernels', and their ``launches_by_route`` the same by
+    ``bwd.route`` (bf16 at D 64/128 on "wgmma", the rest on "simt").
     """
     # the contract on every device; flash_attention_cuda checks what the
     # kernel itself needs (type, head width, strides)

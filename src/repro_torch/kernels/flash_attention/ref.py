@@ -57,6 +57,14 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype)
 
 
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) as f32: hi = bf16(x) and lo = bf16(x - hi), the two bf16
+    parts through which the wgmma kernels take an f32 operand; hi + lo
+    carries x to about 2^-16 of itself."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
 def split_p_block_k(D: int) -> int:
     """Keys per kv tile of the wgmma route: 128 at D <= 128, 64 at 256."""
     return 128 if D <= 128 else 64
@@ -99,8 +107,7 @@ def attention_split_p_ref(q: torch.Tensor, k: torch.Tensor,
         corr = torch.exp2(m - mx)
         p = torch.exp2(x - mx[..., None])
         l = l * corr + p.sum(-1)
-        hi = p.to(torch.bfloat16).float()
-        lo = (p - hi).to(torch.bfloat16).float()
+        hi, lo = split_bf16(p)
         acc = (acc * corr[..., None]
                + torch.einsum("bhgqk,bkhd->bhgqd", hi, vt)
                + torch.einsum("bhgqk,bkhd->bhgqd", lo, vt))
@@ -122,15 +129,10 @@ def attention_fwd_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, S, H, D).to(q.dtype), lse.reshape(B, H, S)
 
 
-def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
-                      window: int = 0):
-    """(dq, dk, dv) of the attention at (q, k, v) against the output
-    gradient ``do``, from the forward's ``o`` and ``lse`` (B, H, S): the
-    formula of the JAX package's ``bwd.py`` kernels.
-
-    delta = rowsum(dO o) in f32 from the rounded ``o``; P = exp(s - lse);
-    dS = P (dO Vᵀ - delta) scale; dq = dS K, dk = Σ_g dSᵀ Q, dv = Σ_g Pᵀ dO.
-    dq takes q's type, dk and dv k's and v's."""
+def bwd_terms(q, k, v, o, lse, do, causal: bool = True, window: int = 0):
+    """The backward's f32 (P, dS), (B, Hkv, G, S, K), and q and do as f32
+    (B, S, Hkv, G, D): delta = rowsum(dO o) in f32 from the given ``o``;
+    P = exp(s - lse); dS = P (dO Vᵀ - delta) scale."""
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -143,12 +145,63 @@ def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
     delta = (do.float() * o.float()).sum(-1)                    # (B, S, H)
     delta = delta.reshape(B, S, Hkv, G).permute(0, 2, 3, 1)     # B,Hkv,G,S
     ds = p * (dp - delta[..., None]) * scale
-    del dp
+    return p, ds, qf, dof
+
+
+def attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                      window: int = 0):
+    """(dq, dk, dv) of the attention at (q, k, v) against the output
+    gradient ``do``, from the forward's ``o`` and ``lse`` (B, H, S): the
+    formula of the JAX package's ``bwd.py`` kernels.
+
+    delta = rowsum(dO o) in f32 from the rounded ``o``; P = exp(s - lse);
+    dS = P (dO Vᵀ - delta) scale; dq = dS K, dk = Σ_g dSᵀ Q, dv = Σ_g Pᵀ dO.
+    dq takes q's type, dk and dv k's and v's."""
+    B, S, H, D = q.shape
+    p, ds, qf, dof = bwd_terms(q, k, v, o, lse, do, causal, window)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
     return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def attention_bwd_split_ref(q, k, v, o, lse, do, causal: bool = True,
+                            window: int = 0, lo: bool = True):
+    """The backward wgmma route's arithmetic
+    (``csrc/flash_attention_bwd_wgmma.cu``) in plain torch, for the tests:
+    S and dO Vᵀ in f32 from the inputs, then P and dS each split into bf16
+    hi and lo parts (:func:`split_bf16`) whose products add into f32 sums:
+    dq = dS_hi K + dS_lo K, dk = Σ_g (dS_hi + dS_lo)ᵀ Q, dv = Σ_g (P_hi +
+    P_lo)ᵀ dO, rounded once to the inputs' types as
+    :func:`attention_bwd_ref`'s are.  With ``lo`` False the lo parts are
+    dropped: a bf16-only P and dS, at 2^-9 of themselves, which the route
+    must not be (:func:`rounding_miss_limit`)."""
+    B, S, H, D = q.shape
+    p, ds, qf, dof = bwd_terms(q, k, v, o, lse, do, causal, window)
+    kf = k.float()
+    parts = slice(None) if lo else slice(1)
+    dq = sum(torch.einsum("bhgqk,bkhd->bqhgd", x, kf)
+             for x in split_bf16(ds)[parts])
+    dk = sum(torch.einsum("bhgqk,bqhgd->bkhd", x, qf)
+             for x in split_bf16(ds)[parts])
+    dv = sum(torch.einsum("bhgqk,bqhgd->bkhd", x, dof)
+             for x in split_bf16(p)[parts])
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def rounding_miss_limit(split_misses: int, bf16_misses: int) -> float:
+    """The most elements of a bf16 gradient from the wgmma backward that
+    may differ from the correctly rounded f32 gradient
+    (:func:`attention_bwd_ref`'s), given how many differ in
+    :func:`attention_bwd_split_ref`'s (the split, P and dS at 2^-16) and in
+    its ``lo=False`` mirror's (bf16-only, 2^-9) on the same inputs: their
+    geometric mean, which lies at least four times from either where the
+    bf16-only mirror misses at least sixteen times as many elements as the
+    split (``tests/test_torch_flash_bwd_route.py`` checks that it does at
+    the card tests' shapes)."""
+    return math.sqrt(max(split_misses, 1) * bf16_misses)
 
 
 def grad_limit(ref: torch.Tensor, n: int) -> torch.Tensor:

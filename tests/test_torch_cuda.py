@@ -200,6 +200,56 @@ def test_flash_wgmma_route_is_counted_and_bit_stable(card, D, B, S, K, H,
                                **FLASH_TOL[torch.bfloat16])
 
 
+# The wgmma forward's outputs (o and lse, bit for bit) on numpy-seeded bf16
+# inputs, as the kernel gave them before its helpers moved into the shared
+# header ``csrc/hopper_wgmma.cuh``: that move must change no bit.
+# ``python tests/test_torch_cuda.py`` prints the digests of the
+# ``repro_torch`` on ``PYTHONPATH``, which is how these were made.
+FWD_DIGEST_CASES = [
+    (1, 256, 256, 4, 2, 64, True, 0),
+    (1, 192, 160, 4, 2, 64, False, 0),
+    (2, 200, 200, 4, 2, 128, True, 0),
+    (1, 77, 300, 4, 1, 128, True, 37),
+    (1, 256, 256, 4, 4, 256, True, 64),
+]
+FWD_DIGESTS = {
+    "(1, 256, 256, 4, 2, 64, True, 0)": "ef95034fd0c462f2",
+    "(1, 192, 160, 4, 2, 64, False, 0)": "1a6c6b4e62475d37",
+    "(2, 200, 200, 4, 2, 128, True, 0)": "03ce02061f0aa9be",
+    "(1, 77, 300, 4, 1, 128, True, 37)": "924d77e9e522dfa6",
+    "(1, 256, 256, 4, 4, 256, True, 64)": "413ffe11e173e5ea",
+}
+
+
+def flash_fwd_digests(card=torch.device("cuda")):
+    """{case: the first 16 hex digits of the sha256 of o's and lse's bits}
+    from ``kernel.flash_attention_cuda`` at each of ``FWD_DIGEST_CASES``
+    (B, S, K, H, Hkv, D, causal, window)."""
+    import hashlib
+    from repro_torch.kernels.flash_attention import kernel
+    digests = {}
+    for case in FWD_DIGEST_CASES:
+        B, S, K, H, Hkv, D, causal, window = case
+        rng = np.random.default_rng(sum(case[:6]))
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(card).to(torch.bfloat16)
+                   for shape in ((B, S, H, D), (B, K, Hkv, D),
+                                 (B, K, Hkv, D)))
+        assert kernel.route(q) == "wgmma"
+        o, lse = kernel.flash_attention_cuda(q, k, v, causal, window,
+                                             with_lse=True)
+        h = hashlib.sha256(o.view(torch.int16).cpu().numpy().tobytes())
+        h.update(lse.cpu().numpy().tobytes())
+        digests[str(case)] = h.hexdigest()[:16]
+    return digests
+
+
+def test_flash_wgmma_forward_bits_unchanged(card):
+    """The forward built from the shared header gives the bits it gave
+    before the move, at D 64, 128 and 256."""
+    assert flash_fwd_digests(card) == FWD_DIGESTS
+
+
 def test_flash_routes_split_by_type_and_width(card):
     """f32 at any head width and bf16 at 16 or 32 take the SIMT kernel;
     bf16 heads sliced out of a wider tensor take the wgmma kernel and equal
@@ -298,8 +348,9 @@ def _assert_within(got, want, n, what):
 def test_flash_bwd_kernels_match_plain_version(card, D, dtype, B, S, K, H,
                                                Hkv, causal, window):
     """dq and dk/dv within their limits, the forward kernel's lse within
-    its own, each kernel launched once a call, and a second run equal to
-    the first bit for bit (no atomics)."""
+    its own, each kernel launched once a call on its route (bf16 at D 64
+    and 128: wgmma; the rest: SIMT), and a second run equal to the first
+    bit for bit (no atomics)."""
     from repro_torch.kernels.flash_attention import bwd, kernel
     from repro_torch.kernels.flash_attention.ref import (
         attention_bwd_ref, attention_fwd_lse_ref)
@@ -309,12 +360,17 @@ def test_flash_bwd_kernels_match_plain_version(card, D, dtype, B, S, K, H,
                                                 with_lse=True)
     _assert_within(lse_kernel, lse, K, "lse")
     delta = bwd.row_delta(o, do)
-    before = (bwd.flash_bwd_dq.launches, bwd.flash_bwd_dkv.launches)
+    route = ("wgmma" if dtype == torch.bfloat16 and D in (64, 128)
+             else "simt")
+    fns = (bwd.flash_bwd_dq, bwd.flash_bwd_dkv)
+    before = [(fn.launches, dict(fn.launches_by_route)) for fn in fns]
     runs = [(bwd.flash_bwd_dq(q, k, v, do, lse, delta, causal, window),
              *bwd.flash_bwd_dkv(q, k, v, do, lse, delta, causal, window))
             for _ in range(2)]
-    assert (bwd.flash_bwd_dq.launches, bwd.flash_bwd_dkv.launches) == \
-        (before[0] + 2, before[1] + 2)
+    for fn, (launches, by_route) in zip(fns, before):
+        assert fn.launches == launches + 2
+        by_route[route] += 2
+        assert fn.launches_by_route == by_route
     want = attention_bwd_ref(q, k, v, o, lse, do, causal, window)
     torch.cuda.synchronize()
     G = H // Hkv
@@ -322,6 +378,38 @@ def test_flash_bwd_kernels_match_plain_version(card, D, dtype, B, S, K, H,
                                  (K, G * S, G * S)):
         _assert_within(got, ref, n, name)
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,S,K,H,Hkv,causal,window", BWD_CASES)
+def test_flash_bwd_wgmma_keeps_p_and_ds_at_f32(card, monkeypatch, D, B, S,
+                                               K, H, Hkv, causal, window):
+    """The wgmma kernels take P and dS as bf16 hi and lo parts, so they keep
+    f32 accuracy: in each gradient, the elements that are not the correctly
+    rounded f32 gradient (``attention_bwd_ref``'s) number no more than
+    ``ref.rounding_miss_limit`` of the split mirror's count and a bf16-only
+    P and dS mirror's count on the same inputs.  Kernels that dropped the
+    lo parts would land near the bf16-only count, far above the limit, yet
+    within ``grad_limit``."""
+    from repro_torch.kernels.flash_attention import bwd
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_bwd_split_ref, attention_fwd_lse_ref,
+        rounding_miss_limit)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    q, k, v, do = _bwd_inputs(card, B, S, K, H, Hkv, D, torch.bfloat16,
+                              D + S + K)
+    o, lse = attention_fwd_lse_ref(q, k, v, causal, window)
+    delta = bwd.row_delta(o, do)
+    assert bwd.route(q) == "wgmma"
+    got = (bwd.flash_bwd_dq(q, k, v, do, lse, delta, causal, window),
+           *bwd.flash_bwd_dkv(q, k, v, do, lse, delta, causal, window))
+    args = (q, k, v, o, lse, do, causal, window)
+    for name, g, want, split, one in zip(
+            ("dq", "dk", "dv"), got, attention_bwd_ref(*args),
+            attention_bwd_split_ref(*args),
+            attention_bwd_split_ref(*args, lo=False)):
+        misses = [int((x != want).sum()) for x in (g, split, one)]
+        assert misses[0] <= rounding_miss_limit(*misses[1:]), (name, misses)
 
 
 def test_flash_bwd_kernels_take_strided_inputs(card):
@@ -359,6 +447,73 @@ def test_flash_function_grads_on_card_equal_cpu_grads(card):
     for name, got, ref, n in zip(("dq", "dk", "dv"), grads["cuda"],
                                  grads["cpu"], (K, 4 * S, 4 * S)):
         _assert_within(got.cpu(), ref, n, name)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_function_bf16_grads_on_card_match_plain_backward(card, D):
+    """The bf16 twin of the test above: autograd through
+    ``ops.flash_attention`` on the card at D 64 and 128 takes the wgmma
+    route forward and backward (one launch of each kernel), and its
+    gradients lie within the kernels' limits of the plain backward on the
+    CPU fed the same residuals: the forward kernel's o and lse, which a
+    second forward launch gives bit for bit.  (The CPU Function's own bf16
+    o may sit an ulp away from the kernel's, and delta = rowsum(do o)
+    carries that into every gradient of the row.)"""
+    from repro_torch.kernels.flash_attention import bwd, kernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, S, K, H, Hkv, window = 1, 160, 224, 8, 2, 48
+    q, k, v, do = _bwd_inputs(card, B, S, K, H, Hkv, D, torch.bfloat16,
+                              11 + D)
+    fns = (fops.flash_attention, bwd.flash_bwd_dq, bwd.flash_bwd_dkv)
+    before = [dict(fn.launches_by_route) for fn in fns]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = fops.flash_attention(*leaves, causal=True, window=window)
+    grads = torch.autograd.grad(out, leaves, do)
+    for fn, was in zip(fns, before):
+        assert fn.launches_by_route == dict(was, wgmma=was["wgmma"] + 1)
+    o, lse = kernel.flash_attention_cuda(q, k, v, True, window,
+                                         with_lse=True)
+    assert torch.equal(o, out.detach())
+    want = attention_bwd_ref(*(t.cpu() for t in (q, k, v, o, lse, do)),
+                             True, window)
+    for name, got, ref, n in zip(("dq", "dk", "dv"), grads, want,
+                                 (K, 4 * S, 4 * S)):
+        _assert_within(got.cpu(), ref, n, name)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_function_bf16_takes_any_do_layout(card, D):
+    """Autograd may hand the Function a ``do`` that TMA cannot load: here a
+    view one element into the gradient of a concatenation (a misaligned
+    base), and a gradient broadcast over b and s (stride 0).  On the wgmma
+    route the Function copies it, and the gradients equal those of a
+    contiguous ``do`` of the same values, bit for bit."""
+    from repro_torch.kernels.flash_attention import bwd
+    from repro_torch.kernels.flash_attention import ops as fops
+    B, S, K, H, Hkv, window = 1, 160, 224, 8, 2, 48
+    q, k, v, do = _bwd_inputs(card, B, S, K, H, Hkv, D, torch.bfloat16,
+                              21 + D)
+    w = do[0, 0].contiguous()                                  # (H, D)
+    pad = torch.zeros(1, dtype=torch.bfloat16, device=card)
+
+    def grads(loss, seed_grad):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = fops.flash_attention(*leaves, causal=True, window=window)
+        return torch.autograd.grad(loss(out), leaves, seed_grad)
+
+    before = [dict(fn.launches_by_route)
+              for fn in (bwd.flash_bwd_dq, bwd.flash_bwd_dkv)]
+    cases = (
+        (grads(lambda o: o, do),
+         grads(lambda o: torch.cat([pad, o.flatten()]),
+               torch.cat([pad, do.flatten()]))),
+        (grads(lambda o: o, w.expand(B, S, H, D).contiguous()),
+         grads(lambda o: (o.sum((0, 1)) * w).sum(), None)))
+    for want, got in cases:
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for fn, was in zip((bwd.flash_bwd_dq, bwd.flash_bwd_dkv), before):
+        assert fn.launches_by_route == dict(was, wgmma=was["wgmma"] + 4)
 
 
 @pytest.mark.parametrize("n_micro,remat", [(1, "none"), (2, "full"),
@@ -776,3 +931,8 @@ def test_cuda_gin_on_an_edge_list_with_a_hub(card, monkeypatch):
               f"{float((out[name][0] - want).abs().max()) / scale}")
     torch.testing.assert_close(out["card"][0], want, rtol=0,
                                atol=1e-4 * scale)
+
+
+if __name__ == "__main__":
+    import json
+    print(json.dumps(flash_fwd_digests()))
