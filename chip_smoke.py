@@ -15,7 +15,10 @@ CUDA toolkit.  It:
    backward wgmma kernels must spill nothing);
 3. holds ``dht_gather`` against its plain PyTorch version on the card at
    the shapes the AMPC path gives it (and a few more), exactly (tolerance
-   0), and times kernel / plain version / library call with CUDA events;
+   0), checks with ``torch.profiler`` that the wrapper launches its sort
+   and one kernel that writes the rows in the caller's order (no separate
+   scatter), and times kernel / plain version / ``index_select`` in the
+   caller's order / sort / wrapper with CUDA events;
 4. drives ``AmpcEngine(dht_backend="local").solve`` for ``connectivity``,
    ``mis`` and ``msf`` at rmat20 (Graph500 RMAT, 2^20 vertices, average
    degree 8, seed 1; MSF weights from seed 2), twice each, with the kernel
@@ -90,8 +93,8 @@ CUDA toolkit.  It:
    the loss is; every parameter changed, AdamW's count 3.  The kernel is
    held against its plain version on layer 0's and layer 1's own inputs
    (and layer 0's in bf16) within ``ref.product_limit``, its f32 sums
-   equal bit for bit, twice equal bit for bit, and timed beside the plain
-   version and ``embedding_bag`` + ``matmul``.  Prints the host sampling,
+   equal bit for bit, twice equal bit for bit, and timed beside the
+   plain version and ``embedding_bag`` + ``matmul``.  Prints the host sampling,
    feature gather and step times, seeds/s, peak memory, and the last
    step's device time by kind of kernel (``torch.profiler``);
 11. drives SASRec at full size (the registry's ``sasrec``: 1,000,000
@@ -110,8 +113,10 @@ CUDA toolkit.  It:
    the step-0 loss within 0.05 of ln 2, every parameter changed, AdamW's
    count 3.  Prints wall times, users/s, peak memory and the last step's
    device time by kind of kernel (``torch.profiler``), and holds
-   ``dht_gather`` against its plain version on the training batch's
-   histories (3,276,800 keys into the trained table);
+   ``dht_gather`` against its plain version, bit for bit, on the training
+   batch's histories (3,276,800 keys into the trained table; its wrapper
+   one kernel beyond the sort) and on one ``serve_bulk`` call's candidates
+   (33,554,432 keys, 6.7 GB of rows), each timed alone;
 12. calls ``embedding_bag`` (the op's own entry point; no model of either
    package reaches it) on the trained item table with step 0's 65,536
    histories as bags, the counts set to 0 just before and read just after:
@@ -260,19 +265,53 @@ def time_ms(fn, reps=20, warmup=3):
 def plain_dht_gather(table, keys):
     """The plain version of the whole ``dht_gather`` wrapper."""
     import torch
-    from repro_torch.kernels.dht_gather.ref import dht_gather_ref
+    from repro_torch.kernels.dht_gather.ref import dht_gather_fused_ref
     sk, order = torch.sort(keys, stable=True)
-    out_s, hits = dht_gather_ref(table, sk)
-    out = torch.empty_like(out_s)
-    out[order] = out_s
-    return out, hits
+    return dht_gather_fused_ref(table, sk, order)
+
+
+# what ops.dht_gather may launch besides its kernel: torch.sort's radix
+# sort (its kernels, index fill, memsets and copies) and the fill of the
+# hit counter
+SORT_AND_FILL = ("Sort", "sort", "fill_reverse_indices", "Memset", "Memcpy",
+                 "FillFunctor")
+
+
+def one_pass(table, keys):
+    """Checks with ``torch.profiler`` that one ``ops.dht_gather`` call
+    launches one ``dht_gather`` kernel and, besides it, only its sort and
+    the fill of its hit counter: no separate scatter of the rows.  Returns
+    the kernels (name: count)."""
+    import collections
+    import torch
+    from repro_torch.kernels.dht_gather import ops
+
+    # a profile taken after another session may miss device events, so a
+    # profile without the kernel is taken again
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ops.dht_gather(table, keys)
+            torch.cuda.synchronize()
+        seen = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        if any("dht_gather_kernel" in k for k in seen):
+            break
+    gathers = [n for k, n in seen.items() if "dht_gather_kernel" in k]
+    others = [k for k in seen if "dht_gather_kernel" not in k
+              and not any(a in k for a in SORT_AND_FILL)]
+    check(gathers == [1] and not others,
+          f"dht_gather's wrapper launched {dict(seen)}")
+    return dict(seen)
 
 
 def dht_gather_case(name, table, keys, timed):
     """Kernel vs plain version on one input; timings when ``timed``."""
     import torch
     from repro_torch.kernels.dht_gather import kernel, ops
-    from repro_torch.kernels.dht_gather.ref import dht_gather_ref
+    from repro_torch.kernels.dht_gather.ref import dht_gather_fused_ref
 
     out, hits = ops.dht_gather(table, keys)
     ref_out, ref_hits = plain_dht_gather(table, keys)
@@ -283,38 +322,38 @@ def dht_gather_case(name, table, keys, timed):
     err = 0.0
     if out.numel():
         err = float((out.double() - ref_out.double()).abs().max())
-    Q, D = keys.shape[0], table.shape[1]
-    sk = torch.sort(keys, stable=True)[0]
+    del ref_out
+    Q, (V, D) = keys.shape[0], table.shape
+    sk, order = torch.sort(keys, stable=True)
     n_valid = int((sk >= 0).sum())
     n_distinct = n_valid - int(ref_hits)
     es = table.element_size()
-    # least bytes: keys read once, each distinct row read once, rows and
-    # the hit count written once
-    nbytes = 4 * Q + n_distinct * D * es + Q * D * es + 4
-    row = {"shape": name, "V": int(table.shape[0]), "D": int(D),
+    # least bytes: keys and their order read once, each distinct row read
+    # once, rows and the hit count written once
+    nbytes = 4 * Q + 8 * Q + n_distinct * D * es + Q * D * es + 4
+    row = {"shape": name, "V": int(V), "D": int(D),
            "dtype": str(table.dtype).replace("torch.", ""), "Q": int(Q),
            "hits": int(ref_hits), "max_abs_err": err,
+           "chunk_bytes": kernel.chunk_bytes(D * es, table.data_ptr(),
+                                             out.data_ptr()),
            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     if timed:
-        order = torch.sort(keys, stable=True)[1]
-        flat = table.reshape(-1)
-        take_idx = (sk.clamp(0, table.shape[0] - 1).long()[:, None] * D
-                    + torch.arange(D, device=keys.device)).reshape(-1)
-        scratch = torch.empty_like(out)
         # the bare launch into buffers made once: hits accumulates over
         # the calls, which the timing does not read
         hits_buf = torch.zeros(1, dtype=torch.int32, device=keys.device)
-
-        def unsort():
-            scratch[order] = out
-
-        row.update(
-            ms=time_ms(lambda: kernel.launch(table, sk, scratch, hits_buf)),
-            plain_ms=time_ms(lambda: dht_gather_ref(table, sk)),
-            library_ms=time_ms(lambda: torch.take(flat, take_idx)),
-            sort_ms=time_ms(lambda: torch.sort(keys, stable=True)),
-            unsort_ms=time_ms(unsort),
-            wrapper_ms=time_ms(lambda: ops.dht_gather(table, keys)))
+        row["ms"] = time_ms(lambda: kernel.launch(table, sk, order, out,
+                                                  hits_buf))
+        row["plain_ms"] = time_ms(lambda: dht_gather_fused_ref(table, sk,
+                                                               order))
+        # the same rows in the caller's order by one library call, its
+        # index made once
+        idx = keys.clamp(0, V - 1).long()
+        row["library_ms"] = time_ms(lambda: table.index_select(0, idx))
+        del idx
+        row["library"] = "table.index_select(0, keys.clamp(0, V - 1))"
+        row["sort_ms"] = time_ms(lambda: torch.sort(keys, stable=True))
+        del sk, order
+        row["wrapper_ms"] = time_ms(lambda: ops.dht_gather(table, keys))
     return row
 
 
@@ -350,6 +389,7 @@ def kernel_phase(nt, n):
                                            device=dev), False),
     ]
     rows = [dht_gather_case(name, t, k, timed) for name, t, k, timed in cases]
+    rows[0]["wrapper_kernels"] = one_pass(cases[0][1], cases[0][2])
     return rows
 
 
@@ -1255,6 +1295,8 @@ def seg_case(name, x, nbr, w, timed):
             ms=time_ms(lambda: kernel.launch(x, nbr, w, buf)),
             with_agg_ms=time_ms(lambda: kernel.launch(x, nbr, w, buf,
                                                       agg_buf)),
+            load_width=kernel.load_width(D, es, x.data_ptr(),
+                                         agg_buf.data_ptr()),
             plain_ms=time_ms(lambda: segment_matmul_ref(x, nbr, w), reps=5,
                              warmup=1),
             library_ms=time_ms(lambda: torch.matmul(F.embedding_bag(
@@ -1714,11 +1756,19 @@ def rec_phase():
     emit({"phase": "rec_train_summary", "losses": losses,
           "dht_gather_launches": by_cell})
     table = model.item_embed.detach()
-    row = dht_gather_case("sasrec_train_history", table, bags.reshape(-1),
-                          timed=True)
     del model, state, named
     torch.cuda.empty_cache()
-    return by_cell, row, table, bags
+    rows = [dht_gather_case("sasrec_train_history", table, bags.reshape(-1),
+                            timed=True)]
+    rows[0]["wrapper_kernels"] = one_pass(table, bags.reshape(-1))
+    # serve_bulk's candidate read: one call's 32,768 users x 1024
+    # candidates into the trained table, 6.7 GB of rows
+    cands = candidates(shapes["serve_bulk"].global_batch // REC_BULK_CALLS)
+    rows.append(dht_gather_case("sasrec_serve_bulk_candidates", table,
+                                cands.reshape(-1), timed=True))
+    del cands
+    torch.cuda.empty_cache()
+    return by_cell, rows, table, bags
 
 
 def embag_case(name, table, ids, timed):
@@ -1930,8 +1980,9 @@ def main() -> int:
           "the GNN path launched no segment_matmul kernel")
     seg_row = seg_rows[0]   # layer 0's own inputs, the forward's call
 
-    rec_launches, rec_row, item_table, bags = rec_phase()
-    emit({"phase": "kernel", "name": "dht_gather", **rec_row})
+    rec_launches, rec_rows, item_table, bags = rec_phase()
+    for row in rec_rows:
+        emit({"phase": "kernel", "name": "dht_gather", **row})
     check(all(n > 0 for n in rec_launches.values()),
           f"a SASRec cell launched no dht_gather kernel: {rec_launches}")
     embag_launches, embag_rows = embedding_bag_phase(item_table, bags)
@@ -1949,11 +2000,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/dht_gather/kernel.py:28",
         "launches": launches + sum(rec_launches.values()),
         "launches_by_phase": {"ampc_solves": launches, **rec_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + [rec_row]),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + rec_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
-        "library_ms": main_row["library_ms"],
-        "shapes": rows + [rec_row]}, {
+        "library_ms": main_row["library_ms"], "library": main_row["library"],
+        "shapes": rows + rec_rows}, {
         "name": "flash_attention_fwd", "route": "cuda",
         "kernel_route": flash_row["kernel_route"],
         "source": flash_source("fwd", flash_row["kernel_route"]),

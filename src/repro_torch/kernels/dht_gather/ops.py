@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .kernel import dht_gather_cuda
-from .ref import dht_gather_ref
+from .ref import dht_gather_fused_ref
 
 
 def dht_gather(table: torch.Tensor, keys: torch.Tensor,
@@ -18,10 +18,11 @@ def dht_gather(table: torch.Tensor, keys: torch.Tensor,
 
     ``table`` is (V, D); ``keys`` (Q,) int32, any order unless
     ``presorted``, with negative entries treated as invalid (zero rows).
-    The batch is sorted (stable), gathered, and scattered back to the
-    caller's order.  Returns (out (Q, D), cache_hits): ``cache_hits``
-    counts adjacent duplicate *valid* keys in sorted order, i.e. exactly
-    ``n_valid - n_distinct_valid``, as a 0-d integer tensor.
+    The batch is sorted (stable) and gathered in sorted order, each row
+    written straight to its key's place in the caller's order.  Returns
+    (out (Q, D), cache_hits): ``cache_hits`` counts adjacent duplicate
+    *valid* keys in sorted order, i.e. exactly ``n_valid -
+    n_distinct_valid``, as a 0-d integer tensor.
 
     ``dht_gather.launches`` counts kernel launches (CUDA tensors, Q > 0).
     """
@@ -37,19 +38,14 @@ def dht_gather(table: torch.Tensor, keys: torch.Tensor,
     else:
         sk, order = torch.sort(keys, stable=True)
     if table.is_cuda:
-        out, hits = dht_gather_cuda(table, sk)
+        out, hits = dht_gather_cuda(table, sk, order)
         if sk.numel():
             dht_gather.launches += 1
-    elif table.device.type == "cpu":
-        out, hits = dht_gather_ref(table, sk)
-    else:
-        raise ValueError(f"dht_gather runs on CUDA or CPU tensors, "
-                         f"got {table.device}")
-    if order is not None:
-        unsorted = torch.empty_like(out)
-        unsorted[order] = out
-        out = unsorted
-    return out, hits
+        return out, hits
+    if table.device.type == "cpu":
+        return dht_gather_fused_ref(table, sk, order)
+    raise ValueError(f"dht_gather runs on CUDA or CPU tensors, got "
+                     f"{table.device}")
 
 
 dht_gather.launches = 0

@@ -23,38 +23,113 @@
 // the f32 CUDA-core peak.  With `agg` it writes 409 MB more.
 //
 // Design: the TPU grid runs its 8-row blocks in order and keeps W whole in
-// VMEM.  Here one CTA of 256 threads owns a tile of BM = 32 output rows and
-// BF = 64 output columns (grid.y walks F past 64) and carries nothing to
-// another CTA, so no atomics are needed and the output repeats bit for bit.
-// The CTA stages its rows' nbr slice in shared memory and asks whether any
-// slot is valid; a tile without one (90% of a sampled block: its last hop
-// has no neighbours) writes zeros and skips the gather and the product.
-// Otherwise it walks D in chunks of DC = 64 columns: each thread sums 8
-// (row, column) entries over the K slots, neighbouring threads on
-// neighbouring columns of one neighbour row, so a warp reads 32
-// consecutive elements of a row; the chunk of sums goes to shared memory
-// (rows padded by one float) beside the matching DC x BF chunk of W, and
-// the tile's 32 x 64 product accumulates in registers, 2 rows x 4 columns
-// a thread.  W at D 602, F 64 is 154 KB in f32, so it is never staged
-// whole.  Offsets are 64-bit.  Loads are scalar: an f32 row of 602 is
-// 2,408 bytes and a bf16 one 1,204, so rows are not 16-byte aligned.  This
-// is the simple kernel: f32 FMAs on the CUDA cores, no cp.async or TMA
-// pipelining of the gathers, no wgmma.
+// VMEM.  Here one CTA of 256 threads owns a tile of BM = 32 output rows
+// and BF = 64 output columns (grid.y walks F past 64), and carries nothing
+// to another CTA, so no atomics are needed and the output repeats bit for
+// bit.  The grid takes tiles from either end in turn: a sampled block's
+// rows with neighbours come first, so the cheap tiles run beside the
+// working ones.  The CTA stages its rows' nbr slice in shared memory; a
+// tile without a valid slot (90% of a sampled block: its last hop has no
+// neighbours) zero-fills its out and agg rows with 16-byte stores and
+// leaves.
+//
+// Sums: each warp takes whole rows of the tile.  For up to SB valid slots
+// of a row at once it loads the named x rows' columns into registers (an
+// entry of V elements a lane in each of CE groups of 32: a chunk of up to
+// DT = 640 columns in one pass), then adds them in slot order.  A block's
+// neighbours are consecutive rows of x, so a warp reads long runs of
+// contiguous bytes.  Loads are V elements wide (8-byte f32 pairs, 4-byte
+// bf16 pairs where D is even and the addresses allow it, else single
+// elements).  The sums start at +0.0 and add the valid slots only, which
+// is what the plain version's masked sum computes, bit for bit.  They go
+// to agg (coalesced) and to a BM x DT f32 tile in shared memory.
+//
+// Product, in f32 FMAs on the CUDA cores (TF32 would break the kernel's
+// f32 product).  Rows of at most 32 entries (D <= 64, CE 1): W's rows for
+// the tile's 64 columns load into registers before the sums and go to
+// shared memory after them, and each thread takes 2 rows x 4 columns.
+// Wider rows: W at D 602 is 154 KB in f32, too big to stage, so each warp
+// takes 16 rows and a quarter of the chunk's columns, 4 at a time, each
+// lane 2 output columns, with a = 4 sums read as a float4 and the next 4
+// rows of W loading while these multiply; the four quarters' partial
+// products are added in order at the end.  D past DT runs in chunks of
+// DTM = 128 columns, the partial products beside the sums.  Offsets are
+// 64-bit.  PERF.md records the designs measured against this one
+// (scripts/time_segment_matmul.py times them).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 32;         // output rows per CTA
+constexpr int BM = 32;         // output rows a tile
 constexpr int BF = 64;         // output columns per CTA
-constexpr int DC = 64;         // columns of D per chunk
+constexpr int DT = 640;        // columns of D a tile's sums hold
+constexpr int DTM = 128;       // the chunk width where D passes DT
 constexpr int NT = 256;        // threads per CTA
-constexpr int GR = NT / DC;    // rows gathered at once (4)
-constexpr int RG = BM / GR;    // gathered entries per thread (8)
-constexpr int RT = BM / 16;    // product rows per thread (2)
-constexpr int CT = BF / 16;    // product columns per thread (4)
+constexpr int NW = NT / 32;    // warps
 constexpr int MAX_K = 1024;    // nbr slots a row may have
+constexpr unsigned FULL = 0xffffffffu;
+
+// the row stride of a chunk's sums in shared memory, in floats, and where
+// the partial products of wide rows start
+__host__ __device__ constexpr int sum_stride(long long D) {
+  return D <= DT ? (int)((D + 3) & ~3LL) + 4 : DTM + 4;
+}
+__host__ __device__ constexpr int part_offset(long long D) {
+  return D <= DT ? 0 : BM * (DTM + 4);
+}
+// shared floats before the tile's nbr slots.  Wide rows: the sums, with
+// the 4 column slices' partial products over them where D fits one chunk,
+// else beside them.  Rows of at most 32 entries (small): the sums and W's
+// (at most 64) rows of the tile's 64 output columns.
+__host__ __device__ constexpr int sum_floats(long long D, bool small) {
+  return small ? BM * sum_stride(D) + 64 * BF
+         : D <= DT ? (BM * sum_stride(D) > 4 * BM * BF ? BM * sum_stride(D)
+                                                       : 4 * BM * BF)
+                   : BM * sum_stride(D) + 4 * BM * BF;
+}
+size_t smem_bytes(long long D, int K, bool small) {
+  return sizeof(float) * (size_t)sum_floats(D, small) + sizeof(int) * BM * K;
+}
+
+// V elements of T, loaded at once and summed in f32
+template <typename T, int V> struct Vec;
+template <> struct Vec<float, 1> {
+  float v;
+  __device__ __forceinline__ void load(const float* p) { v = __ldg(p); }
+  __device__ __forceinline__ void add_to(float* s) const { s[0] += v; }
+};
+template <> struct Vec<float, 2> {
+  float2 v;
+  __device__ __forceinline__ void load(const float* p) {
+    v = __ldg(reinterpret_cast<const float2*>(p));
+  }
+  __device__ __forceinline__ void add_to(float* s) const {
+    s[0] += v.x;
+    s[1] += v.y;
+  }
+};
+template <> struct Vec<__nv_bfloat16, 1> {
+  __nv_bfloat16 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(p);
+  }
+  __device__ __forceinline__ void add_to(float* s) const {
+    s[0] += __bfloat162float(v);
+  }
+};
+template <> struct Vec<__nv_bfloat16, 2> {
+  __nv_bfloat162 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  __device__ __forceinline__ void add_to(float* s) const {
+    const float2 f = __bfloat1622float2(v);
+    s[0] += f.x;
+    s[1] += f.y;
+  }
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -69,148 +144,347 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-size_t smem_bytes(int K) {
-  return sizeof(int) * (size_t)BM * K + sizeof(float) * (size_t)BM * (DC + 1) +
-         sizeof(float) * (size_t)DC * BF;
+// n zero bytes from p, by every thread of the CTA: 16-byte stores over the
+// aligned middle, bytes at either end
+__device__ void zero_bytes(unsigned char* p, long long n) {
+  long long head = (long long)((16 - ((uintptr_t)p & 15)) & 15);
+  if (head > n) head = n;
+  const long long body = (n - head) / 16;
+  for (long long i = threadIdx.x; i < head; i += NT) p[i] = 0;
+  uint4* v = reinterpret_cast<uint4*>(p + head);
+  for (long long i = threadIdx.x; i < body; i += NT)
+    v[i] = make_uint4(0, 0, 0, 0);
+  for (long long i = head + 16 * body + threadIdx.x; i < n; i += NT) p[i] = 0;
 }
 
+// a tile without a valid slot: zeros in its out rows' columns and, where
+// asked, its agg rows
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__device__ void zero_tile(T* out, float* agg, long long row0, long long f0,
+                          int nrows, long long D, long long F,
+                          bool write_agg) {
+  unsigned char* o = reinterpret_cast<unsigned char*>(out);
+  if (gridDim.y == 1) {
+    zero_bytes(o + sizeof(T) * row0 * F, (long long)sizeof(T) * nrows * F);
+  } else {
+    const long long ncols = F - f0 < BF ? F - f0 : BF;
+    for (int r = 0; r < nrows; ++r)
+      zero_bytes(o + sizeof(T) * ((row0 + r) * F + f0),
+                 (long long)sizeof(T) * ncols);
+  }
+  if (write_agg)
+    zero_bytes(reinterpret_cast<unsigned char*>(agg + row0 * D),
+               (long long)sizeof(float) * nrows * D);
+}
+
+// one warp: the f32 sums of the x rows that a row's K slots (nrow, -1 for
+// padding) name, over columns d0 .. d0 + dlen - 1 (dlen <= 32 V CE: an
+// entry of V elements a lane in each of CE groups of 32), into srow
+// (shared memory, from column 0) and, where asked, the row of agg
+template <typename T, int V, int CE>
+__device__ __forceinline__ void sum_row(const T* __restrict__ x, long long D,
+                                        const int* nrow, int K, long long d0,
+                                        int dlen, float* srow,
+                                        float* __restrict__ agg, int lane) {
+  // entries a lane has in flight: 10 of 8 bytes, else 32
+  constexpr int NB = V * sizeof(T) == 8 ? 10 : 32;
+  constexpr int SB = NB / CE > 0 ? NB / CE : 1;   // slots in flight
+  const T* base = x + d0;
+  float acc[CE][V];
+#pragma unroll
+  for (int c = 0; c < CE; ++c)
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[c][v] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int idx = k0 + lane < K ? nrow[k0 + lane] : -1;
+    unsigned m = __ballot_sync(FULL, idx >= 0);
+    while (m) {
+      // up to SB valid slots' loads in flight, then their adds in order
+      Vec<T, V> buf[SB][CE];
+      int n = 0;
+#pragma unroll
+      for (int s = 0; s < SB; ++s) {
+        if (m) {
+          const int k = __ffs(m) - 1;
+          m &= m - 1;
+          const T* src = base + (long long)__shfl_sync(FULL, idx, k) * D;
+#pragma unroll
+          for (int c = 0; c < CE; ++c) {
+            const int col = (lane + 32 * c) * V;
+            if (col < dlen) buf[s][c].load(src + col);
+          }
+          n = s + 1;
+        }
+      }
+#pragma unroll
+      for (int s = 0; s < SB; ++s)
+        if (s < n)
+#pragma unroll
+          for (int c = 0; c < CE; ++c)
+            if ((lane + 32 * c) * V < dlen) buf[s][c].add_to(acc[c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < CE; ++c) {
+    const int col = (lane + 32 * c) * V;
+    if (col < dlen) {
+      if constexpr (V == 2) {
+        const float2 v = make_float2(acc[c][0], acc[c][1]);
+        *reinterpret_cast<float2*>(srow + col) = v;
+        if (agg) *reinterpret_cast<float2*>(agg + d0 + col) = v;
+      } else {
+        srow[col] = acc[c][0];
+        if (agg) agg[d0 + col] = acc[c][0];
+      }
+    }
+  }
+}
+
+// W's rows d .. d + 3 at output columns fa and fa + 1 (zeros past row dend
+// or column F)
+template <typename T>
+__device__ __forceinline__ void load_w(const T* __restrict__ w, long long F,
+                                       long long d, long long dend,
+                                       long long fa, float* wa, float* wb) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const bool in = d + i < dend;
+    wa[i] = in && fa < F ? to_f32(w[(d + i) * F + fa]) : 0.f;
+    wb[i] = in && fa + 1 < F ? to_f32(w[(d + i) * F + fa + 1]) : 0.f;
+  }
+}
+
+template <typename T, int V, int CE>
+__global__ void __launch_bounds__(NT, CE == 1 ? 4 : 2)
     segment_matmul_kernel(const T* __restrict__ x, long long N, long long D,
                           const int* __restrict__ nbr, long long M, int K,
                           const T* __restrict__ w, long long F,
                           T* __restrict__ out, float* __restrict__ agg) {
-  extern __shared__ float smem[];
-  int* nbr_s = reinterpret_cast<int*>(smem);              // BM x K
-  float* agg_s = smem + (size_t)BM * K;                   // BM x (DC + 1)
-  float* w_s = agg_s + BM * (DC + 1);                     // DC x BF
+  constexpr bool SMALL = CE == 1;
+  extern __shared__ __align__(16) float smem[];
+  const int sa = sum_stride(D);
+  float* agg_s = smem;                                           // BM x sa
+  int* nbr_s = reinterpret_cast<int*>(smem + sum_floats(D, SMALL));  // BM x K
 
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // tiles from either end in turn: rows with neighbours cluster (a sampled
+  // block's first hops), so the cheap tiles without any run beside them
+  const long long nt = gridDim.x, b = blockIdx.x;
+  const long long tile = b % 2 ? nt - 1 - b / 2 : b / 2;
+  const long long row0 = tile * BM;
   const long long f0 = (long long)blockIdx.y * BF;
   const bool write_agg = agg != nullptr && blockIdx.y == 0;
+  const int nrows = (int)(M - row0 < BM ? M - row0 : BM);
 
-  // the tile's nbr slice, clamped to [0, N) or -1, and whether any slot is
-  // valid
+  // the tile's nbr slots, clamped to [0, N) or -1
   int any = 0;
-  for (int i = tid; i < BM * K; i += NT) {
-    const long long r = row0 + i / K;
-    int idx = -1;
-    if (r < M) {
-      idx = nbr[r * K + i % K];
-      if (idx >= 0 && (long long)idx >= N) idx = (int)(N - 1);
-    }
+  for (int i = tid; i < nrows * K; i += NT) {
+    int idx = __ldg(nbr + row0 * K + i);
+    if ((long long)idx >= N) idx = (int)(N - 1);
     nbr_s[i] = idx;
     any |= idx >= 0;
   }
-  any = __syncthreads_or(any);
-
-  const int tx = tid % 16, ty = tid / 16;
-  if (!any) {
-    for (int i = tid; i < BM * BF; i += NT) {
-      const long long r = row0 + i / BF, f = f0 + i % BF;
-      if (r < M && f < F) out[r * F + f] = from_f32<T>(0.f);
-    }
-    if (write_agg)
-      for (long long d = tid; d < D; d += NT)
-        for (int r = 0; r < BM && row0 + r < M; ++r)
-          agg[(row0 + r) * D + d] = 0.f;
+  if (!__syncthreads_or(any)) {
+    zero_tile<T>(out, agg, row0, f0, nrows, D, F, write_agg);
     return;
   }
 
-  const int gc = tid % DC, gr = tid / DC;   // gather column, first row
-  float acc[RT][CT];
+  if constexpr (SMALL) {
+    // D <= 64: W's rows for the tile's 64 columns load into registers
+    // before the sums and go to shared memory after them
+    float* w_s = smem + BM * sa;   // 64 x BF
+    constexpr int WPT = 64 * BF / NT;
+    float wr[WPT];
 #pragma unroll
-  for (int i = 0; i < RT; ++i)
+    for (int j = 0; j < WPT; ++j) {
+      const int i = tid + j * NT, dd = i / BF;
+      const long long f = f0 + i % BF;
+      wr[j] = dd < D && f < F ? to_f32(w[dd * F + f]) : 0.f;
+    }
+    for (int r = warp; r < nrows; r += NW)
+      sum_row<T, V, CE>(x, D, nbr_s + r * K, K, 0, (int)D, agg_s + r * sa,
+                        write_agg ? agg + (row0 + r) * D : nullptr, lane);
 #pragma unroll
-    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
-
-  for (long long d0 = 0; d0 < D; d0 += DC) {
-    const long long d = d0 + gc;
-    // gather-sum: entries (gr + GR e, gc) for e < RG, slot after slot
-    float s[RG];
+    for (int j = 0; j < WPT; ++j) w_s[tid + j * NT] = wr[j];
+    __syncthreads();
+    // 2 rows x 4 columns a thread
+    const int prow = (warp % 4) * 4 + lane / 8;
+    const int pcol = (warp / 4) * 32 + (lane % 8) * 4;
+    float acc[2][4] = {};
+    for (int c = 0; c < D; ++c) {
+      const float4 b = *reinterpret_cast<const float4*>(w_s + c * BF + pcol);
 #pragma unroll
-    for (int e = 0; e < RG; ++e) s[e] = 0.f;
-    if (d < D) {
-      for (int k = 0; k < K; ++k) {
-#pragma unroll
-        for (int e = 0; e < RG; ++e) {
-          const int idx = nbr_s[(gr + GR * e) * K + k];
-          if (idx >= 0) s[e] += to_f32(x[(long long)idx * D + d]);
-        }
+      for (int i = 0; i < 2; ++i) {
+        const float a = agg_s[(prow + 16 * i) * sa + c];
+        acc[i][0] = fmaf(a, b.x, acc[i][0]);
+        acc[i][1] = fmaf(a, b.y, acc[i][1]);
+        acc[i][2] = fmaf(a, b.z, acc[i][2]);
+        acc[i][3] = fmaf(a, b.w, acc[i][3]);
       }
     }
 #pragma unroll
-    for (int e = 0; e < RG; ++e) {
-      const int r = gr + GR * e;
-      agg_s[r * (DC + 1) + gc] = s[e];
-      if (write_agg && d < D && row0 + r < M) agg[(row0 + r) * D + d] = s[e];
+    for (int i = 0; i < 2; ++i) {
+      const long long r = row0 + prow + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const long long f = f0 + pcol + j;
+        if (r < M && f < F) out[r * F + f] = from_f32<T>(acc[i][j]);
+      }
     }
-    // the matching chunk of W, zeros past D and F
-    for (int i = tid; i < DC * BF; i += NT) {
-      const long long dd = d0 + i / BF, f = f0 + i % BF;
-      w_s[i] = (dd < D && f < F) ? to_f32(w[dd * F + f]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int c = 0; c < DC; ++c) {
-      float a[RT], b[CT];
-#pragma unroll
-      for (int i = 0; i < RT; ++i) a[i] = agg_s[(ty + 16 * i) * (DC + 1) + c];
-#pragma unroll
-      for (int j = 0; j < CT; ++j) b[j] = w_s[c * BF + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
+  constexpr int DG = 4, RG = NW / DG, PR = BM / RG;
+  static_assert(RG * DG == NW && BM % RG == 0, "tile");
+  const bool one = D <= DT;
+  const int dc = one ? DT : DTM;
+  float* part = smem + part_offset(D);                  // DG x BM x BF
+  // the product: warp (rg, dg) takes PR rows of the tile and a slice of
+  // the chunk's columns, 4 at a time, and each lane 2 output columns; W's
+  // next 4 rows load while these multiply
+  const int rg = warp / DG, dg = warp % DG;
+  const long long fa = f0 + 2 * lane;
+  for (long long d0 = 0; d0 < D; d0 += dc) {
+    const int dlen = (int)(D - d0 < dc ? D - d0 : dc);
+    const int dpad = (dlen + 3) & ~3;
+    for (int i = tid; i < BM * (dpad - dlen); i += NT)
+      agg_s[(i / (dpad - dlen)) * sa + dlen + i % (dpad - dlen)] = 0.f;
+    for (int r = warp; r < nrows; r += NW)
+      sum_row<T, V, CE>(x, D, nbr_s + r * K, K, d0, dlen, agg_s + r * sa,
+                        write_agg ? agg + (row0 + r) * D : nullptr, lane);
+    __syncthreads();   // the sums are in
+
+    const int cs = ((dlen + DG - 1) / DG + 3) & ~3;
+    const int cbeg = dg * cs;
+    const int cend = cbeg + cs < dlen ? cbeg + cs : dlen;
+    float acc[PR][2];
 #pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const long long r = row0 + ty + 16 * i;
+    for (int r = 0; r < PR; ++r) acc[r][0] = acc[r][1] = 0.f;
+    float wa[4], wb[4];
+    load_w(w, F, d0 + cbeg, d0 + cend, fa, wa, wb);
+    const float* a_s = agg_s + rg * PR * sa;
+    for (int c = cbeg; c < cend; c += 4) {
+      float na[4], nb[4];
+      load_w(w, F, d0 + c + 4, d0 + cend, fa, na, nb);
 #pragma unroll
-    for (int j = 0; j < CT; ++j) {
-      const long long f = f0 + tx + 16 * j;
-      if (r < M && f < F) out[r * F + f] = from_f32<T>(acc[i][j]);
+      for (int r = 0; r < PR; ++r) {
+        const float4 a = *reinterpret_cast<const float4*>(a_s + r * sa + c);
+        acc[r][0] = fmaf(a.x, wa[0], acc[r][0]);
+        acc[r][1] = fmaf(a.x, wb[0], acc[r][1]);
+        acc[r][0] = fmaf(a.y, wa[1], acc[r][0]);
+        acc[r][1] = fmaf(a.y, wb[1], acc[r][1]);
+        acc[r][0] = fmaf(a.z, wa[2], acc[r][0]);
+        acc[r][1] = fmaf(a.z, wb[2], acc[r][1]);
+        acc[r][0] = fmaf(a.w, wa[3], acc[r][0]);
+        acc[r][1] = fmaf(a.w, wb[3], acc[r][1]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        wa[i] = na[i];
+        wb[i] = nb[i];
+      }
     }
+    if (one) __syncthreads();   // the product is done with the sums
+    float2* mine = reinterpret_cast<float2*>(
+        part + (dg * BM + rg * PR) * BF) + lane;
+#pragma unroll
+    for (int r = 0; r < PR; ++r) {
+      float2 p = make_float2(acc[r][0], acc[r][1]);
+      if (d0 > 0) {
+        p.x += mine[r * BF / 2].x;
+        p.y += mine[r * BF / 2].y;
+      }
+      mine[r * BF / 2] = p;
+    }
+    if (!one) __syncthreads();   // the product is done with the sums
+  }
+
+  // the column slices' partial products, added in slice order
+  __syncthreads();
+  for (int i = tid; i < BM * BF; i += NT) {
+    const long long r = row0 + i / BF, f = f0 + i % BF;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < DG; ++j) sum += part[j * BM * BF + i];
+    if (r < M && f < F) out[r * F + f] = from_f32<T>(sum);
   }
 }
 
-template <typename T>
+// whether the kernel's shared memory for the largest D and K has been
+// allowed on each device, per instantiation: the attribute belongs to the
+// function in the current device's context
+constexpr int MAX_DEVICES = 64;
+
+template <typename T, int V, int CE>
 int launch_typed(const void* x, long long N, long long D, const int* nbr,
                  long long M, int K, const void* w, long long F, void* out,
                  float* agg, cudaStream_t stream) {
-  const size_t smem = smem_bytes(K);
-  cudaError_t e = cudaFuncSetAttribute(
-      segment_matmul_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  static bool allowed[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES || !allowed[dev]) {
+    err = cudaFuncSetAttribute(
+        segment_matmul_kernel<T, V, CE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(CE == 1 ? 64 : DT, MAX_K, CE == 1));
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= 0 && dev < MAX_DEVICES) allowed[dev] = true;
+  }
   const dim3 grid((unsigned int)((M + BM - 1) / BM),
                   (unsigned int)((F + BF - 1) / BF));
-  segment_matmul_kernel<T><<<grid, NT, smem, stream>>>(
+  segment_matmul_kernel<T, V, CE>
+      <<<grid, NT, smem_bytes(D, K, CE == 1), stream>>>(
       static_cast<const T*>(x), N, D, nbr, M, K, static_cast<const T*>(w), F,
       static_cast<T*>(out), agg);
   return (int)cudaGetLastError();
+}
+
+// CE entries a lane: 1 for a row of at most 32 entries (a lane's registers
+// then hold more slots), else a chunk's DT columns
+template <typename T, int V>
+int launch_rows(long long D, const void* x, long long N, const int* nbr,
+                long long M, int K, const void* w, long long F, void* out,
+                float* agg, cudaStream_t s) {
+  static_assert(DT % (32 * V) == 0, "chunk");
+  if ((D + V - 1) / V <= 32)
+    return launch_typed<T, V, 1>(x, N, D, nbr, M, K, w, F, out, agg, s);
+  return launch_typed<T, V, DT / (32 * V)>(x, N, D, nbr, M, K, w, F, out,
+                                           agg, s);
+}
+
+template <typename T>
+int launch_vec(int vec, const void* x, long long N, long long D,
+               const int* nbr, long long M, int K, const void* w, long long F,
+               void* out, float* agg, cudaStream_t s) {
+  if (vec == 2)
+    return launch_rows<T, 2>(D, x, N, nbr, M, K, w, F, out, agg, s);
+  return launch_rows<T, 1>(D, x, N, nbr, M, K, w, F, out, agg, s);
 }
 
 }  // namespace
 
 // x: (N, D), w: (D, F) and out: (M, F), contiguous, f32 (is_bf16 0) or
 // bf16 (1); nbr: (M, K) int32 contiguous; agg: null, or (M, D) f32
-// contiguous.  Launches on `stream` and returns cudaGetLastError() (0 on
-// success); nothing is launched when M or F is 0.
+// contiguous.  vec (1 or 2) elements a load: 2 needs an even D, x aligned
+// to two elements and agg to 8 bytes.  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); nothing is launched when M or F is 0.
 extern "C" int segment_matmul_launch(const void* x, long long N, long long D,
                                      const int* nbr, long long M, int K,
                                      const void* w, long long F, void* out,
-                                     float* agg, int is_bf16, void* stream) {
+                                     float* agg, int is_bf16, int vec,
+                                     void* stream) {
   if (M <= 0 || F <= 0) return 0;
+  const uintptr_t es = is_bf16 ? 2 : 4;
   if (N <= 0 || D < 0 || K < 0 || K > MAX_K ||
-      (M + BM - 1) / BM > 0x7fffffffLL || (F + BF - 1) / BF > 65535)
+      (M + BM - 1) / BM > 0x7fffffffLL || (F + BF - 1) / BF > 65535 ||
+      (vec != 1 && vec != 2) ||
+      (vec == 2 && (D % 2 || (uintptr_t)x % (2 * es) ||
+                    (uintptr_t)agg % 8)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_typed<__nv_bfloat16>(x, N, D, nbr, M, K, w, F, out, agg, s);
-  return launch_typed<float>(x, N, D, nbr, M, K, w, F, out, agg, s);
+    return launch_vec<__nv_bfloat16>(vec, x, N, D, nbr, M, K, w, F, out, agg,
+                                     s);
+  return launch_vec<float>(vec, x, N, D, nbr, M, K, w, F, out, agg, s);
 }

@@ -40,8 +40,20 @@ def _launcher():
             [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     return _fn
+
+
+def load_width(D: int, elem_bytes: int, x_address: int,
+               agg_address: int | None = None) -> int:
+    """Elements of an x row the kernel loads at once: 2 (8-byte f32 or
+    4-byte bf16 pairs) where D is even, x's address a multiple of two
+    elements and agg's of 8 bytes; else 1."""
+    if D % 2 or x_address % (2 * elem_bytes):
+        return 1
+    if agg_address is not None and agg_address % 8:
+        return 1
+    return 2
 
 
 def segment_matmul_cuda(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
@@ -87,11 +99,13 @@ def launch(x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor,
     F = w.shape[1]
     if not (M and F):
         return
+    vec = load_width(D, x.element_size(), x.data_ptr(),
+                     None if agg is None else agg.data_ptr())
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _launcher()(x.data_ptr(), N, D, nbr.data_ptr(), M, K,
                           w.data_ptr(), F, out.data_ptr(),
                           None if agg is None else agg.data_ptr(),
-                          int(x.dtype == torch.bfloat16), stream)
+                          int(x.dtype == torch.bfloat16), vec, stream)
     if err:
         raise RuntimeError(f"segment_matmul launch failed: CUDA error {err}")

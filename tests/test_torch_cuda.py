@@ -13,7 +13,7 @@ from repro_torch.ampc import AmpcEngine
 from repro_torch.ampc.engine import _field_eq
 from repro_torch.graph import generators as gen
 from repro_torch.kernels.dht_gather import ops
-from repro_torch.kernels.dht_gather.ref import dht_gather_ref
+from repro_torch.kernels.dht_gather.ref import dht_gather_fused_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -25,23 +25,74 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("D,dtype", [(1, torch.int32), (64, torch.float32),
-                                     (128, torch.bfloat16), (3, torch.int32)])
+def _dht_table(card, V, D, dtype, seed=1):
+    gen = torch.Generator(card).manual_seed(seed)
+    if dtype == torch.int32:
+        return torch.randint(-2 ** 31, 2 ** 31 - 1, (V, D), device=card,
+                             dtype=torch.int32, generator=gen)
+    return torch.randn(V, D, device=card, generator=gen).to(dtype)
+
+
+def _assert_dht_gather_exact(table, keys, presorted=False):
+    """ops.dht_gather on the card: one launch, rows bit-equal to the plain
+    version (sort, plain rows, unsort), exact hits, and a second call
+    bit-equal to the first."""
+    before = ops.dht_gather.launches
+    out, hits = ops.dht_gather(table, keys, presorted=presorted)
+    again, hits2 = ops.dht_gather(table, keys, presorted=presorted)
+    assert ops.dht_gather.launches == before + 2 * bool(keys.numel())
+    if presorted:
+        sk, order = keys, None
+    else:
+        sk, order = torch.sort(keys, stable=True)
+    expect, ref_hits = dht_gather_fused_ref(table, sk, order)
+    torch.cuda.synchronize()
+    assert out.dtype == table.dtype and out.shape == expect.shape
+    assert torch.equal(out, expect) and int(hits) == int(ref_hits)
+    assert torch.equal(again, out) and int(hits2) == int(hits)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 2, 3, 25, 50, 64, 128])
 def test_kernel_matches_plain_version(card, D, dtype):
     V, Q = 5000, 20000
     rng = np.random.default_rng(0)
-    table = torch.randn(V, D, device=card).to(dtype)
+    table = _dht_table(card, V, D, dtype)
     keys = rng.integers(-3, V + 5, size=Q).astype(np.int32)
     keys[::7] = -1
-    keys = torch.from_numpy(keys).to(card)
-    before = ops.dht_gather.launches
-    out, hits = ops.dht_gather(table, keys)
-    assert ops.dht_gather.launches == before + 1
-    sk, order = torch.sort(keys, stable=True)
-    ref_out, ref_hits = dht_gather_ref(table, sk)
-    expect = torch.empty_like(ref_out)
-    expect[order] = ref_out
-    assert torch.equal(out, expect) and int(hits) == int(ref_hits)
+    keys[1000:1400] = 17        # a long duplicate run
+    _assert_dht_gather_exact(table, torch.from_numpy(keys).to(card))
+
+
+@pytest.mark.parametrize("case", ["row_offset", "element_offset",
+                                  "all_invalid", "q1", "q31", "q33", "q4097",
+                                  "presorted"])
+@pytest.mark.parametrize("D,dtype", [(1, torch.int32), (50, torch.float32),
+                                     (64, torch.float32),
+                                     (3, torch.bfloat16)])
+def test_kernel_edge_cases(card, D, dtype, case):
+    """Table views off 16-byte alignment (from row 1 of a larger table, and
+    from its second element), keys that are all padding, batches around a
+    warp's and a tile's size, and presorted keys."""
+    from repro_torch.kernels.dht_gather import kernel
+    V = 3000
+    rng = np.random.default_rng(1)
+    table = _dht_table(card, V + 1, D, dtype)
+    if case == "row_offset":
+        table = table[1:]
+    elif case == "element_offset":
+        table = table.reshape(-1)[1:1 + V * D].view(V, D)
+        assert kernel.chunk_bytes(D * table.element_size(),
+                                  table.data_ptr()) == table.element_size()
+    Q = {"q1": 1, "q31": 31, "q33": 33, "q4097": 4097}.get(case, 10000)
+    keys = rng.integers(-2, V + 3, size=Q).astype(np.int32)
+    if case == "all_invalid":
+        keys[:] = -1
+    if case == "presorted":
+        keys = np.sort(keys)
+    _assert_dht_gather_exact(table, torch.from_numpy(keys).to(card),
+                             presorted=case == "presorted")
 
 
 def test_kernel_empty_batch_launches_nothing(card):
@@ -582,6 +633,11 @@ SEG_CASES = [
     (50, 21, 4, 9, 8, "out_of_range"),        # M != N, clipped indices
     (70, 70, 300, 12, 8, "random"),           # K 300: over 48 KB of smem
     (33, 33, 0, 12, 8, "random"),             # K 0: no slot at all
+    (1000, 1200, 40, 602, 64, "random"),      # K 40: two groups of 32 slots
+    (150, 120, 5, 1300, 72, "out_of_range"),  # D 1300: three column chunks
+    (777, 500, 15, 37, 80, "out_of_range"),   # ragged M, D 37, 2 col tiles
+    (300, 300, 15, 602, 80, "empty_rows"),    # empty rows inside tiles
+    (200, 200, 15, 602, 64, "x_offset"),      # x off 8 bytes: 1-wide loads
 ]
 
 
@@ -600,8 +656,12 @@ def _seg_inputs(card, M, N, K, D, F, layout, dtype, seed=0):
         nbr[::3] = -1
     elif layout == "out_of_range":
         nbr = rng.integers(-1, N + 5, (M, K)).astype(np.int32)
-    return (torch.from_numpy(x).to(card).to(dtype),
-            torch.from_numpy(nbr).to(card),
+    xt = torch.from_numpy(x).to(card).to(dtype)
+    if layout == "x_offset":    # the same rows from x's second element
+        flat = torch.zeros(N * D + 1, dtype=dtype, device=card)
+        flat[1:] = xt.reshape(-1)
+        xt = flat[1:].view(N, D)
+    return (xt, torch.from_numpy(nbr).to(card),
             torch.from_numpy(w).to(card).to(dtype))
 
 
@@ -629,6 +689,10 @@ def test_segment_matmul_kernel_matches_plain_version(card, monkeypatch, M, N,
     want = segment_matmul_ref(x, nbr, w)
     limit = product_limit(want_agg, w, dtype)
     assert bool(((out.float() - want.float()).abs() <= limit).all())
+    # the loads' width follows D and the addresses
+    vec = skernel.load_width(D, x.element_size(), x.data_ptr(),
+                             agg.data_ptr())
+    assert vec == (1 if D % 2 or layout == "x_offset" else 2)
 
 
 def test_segment_matmul_kernel_refuses_what_it_does_not_take(card):

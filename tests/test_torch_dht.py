@@ -17,7 +17,8 @@ from repro_torch.core import dht as tdht
 from repro_torch.core import rounds
 from repro_torch.core.rounds import RoundLedger as TLedger
 from repro_torch.kernels.dht_gather import kernel, ops
-from repro_torch.kernels.dht_gather.ref import dht_gather_ref
+from repro_torch.kernels.dht_gather.ref import (dht_gather_fused_ref,
+                                                dht_gather_ref)
 
 
 def _keys(kind: str, V: int, Q: int, seed: int = 0) -> np.ndarray:
@@ -25,6 +26,10 @@ def _keys(kind: str, V: int, Q: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     if kind == "empty":
         return np.zeros(0, np.int32)
+    if kind == "one":
+        return np.array([V + 2], np.int32)
+    if kind == "all_padding":
+        return np.full(Q, -1, np.int32)
     if kind == "unsorted":
         return rng.integers(0, V, size=Q).astype(np.int32)
     if kind == "padding_and_oob":
@@ -65,6 +70,53 @@ def test_dht_gather_plain_matches_jax_ref(kind, D, dtype):
     assert int(t_hits) == int(j_hits)
     valid = keys[keys >= 0]
     assert int(t_hits) == valid.size - np.unique(valid).size
+
+
+@pytest.mark.parametrize("presorted", [False, True])
+@pytest.mark.parametrize("kind", KINDS + ["one", "all_padding"])
+@pytest.mark.parametrize("D,dtype", TABLES)
+def test_fused_mirror_matches_jax_ref(kind, D, dtype, presorted):
+    """The kernel's contract in plain torch (sorted keys and the sort's
+    order in, rows out in the caller's order) against the JAX package's
+    whole ``dht_gather(impl="ref")``, bit for bit, hits exact."""
+    V, Q = 300, 1000
+    table = _table(V, D, dtype)
+    keys = _keys(kind, V, Q)
+    if presorted:
+        keys = np.sort(keys)
+    j_out, j_hits = jax_dht_gather(jnp.asarray(table), jnp.asarray(keys),
+                                   impl="ref", presorted=presorted)
+    tkeys = torch.from_numpy(keys)
+    if presorted:
+        sk, order = tkeys, None
+    else:
+        sk, order = torch.sort(tkeys, stable=True)
+    t_out, t_hits = dht_gather_fused_ref(torch.from_numpy(table), sk, order)
+    assert t_out.shape == (keys.size, D)
+    np.testing.assert_array_equal(t_out.numpy(), np.asarray(j_out))
+    assert int(t_hits) == int(j_hits)
+
+
+@pytest.mark.parametrize("row_bytes,addresses,width", [
+    (200, (0, 256), 8),          # D 50 f32: 25 chunks of 8 bytes
+    (256, (0, 512), 16),         # D 64 f32, D 128 bf16
+    (4, (0, 1024), 4),           # D 1 int32
+    (8, (0, 0), 8),              # D 2 f32
+    (12, (0, 0), 4),             # D 3 f32
+    (6, (0, 0), 2),              # D 3 bf16
+    (200, (200, 0), 8),          # from row 1 of a D 50 f32 table
+    (256, (4, 0), 4),            # a D 64 f32 view from element 1
+    (256, (0, 8), 8),            # the output's address decides too
+    (128, (2, 0), 2),            # a bf16 view from element 1
+])
+def test_chunk_width_divides_the_row_and_every_address(row_bytes, addresses,
+                                                      width):
+    assert kernel.chunk_bytes(row_bytes, *addresses) == width
+
+
+def test_chunk_width_refuses_an_odd_row():
+    with pytest.raises(ValueError, match="no chunk width"):
+        kernel.chunk_bytes(3, 0, 0)
 
 
 def test_dht_gather_presorted_and_plain_version_agree():

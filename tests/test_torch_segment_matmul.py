@@ -164,6 +164,23 @@ def test_product_limit_holds_two_orders_and_fails_a_dropped_slot():
                  <= product_limit(agg, wt, torch.bfloat16)).all())
 
 
+@pytest.mark.parametrize("D,elem_bytes,x_address,agg_address,width", [
+    (602, 4, 0, 0, 2),           # GIN layer 0, f32: 8-byte pairs
+    (602, 2, 0, None, 2),        # bf16: 4-byte pairs
+    (64, 4, 512, 1024, 2),       # layers 1-4
+    (37, 4, 0, 0, 1),            # odd D: single elements
+    (37, 2, 0, None, 1),
+    (602, 4, 4, 0, 1),           # x from its second f32 element
+    (602, 2, 2, None, 1),        # x from its second bf16 element
+    (602, 2, 4, None, 2),        # bf16 pairs need 4 bytes only
+    (602, 4, 0, 4, 1),           # agg off 8 bytes
+    (0, 4, 0, 0, 2),             # D 0: nothing to load
+])
+def test_load_width_follows_d_and_the_addresses(D, elem_bytes, x_address,
+                                                agg_address, width):
+    assert kernel.load_width(D, elem_bytes, x_address, agg_address) == width
+
+
 def test_wrappers_refuse_what_they_do_not_take():
     x = torch.zeros(8, 4)
     w = torch.zeros(4, 3)
