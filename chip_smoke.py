@@ -121,10 +121,16 @@ CUDA toolkit.  It:
    package reaches it) on the trained item table with step 0's 65,536
    histories as bags, the counts set to 0 just before and read just after:
    one launch.  The kernel is held against its plain version bit for bit
-   (and twice equal) there, in bf16, at ``tests/test_kernels.py``'s shapes
-   in f32 and bf16 and at edge cases (D 37, L 0 and 1, a ragged B, ids
-   below 0 and past the table, L 300), and timed beside the plain version
-   and ``F.embedding_bag(mode="sum", padding_idx=0)``;
+   (and twice equal) there, in bf16, on uniform ids over the table of the
+   same shape (f32, bf16), at ``tests/test_kernels.py``'s shapes in f32 and
+   bf16 and at edge cases (D 37, L 0 and 1, a ragged B, ids below 0 and
+   past the table, L 300, D 4, 8 and 1: each chunk width and packed warp),
+   and timed, at the histories and the uniform ids, beside the plain
+   version and ``F.embedding_bag(mode="sum", padding_idx=0)``; each row
+   prints the kernel's layout and, beside the bound, the 32-byte sectors
+   of the distinct rows plus ids and output (``sector_bytes``) and the
+   same counted bag by bag (``bag_sector_bytes``: what HBM serves when no
+   row stays in L2 from one bag to the next);
 13. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase; the
    flash forward: the first layer's own q, k, v, its kernel route and the
@@ -216,7 +222,14 @@ REC_LOSS0_TOL = 0.05
 # embedding_bag: tests/test_kernels.py's (V, D, B, L), then edge cases
 EMBAG_TEST_SHAPES = ((64, 16, 16, 4), (256, 32, 32, 10), (1024, 64, 8, 50))
 EMBAG_EDGE_SHAPES = ((300, 37, 13, 7), (50, 8, 5, 0), (50, 8, 5, 1),
-                     (20000, 50, 1001, 50), (500, 130, 3, 300))
+                     (20000, 50, 1001, 50), (500, 130, 3, 300),
+                     (100, 4, 301, 9), (90, 8, 1000, 13), (60, 1, 333, 27))
+EMBAG_UNIFORM_SEED = 1
+EMBAG_DESIGN = ("rows in 16/8/4/2-byte chunks, narrow rows packed into a "
+                "warp (kernel.layout); each window's valid ids ranked by "
+                "ballot into shared memory, up to 24 row loads in flight a "
+                "lane; persistent grid, the next window's ids loaded while "
+                "the rows fly")
 
 
 class SmokeFailure(RuntimeError):
@@ -1771,10 +1784,44 @@ def rec_phase():
     return by_cell, rows, table, bags
 
 
+def embag_sectors(rows, row_bytes):
+    """The 32-byte sectors the distinct rows ``rows > 0`` of the (B, L)
+    ``rows`` span, and the same summed over bags, each bag's distinct rows
+    counted once in it.  The first is what the card must move at least
+    (beside the bound's bytes); the second what HBM serves when no row
+    stays in L2 from one bag to the next.  A sector two rows share counts
+    once; the sectors inside a row are its own."""
+    import torch
+
+    def spans(r):
+        return r * row_bytes // 32, ((r + 1) * row_bytes - 1) // 32
+
+    valid = rows > 0
+    first, last = spans(torch.unique(rows[valid]).long())
+    total = torch.unique(torch.cat([first, last])).numel() + int(
+        (last - first - 1).clamp(min=0).sum())
+    # per bag: sort each bag's rows, padding (-1) first; a row is new when
+    # it differs from its left neighbour, and shares its first sector with
+    # the bag's previous row when that row's last sector is the same
+    r = torch.sort(torch.where(valid, rows, -1).long(), dim=1).values
+    first, last = spans(r)
+    new = r > 0
+    new[:, 1:] &= r[:, 1:] != r[:, :-1]
+    shared = torch.zeros_like(new)
+    if r.shape[1] > 1:
+        prev_last = torch.where(new[:, :-1], last[:, :-1], -1)
+        prev_last = torch.cummax(prev_last, dim=1).values
+        shared[:, 1:] = new[:, 1:] & (prev_last == first[:, 1:])
+    per_bag = int(torch.where(new, last - first + 1, 0).sum()) - int(
+        shared.sum())
+    return total, per_bag
+
+
 def embag_case(name, table, ids, timed):
     """The ``embedding_bag`` kernel (twice) against its plain version on
-    one input, bit for bit; its bound and, when ``timed``, kernel, plain
-    and library times (the library call on f32 tables of in-range ids)."""
+    one input, bit for bit; its layout, its bound and the 32-byte sectors
+    its distinct rows span, and, when ``timed``, kernel, plain and library
+    times (the library call where every id is in range)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import kernel
@@ -1789,37 +1836,45 @@ def embag_case(name, table, ids, timed):
           f"{name}")
     (V, D), (B, L) = table.shape, ids.shape
     valid = ids > 0
-    rows_read = int(torch.unique(ids[valid].clamp(max=V - 1)).numel())
+    rows = torch.unique(ids[valid].clamp(max=V - 1)).long()
     es = table.element_size()
     # least bytes: each distinct row a valid id names read once, the ids
     # read once, the sums written once; one f32 add per valid element
-    nbytes = rows_read * D * es + B * L * 4 + B * D * es
+    io_bytes = B * L * 4 + B * D * es
+    nbytes = rows.numel() * D * es + io_bytes
     flops = int(valid.sum()) * D
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    sectors, bag_sectors = embag_sectors(ids.clamp(max=V - 1), D * es)
     err = 0.0
     if out.numel():
         err = float((out.double() - want.double()).abs().max())
     row = {"shape": name, "V": V, "D": D, "B": B, "L": L,
            "dtype": str(table.dtype).replace("torch.", ""),
-           "valid_ids": int(valid.sum()), "rows_read": rows_read,
+           "layout": dict(zip(("chunk_bytes", "lanes_per_bag",
+                               "bags_per_warp"),
+                              kernel.layout(D, es, table.data_ptr(),
+                                            out.data_ptr()))),
+           "valid_ids": int(valid.sum()), "rows_read": rows.numel(),
            "max_abs_err": err, "bytes": nbytes, "flops": flops,
            "bound_ms": max(byte_ms, op_ms),
-           "bound_by": "operations" if op_ms > byte_ms else "bytes"}
+           "bound_by": "operations" if op_ms > byte_ms else "bytes",
+           "sector_bytes": sectors * 32 + io_bytes,
+           "bag_sector_bytes": bag_sectors * 32 + io_bytes}
     if timed:
         buf = torch.empty_like(out)
         row.update(ms=time_ms(lambda: kernel.launch(table, ids, buf)),
                    plain_ms=time_ms(lambda: embedding_bag_ref(table, ids),
                                     reps=5, warmup=1),
                    library_ms=None)
-        if table.dtype == torch.float32 and bool(
-                ((ids >= 0) & (ids < V)).all()):
+        if bool(((ids >= 0) & (ids < V)).all()):
             lib = F.embedding_bag(ids, table, mode="sum", padding_idx=0)
             row.update(
                 library_ms=time_ms(lambda: F.embedding_bag(
                     ids, table, mode="sum", padding_idx=0)),
                 library="F.embedding_bag(mode='sum', padding_idx=0)",
-                library_max_abs_diff=float((lib - out).abs().max()))
+                library_max_abs_diff=float((lib.float()
+                                            - out.float()).abs().max()))
     return row
 
 
@@ -1827,8 +1882,9 @@ def embedding_bag_phase(table, bags):
     """``embedding_bag`` on SASRec's trained item table with step 0's
     65,536 histories as bags: one call of the op, the counts set to 0 just
     before and read just after; then the kernel against its plain version
-    there, in bf16, at the JAX package's test shapes and at edge cases.
-    Returns the op's launches and the rows."""
+    there, in bf16, on uniform ids of the same shape, at the JAX package's
+    test shapes and at edge cases.  Returns the op's launches and the
+    rows."""
     import numpy as np
     import torch
     from repro_torch.kernels.embedding_bag import ops
@@ -1847,9 +1903,18 @@ def embedding_bag_phase(table, bags):
           and bool(torch.isfinite(out).all()), "embedding_bag output")
     emit({"phase": "embedding_bag", "bags": list(bags.shape),
           "table": list(table.shape), "wall_s": wall, "launches": launches})
+    # the histories draw each bag from one 64-item cluster; uniform ids
+    # over [1, V) of the same shape spread every bag over the table
+    uniform = torch.from_numpy(np.random.default_rng(EMBAG_UNIFORM_SEED)
+                               .integers(1, table.shape[0], tuple(bags.shape),
+                                         dtype=np.int32)).to(dev)
     rows = [embag_case("sasrec_train_history", table, bags, timed=True),
             embag_case("sasrec_train_history_bf16", table.bfloat16(), bags,
+                       timed=True),
+            embag_case("uniform_ids", table, uniform, timed=True),
+            embag_case("uniform_ids_bf16", table.bfloat16(), uniform,
                        timed=True)]
+    del uniform
     # tests/test_kernels.py's shapes and draw, then D 37, L 0 and 1, a
     # ragged B, ids below 0 and past the table, L past a staging chunk
     for dtype in (torch.float32, torch.bfloat16):
@@ -2064,7 +2129,7 @@ def main() -> int:
         "bound_ms": seg_row["bound_ms"], "bound_by": seg_row["bound_by"],
         "library_ms": seg_row["library_ms"], "library": seg_row["library"],
         "shapes": seg_rows}, {
-        "name": "embedding_bag", "route": "cuda",
+        "name": "embedding_bag", "route": "cuda", "design": EMBAG_DESIGN,
         "source": "src/repro_torch/kernels/embedding_bag/csrc/"
                   "embedding_bag.cu",
         "replaces": "src/repro/kernels/embedding_bag/kernel.py:16",

@@ -819,11 +819,17 @@ def test_cuda_gnn_train_step_equals_cpu_step(card, monkeypatch):
 # -------------------------------------------------------------- embedding_bag
 # the kernel sums each bag's rows in f32 in slot order and rounds once, as
 # its plain version does: equal bit for bit.  (V, D, B, L): the JAX
-# package's test shapes, D 37, L 0 and 1, a ragged B, L past the kernel's
-# 128-id staging chunk, SASRec's table width with a ragged B
+# package's test shapes, D 37, L 0 and 1, a ragged B, a long L with rows
+# wider than a warp's chunks (passes), SASRec's table width with a ragged
+# B; then each chunk width and packed warp (kernel.layout): D 4 (f32 one
+# 16-byte chunk, 32 bags a warp), D 64 (f32 16 lanes a bag, 2 bags a warp;
+# bf16 8 lanes, 4 bags), D 8 (bf16 one 16-byte chunk, 32 bags a warp), D 1
+# (one 4- or 2-byte chunk), each with a B that leaves a warp part full
 EMBAG_CASES = [(64, 16, 16, 4), (256, 32, 32, 10), (1024, 64, 8, 50),
                (300, 37, 13, 7), (50, 8, 5, 0), (50, 8, 5, 1),
-               (500, 130, 3, 300), (20000, 50, 1001, 50)]
+               (500, 130, 3, 300), (20000, 50, 1001, 50),
+               (100, 4, 301, 9), (700, 64, 77, 33), (90, 8, 1000, 13),
+               (60, 1, 333, 27)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -848,6 +854,34 @@ def test_embedding_bag_kernel_matches_plain_version(card, V, D, B, L, dtype):
     assert torch.equal(got, want) and torch.equal(got, again)
     # on the CPU, the same op runs the plain version: the same bits
     assert torch.equal(got.cpu(), eops.embedding_bag(table.cpu(), ids.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [8, 50, 64])
+def test_embedding_bag_kernel_on_a_table_view_one_element_in(card, D, dtype):
+    """A table view that starts one element into its storage (f32: only
+    4-byte aligned, bf16: 2-byte) takes chunks of that width, and still
+    equals the plain version bit for bit, twice."""
+    from repro_torch.kernels.embedding_bag import kernel as ekernel
+    from repro_torch.kernels.embedding_bag import ops as eops
+    from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
+    V, B, L = 500, 203, 21
+    rng = np.random.default_rng(11)
+    flat = torch.zeros(V * D + 1, dtype=dtype, device=card)
+    flat[1:] = torch.from_numpy(rng.standard_normal(V * D).astype(
+        np.float32)).to(card).to(dtype)
+    table = flat[1:].view(V, D)
+    ids = torch.from_numpy(rng.integers(-3, V + 5, (B, L)).astype(
+        np.int32)).to(card)
+    es = table.element_size()
+    width, _, _ = ekernel.layout(D, es, table.data_ptr(), 1 << 20)
+    assert table.data_ptr() % 16 == es and width == es
+    before = eops.embedding_bag.launches
+    got = eops.embedding_bag(table, ids)
+    again = eops.embedding_bag(table, ids)
+    assert eops.embedding_bag.launches == before + 2
+    want = embedding_bag_ref(table, ids)
+    assert torch.equal(got, want) and torch.equal(got, again)
 
 
 def test_embedding_bag_kernel_refuses_what_it_does_not_take(card):

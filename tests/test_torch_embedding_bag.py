@@ -130,3 +130,46 @@ def test_importing_and_running_on_the_cpu_builds_nothing():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+# kernel.layout at an aligned base: (chunk bytes, lanes a bag, bags a warp)
+LAYOUTS = {
+    (4, 1): (4, 1, 32), (4, 8): (16, 2, 16), (4, 37): (4, 32, 1),
+    (4, 50): (8, 32, 1), (4, 64): (16, 16, 2), (4, 130): (8, 32, 1),
+    (2, 1): (2, 1, 32), (2, 8): (16, 1, 32), (2, 37): (2, 32, 1),
+    (2, 50): (4, 32, 1), (2, 64): (16, 8, 4), (2, 130): (4, 32, 1),
+}
+
+
+@pytest.mark.parametrize("offset", [0, 2, 4, 8])
+@pytest.mark.parametrize("D", [1, 8, 37, 50, 64, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layout_packs_chunks_and_bags_into_a_warp(dtype, D, offset):
+    """The chunk is the widest of 16/8/4/2 bytes dividing the row and both
+    addresses (capped by a base offset), never below an element; a bag
+    takes the least power of two of lanes covering its chunks, at most 32;
+    a warp holds 32 / lanes bags."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    table, out = (1 << 20) + offset, 1 << 21
+    if offset and offset < es:     # a base that cuts an f32 element
+        with pytest.raises(ValueError, match="elements"):
+            kernel.layout(D, es, table, out)
+        return
+    width0, lanes0, bags0 = LAYOUTS[es, D]
+    width, lanes, bags = kernel.layout(D, es, table, out)
+    assert width == min(width0, offset or 16)
+    assert width >= es and (D * es) % width == 0
+    chunks = D * es // width
+    assert lanes & (lanes - 1) == 0 and lanes <= 32 and bags * lanes == 32
+    assert lanes >= min(chunks, 32) and (lanes == 1 or lanes // 2 < chunks)
+    if not offset:
+        assert (width, lanes, bags) == (width0, lanes0, bags0)
+    # the output's address caps the width as the table's does
+    assert kernel.layout(D, es, out, table) == (width, lanes, bags)
+
+
+def test_layout_refuses_what_no_chunk_fits():
+    with pytest.raises(ValueError, match="D >= 1"):
+        kernel.layout(0, 4, 0)
+    with pytest.raises(ValueError, match="no chunk width"):
+        kernel.layout(3, 2, 1)       # a bf16 table at an odd address
