@@ -49,38 +49,27 @@
 // groups a grid's width apart, and loads the next window's id (of this
 // bag or of the next) while this window's rows are in flight.  Three
 // CTAs fit an SM (80 registers a thread).  Offsets are 64-bit.  Measured
-// against this (PERF.md): a per-warp ring of rows filled by cp.async
-// (scripts/embedding_bag_ring.cu); lanes that each load every id
-// themselves; windows of 32 slots for every bag with the ids copied ahead
-// by cp.async; no persistent grid; 16 or 32 slots; L2 eviction hints.
-//
-// EMBAG_SLOTS sets the rows in flight a lane (a multiple of 4 up to 32).
-// EMBAG_ABLATE builds the ablations that PERF.md reports (never the op's
-// kernel): 1 loads every row but folds its bits in with xor instead of
-// adding, 2 reads each bag's first valid row in every valid slot, 3 stages
-// the ids and stores the sums but loads no row.
+// against this (PERF.md): a per-warp ring of rows filled by cp.async;
+// lanes that each load every id themselves; windows of 32 slots for every
+// bag with the ids copied ahead by cp.async; no persistent grid; 16 or 32
+// slots; L2 eviction hints.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#ifndef EMBAG_SLOTS
-#define EMBAG_SLOTS 24   // slots whose rows are in flight together, <= 32
-#endif
-#ifndef EMBAG_ABLATE
-#define EMBAG_ABLATE 0
-#endif
 
 namespace {
 
 constexpr int WARPS = 8;    // warps a CTA
 constexpr int CTAS = 3;     // CTAs an SM: at most 80 registers a thread
+constexpr int SLOTS = 24;   // slots whose rows are in flight together
 
-// slots whose rows are in flight together: at most 48 registers of
-// chunks a lane, so that CTAS fit an SM without spills
+// slots whose rows are in flight together for chunks of W: SLOTS, or as
+// many as 48 registers of chunks a lane hold, so that CTAS fit an SM
+// without spills (12 for 16-byte chunks)
 template <typename W>
 __host__ __device__ constexpr int batch() {
   constexpr int words = sizeof(W) < 4 ? 1 : (int)(sizeof(W) / 4);
-  constexpr int n = EMBAG_SLOTS < 48 / words ? EMBAG_SLOTS : 48 / words;
+  constexpr int n = SLOTS < 48 / words ? SLOTS : 48 / words;
   static_assert(n % 4 == 0 && n <= 32, "slots come four at a time, <= 32");
   return n;
 }
@@ -103,21 +92,6 @@ __device__ __forceinline__ void add_chunk(float* acc, const W& w) {
         acc[2 * i + 1] += __uint_as_float(p[i] & 0xffff0000u);
       }
     }
-  }
-}
-
-// the ablation without adds: the chunk's words are folded with xor into
-// acc's bits, one integer op a word, so the loads stay
-template <typename W>
-__device__ __forceinline__ void fold_chunk(float* acc, const W& w) {
-  if constexpr (sizeof(W) == 2) {
-    acc[0] = __uint_as_float(__float_as_uint(acc[0]) ^
-                             reinterpret_cast<const uint16_t&>(w));
-  } else {
-    const uint32_t* p = reinterpret_cast<const uint32_t*>(&w);
-#pragma unroll
-    for (int i = 0; i < (int)(sizeof(W) / 4); ++i)
-      acc[i] = __uint_as_float(__float_as_uint(acc[i]) ^ p[i]);
   }
 }
 
@@ -215,9 +189,6 @@ __global__ void __launch_bounds__(WARPS * 32, CTAS)
   float acc[E];
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.f;
-#if EMBAG_ABLATE == 2
-  int first = -1;
-#endif
   int k = slot_id(at);
   while (at.t < groups) {
     // stage the window's valid ids of each bag in slot order: a ballot
@@ -238,9 +209,6 @@ __global__ void __launch_bounds__(WARPS * 32, CTAS)
     const bool live = b < B && c < C;
     const char* base = reinterpret_cast<const char*>(table + (live ? c : 0));
     if (!live) n = 0;
-#if EMBAG_ABLATE == 3
-    most = 0;
-#endif
     for (int r0 = 0; r0 < most; r0 += N) {
       W v[N];
 #pragma unroll
@@ -251,16 +219,9 @@ __global__ void __launch_bounds__(WARPS * 32, CTAS)
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             v[q + u] = W{};
-            int row = kq[u];
-#if EMBAG_ABLATE == 2
-            if (r0 + q + u < n) {
-              if (first < 0) first = row;
-              row = first;
-            }
-#endif
             if (r0 + q + u < n)
               v[q + u] = __ldg(reinterpret_cast<const W*>(
-                  base + (size_t)(unsigned)row * row_bytes));
+                  base + (size_t)(unsigned)kq[u] * row_bytes));
           }
         }
       }
@@ -268,22 +229,13 @@ __global__ void __launch_bounds__(WARPS * 32, CTAS)
       // which leaves a sum that started at +0.0 unchanged
 #pragma unroll
       for (int u = 0; u < N; ++u) {
-        if (r0 + u < most) {
-#if EMBAG_ABLATE == 1
-          fold_chunk(acc, v[u]);
-#else
-          add_chunk<T>(acc, v[u]);
-#endif
-        }
+        if (r0 + u < most) add_chunk<T>(acc, v[u]);
       }
     }
     if (at.w == windows - 1) {   // the pass's sums are whole
       if (live) out[b * C + c] = pack_chunk<T, W>(acc);
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[e] = 0.f;
-#if EMBAG_ABLATE == 2
-      first = -1;
-#endif
     }
     at = next;
   }
