@@ -19,14 +19,31 @@ CUDA toolkit.  It:
    and one kernel that writes the rows in the caller's order (no separate
    scatter), and times kernel / plain version / ``index_select`` in the
    caller's order / sort / wrapper with CUDA events;
-4. drives ``AmpcEngine(dht_backend="local").solve`` for ``connectivity``,
-   ``mis`` and ``msf`` at rmat20 (Graph500 RMAT, 2^20 vertices, average
-   degree 8, seed 1; MSF weights from seed 2), twice each, with the kernel
-   launch counts set to 0 just before and read just after, and checks
-   every answer against an independent host computation (scipy, the port's
-   greedy-MIS oracle) and the Table-3 shuffle counts.  The label maps each
-   connectivity solve reads through the DHT go through the kernel and its
-   plain version once more, after the counts are read, and must agree;
+4. drives ``AmpcEngine(dht_backend="local").solve`` for every problem of
+   the registry.  At rmat20 (Graph500 RMAT, 2^20 vertices, average degree
+   8, seed 1; weights from seed 2 where a problem needs them):
+   ``connectivity``, ``mis``, ``msf``, ``matching``,
+   ``weighted-matching``, ``vertex-cover`` and ``msf-kkt`` twice each,
+   ``matching-levels``, ``matching-vertex-process`` and the MPC baselines
+   ``mis-mpc``, ``matching-mpc``, ``msf-mpc`` and ``connectivity-mpc``
+   once each.  On ``two_cycles(2**23)`` and ``one_cycle(2**24)`` (n =
+   2^24, the largest at which float32 ranks are exact): ``one-vs-two``
+   (p = 1/64) twice and ``one-vs-two-mpc`` once.  Each solve runs with
+   the kernel launch counts set to 0 just before and read just after: 2
+   ``dht_gather`` launches a connectivity solve, none for any other
+   problem.  Every answer is held against a host computation that uses
+   none of the port's solvers (scipy's connected components and minimum
+   spanning tree; the port's greedy-MIS and greedy-matching oracles on
+   ranks drawn here, one pass serving every matching problem and the
+   vertex cover, the weight ranks built as the reference builds them for
+   ``weighted-matching``; 2 and 1 cycles), the Table-3 shuffle counts are
+   checked (connectivity and msf 5; mis, matching, weighted-matching and
+   one-vs-two 2), and every MPC baseline must take more shuffles than its
+   AMPC problem.  Each solve prints its wall time, host reads, peak
+   memory, ledger and stats (the walk's steps for one-vs-two).  The label
+   maps each connectivity solve reads through the DHT go through the
+   kernel and its plain version once more, after the counts are read, and
+   must agree;
 5. holds the flash-attention forward kernels against their plain version
    on the card, element by element (bf16 within 2^-7 of each output plus
    1e-3, f32 within 1e-5: the kernel sums in another order) at the LM
@@ -163,7 +180,21 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 RMAT_LOG2, RMAT_DEG, RMAT_SEED, WEIGHT_SEED = 20, 8.0, 1, 2
-EXPECTED_SHUFFLES = {"connectivity": 5, "mis": 2, "msf": 5}
+# the engine phase's solves at rmat20: (problem, weighted, reps)
+RMAT_SOLVES = (("connectivity", False, 2), ("mis", False, 2),
+               ("msf", True, 2), ("matching", False, 2),
+               ("weighted-matching", True, 2), ("vertex-cover", False, 2),
+               ("msf-kkt", True, 2), ("matching-levels", False, 1),
+               ("matching-vertex-process", False, 1), ("mis-mpc", False, 1),
+               ("matching-mpc", False, 1), ("msf-mpc", True, 1),
+               ("connectivity-mpc", False, 1))
+# cycles of 2^24 vertices in all: the largest n at which every rank
+# rng.permutation(n).astype(np.float32) is exact (above 2^24 ranks tie and
+# CC-LocalContraction never contracts a 2-cycle of tied ranks)
+CYCLE_LOG2 = 24
+CYCLE_SOLVES = (("one-vs-two", 2), ("one-vs-two-mpc", 1))
+EXPECTED_SHUFFLES = {"connectivity": 5, "mis": 2, "msf": 5, "matching": 2,
+                     "weighted-matching": 2, "one-vs-two": 2}
 CC_LAUNCHES_PER_SOLVE = 2
 # dense peaks of the H100 SXM data sheet: bf16 tensor cores, f32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -423,33 +454,65 @@ def canonical(labels):
 
 
 def independent_answers(g, gw):
-    """Host answers computed without the port's solvers."""
+    """Host answers computed without the port's solvers, by problem."""
     import numpy as np
     from scipy.sparse import coo_matrix
     from scipy.sparse.csgraph import connected_components, \
         minimum_spanning_tree
     from repro_torch.core import oracle
 
-    n = g.n
+    n, m = g.n, g.m
     u, v = g.edges[:, 0], g.edges[:, 1]
-    adj = coo_matrix((np.ones(g.m), (u, v)), shape=(n, n)).tocsr()
+    adj = coo_matrix((np.ones(m), (u, v)), shape=(n, n)).tocsr()
     _, cc = connected_components(adj, directed=False)
+    cc = canonical(cc.astype(np.int64))
     mis = oracle.greedy_mis(g, np.random.default_rng(0).permutation(n))
     wadj = coo_matrix((gw.weights.astype(np.float64), (u, v)),
                       shape=(n, n)).tocsr()
-    mst = minimum_spanning_tree(wadj)
-    return {"connectivity": canonical(cc.astype(np.int64)), "mis": mis,
-            "msf": np.sort(mst.data)}
+    msf = np.sort(minimum_spanning_tree(wadj).data)
+    # every matching problem and the vertex cover draw the engine seed's
+    # edge permutation; weighted matching ranks by decreasing weight, ties
+    # by that permutation over m
+    mm = oracle.greedy_mm(g, np.random.default_rng(0).permutation(m))
+    cover = np.zeros(n, bool)
+    cover[u[mm]] = cover[v[mm]] = True
+    tie = np.random.default_rng(0).permutation(m).astype(np.float64) / m
+    wrank = np.argsort(np.lexsort((tie, -gw.weights.astype(np.float64))))
+    mwm = oracle.greedy_mm(gw, wrank)
+    return {"connectivity": cc, "connectivity-mpc": cc,
+            "mis": mis, "mis-mpc": mis,
+            "msf": msf, "msf-kkt": msf, "msf-mpc": msf,
+            "matching": mm, "matching-levels": mm,
+            "matching-vertex-process": mm, "matching-mpc": mm,
+            "weighted-matching": mwm, "vertex-cover": cover}
+
+
+def jsonable(stats):
+    """A solve's stats for a JSON line: arrays (the matching problems'
+    ranks) as their shape and type."""
+    import numpy as np
+    if isinstance(stats, np.ndarray):
+        return {"array": list(stats.shape), "dtype": str(stats.dtype)}
+    if isinstance(stats, dict):
+        return {str(k): jsonable(x) for k, x in stats.items()}
+    if isinstance(stats, (list, tuple)):
+        return [jsonable(x) for x in stats]
+    if isinstance(stats, np.generic):
+        return stats.item()
+    return stats
 
 
 def engine_phase(g, gw):
-    """Solve every problem twice on the card with the launch counts set to
-    0 first; check each answer.  Returns the main path's kernel launches
-    and the kernel's rows on the connectivity solves' own label maps."""
+    """Solve every problem on the card with the launch counts set to 0
+    first; check each answer, the Table-3 counts and that each MPC
+    baseline takes more shuffles than its AMPC problem.  Returns the main
+    path's kernel launches and the kernel's rows on the connectivity
+    solves' own label maps."""
     import numpy as np
     import torch
     from repro_torch.ampc import AmpcEngine
     from repro_torch.core import rounds
+    from repro_torch.graph import generators as gen
     from repro_torch.kernels.dht_gather import ops
 
     t0 = time.perf_counter()
@@ -470,54 +533,87 @@ def engine_phase(g, gw):
         return local_lookup(values, keys, dedup=dedup, **kw)
 
     eng.dht.lookup = recorded_lookup
-    main_launches, solve_rows = 0, []
+    main_launches, solve_rows, shuffles = 0, [], {}
     ops.dht_gather.launches = 0
-    for problem, graph in (("connectivity", g), ("mis", g), ("msf", gw)):
-        for rep in range(2):
-            launches0, reads0 = ops.dht_gather.launches, rounds.HOST_READS
-            torch.cuda.reset_peak_memory_stats()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = eng.solve(graph, problem)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = ops.dht_gather.launches - launches0
-            main_launches += launches
-            out = res.output
-            if problem == "connectivity":
-                check(np.array_equal(out, want[problem]),
-                      "connectivity labels differ from scipy's")
-            elif problem == "mis":
-                check(np.array_equal(out, want[problem]),
-                      "mis differs from the greedy-MIS oracle")
-            else:
-                check(np.array_equal(np.sort(gw.weights[out]
-                                             .astype(np.float64)),
-                                     want[problem]),
-                      "msf weights differ from scipy's spanning forest")
+
+    def solve(graph_name, graph, problem, rep, **opts):
+        nonlocal main_launches
+        launches0, reads0 = ops.dht_gather.launches, rounds.HOST_READS
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.solve(graph, problem, **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.dht_gather.launches - launches0
+        main_launches += launches
+        shuffles[(graph_name, problem)] = res.shuffles
+        if problem in EXPECTED_SHUFFLES:
             check(res.shuffles == EXPECTED_SHUFFLES[problem],
                   f"{problem}: {res.shuffles} shuffles, expected "
                   f"{EXPECTED_SHUFFLES[problem]}")
-            expect = CC_LAUNCHES_PER_SOLVE if problem == "connectivity" else 0
-            check(launches == expect,
-                  f"{problem}: dht_gather launched {launches} times, "
-                  f"expected {expect}")
-            emit({"phase": "engine", "problem": problem, "rep": rep,
-                  "wall_s": wall, "host_reads": rounds.HOST_READS - reads0,
-                  "dht_gather_launches": launches,
-                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-                  "ledger": res.ledger, "stats": res.stats})
-            check(len(reads) == expect,
-                  f"{problem}: {len(reads)} deduplicated DHT reads, "
-                  f"expected {expect}")
-            for i, (values, keys) in enumerate(reads):
-                table = values.reshape(values.shape[0], -1)
-                keys = torch.where(keys < 0, -1, keys.to(torch.int32))
-                row = dht_gather_case(f"{problem}_solve{rep}_read{i}",
-                                      table, keys, timed=rep == 0)
-                emit({"phase": "kernel", "name": "dht_gather", **row})
-                solve_rows.append(row)
-            reads.clear()
+        expect = CC_LAUNCHES_PER_SOLVE if problem == "connectivity" else 0
+        check(launches == expect,
+              f"{problem}: dht_gather launched {launches} times, "
+              f"expected {expect}")
+        emit({"phase": "engine", "graph": graph_name, "problem": problem,
+              "rep": rep, "wall_s": wall,
+              "host_reads": rounds.HOST_READS - reads0,
+              "dht_gather_launches": launches,
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "ledger": res.ledger, "stats": jsonable(res.stats)})
+        check(len(reads) == expect,
+              f"{problem}: {len(reads)} deduplicated DHT reads, "
+              f"expected {expect}")
+        for i, (values, keys) in enumerate(reads):
+            table = values.reshape(values.shape[0], -1)
+            keys = torch.where(keys < 0, -1, keys.to(torch.int32))
+            row = dht_gather_case(f"{problem}_solve{rep}_read{i}",
+                                  table, keys, timed=rep == 0)
+            emit({"phase": "kernel", "name": "dht_gather", **row})
+            solve_rows.append(row)
+        reads.clear()
+        return res.output
+
+    for problem, weighted, reps in RMAT_SOLVES:
+        graph = gw if weighted else g
+        for rep in range(reps):
+            out = solve("rmat20", graph, problem, rep)
+            if problem.startswith("msf"):
+                check(np.array_equal(np.sort(gw.weights[out]
+                                             .astype(np.float64)),
+                                     want[problem]),
+                      f"{problem} weights differ from scipy's spanning "
+                      "forest")
+            else:
+                check(np.array_equal(out, want[problem]),
+                      f"{problem} differs from its host answer")
+    del want
+
+    k = 2 ** (CYCLE_LOG2 - 1)
+    for graph_name, graph, answer in (
+            (f"two_cycles_2^{CYCLE_LOG2 - 1}", gen.two_cycles(k), 2),
+            (f"one_cycle_2^{CYCLE_LOG2}", gen.one_cycle(2 * k), 1)):
+        for problem, reps in CYCLE_SOLVES:
+            for rep in range(reps):
+                out = solve(graph_name, graph, problem, rep)
+                check(out == answer,
+                      f"{problem} counts {out} cycles on {graph_name}, "
+                      f"not {answer}")
+        del graph
+
+    # every MPC baseline takes more shuffles than its AMPC problem
+    more = {}
+    for (graph_name, problem), n_shuffles in shuffles.items():
+        base = eng.baseline_for(problem)
+        if base is None or (graph_name, base) not in shuffles:
+            continue
+        pair = (n_shuffles, shuffles[(graph_name, base)])
+        more[f"{graph_name}:{problem}"] = {"ampc": pair[0], "mpc": pair[1]}
+        check(pair[1] > pair[0],
+              f"{base} took {pair[1]} shuffles, {problem} {pair[0]}")
+    check(len(more) == 6, f"AMPC/MPC shuffle pairs: {sorted(more)}")
+    emit({"phase": "engine_shuffles", "pairs": more})
     eng.dht.lookup = local_lookup
     return main_launches, solve_rows
 

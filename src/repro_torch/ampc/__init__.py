@@ -4,7 +4,8 @@
     res = AmpcEngine().solve(g, "connectivity")          # on the card
     res = AmpcEngine(device="cpu").solve(g, "mis")       # on the host
 
-Ported problems: ``mis``, ``msf``, ``connectivity``; the local DHT backend.
+Every problem the JAX package registers (``AmpcEngine().problems()``: the
+AMPC problems and their MPC baselines); the local DHT backend.
 """
 from .backends import DhtBackend, LocalDht, resolve_backend
 from .engine import AmpcEngine, AmpcResult, SolveContext

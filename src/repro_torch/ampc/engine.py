@@ -52,7 +52,8 @@ class AmpcResult:
 
     ``output`` follows the problem's declared kind: ``vertex_mask`` (bool
     (n,)), ``edge_mask`` (bool (m,)) or ``labels`` (int (n,)), as numpy
-    arrays on the host.  ``ledger`` is the ``RoundLedger.summary()`` dict —
+    arrays on the host, or ``count`` (a Python int: the number of cycles
+    for ``one-vs-two``).  ``ledger`` is the ``RoundLedger.summary()`` dict —
     ``ledger["shuffles"]`` is the paper's Table-3 round count.
     ``raw_ledger`` and ``trace`` are excluded from equality.
     """
@@ -150,6 +151,10 @@ class AmpcEngine:
             raise ValueError(
                 f"problem {spec.name!r} needs edge weights; call "
                 "g.with_random_weights()/g.with_degree_weights() first")
+        if spec.needs_cycles and not (graph.degrees() == 2).all():
+            raise ValueError(
+                f"problem {spec.name!r} needs a disjoint union of cycles "
+                "(every vertex must have degree 2)")
 
     # ------------------------------------------------------------------
     def solve(self, graph, problem: str, *, seed: Optional[int] = None,
@@ -158,7 +163,8 @@ class AmpcEngine:
         """Run ``problem`` on ``graph`` and return an ``AmpcResult``.
 
         ``**opts`` are forwarded to the registered solver (e.g.
-        ``skip_ternarize_if_dense=False`` for msf).  ``seed``/``epsilon``/
+        ``skip_ternarize_if_dense=False`` for msf, ``p=1/64`` for
+        one-vs-two).  ``seed``/``epsilon``/
         ``record_events`` override the engine defaults for this solve.
         """
         spec = registry.get(problem)
@@ -210,8 +216,15 @@ class AmpcEngine:
         return metrics_report(self.metrics)
 
     def problems(self, model: Optional[str] = None):
-        """Names of every problem the port solves (optionally one model)."""
+        """Names of every solvable problem (optionally one model only)."""
         return registry.names(model)
+
+    def baseline_for(self, problem: str) -> Optional[str]:
+        """Name of the MPC baseline registered for an AMPC problem."""
+        for spec in registry.specs("mpc"):
+            if spec.baseline_of == registry.get(problem).name:
+                return spec.name
+        return None
 
     def __repr__(self):
         return (f"AmpcEngine(dht_backend={self.dht.name!r}, "

@@ -3,8 +3,8 @@
 A copy of the JAX package's ``repro.ampc.registry``: a decorator registers
 each solver with a normalized signature ``fn(ctx, graph, **opts)`` so
 ``AmpcEngine.solve(graph, "<name>")`` dispatches without per-algorithm
-special cases.  Problems the reference registers but the port does not
-solve yet raise a ``KeyError`` that names the ROADMAP item porting them.
+special cases.  The port registers every problem and alias the reference
+does.
 """
 from __future__ import annotations
 
@@ -29,17 +29,6 @@ class ProblemSpec:
 
 PROBLEMS: Dict[str, ProblemSpec] = {}
 _ALIASES: Dict[str, str] = {}
-
-# problem names (and aliases) of the JAX package not ported yet, with the
-# ROADMAP item that ports them
-NOT_PORTED: Dict[str, str] = {
-    **dict.fromkeys(("matching", "mm", "maximal-matching", "weighted-matching",
-                     "mwm", "vertex-cover"), "queue 1, item 5"),
-    **dict.fromkeys(("one-vs-two", "1v2c"), "queue 1, item 6"),
-    **dict.fromkeys(("mis-mpc", "matching-mpc", "matching-levels",
-                     "matching-vertex-process", "msf-mpc", "msf-kkt",
-                     "connectivity-mpc", "one-vs-two-mpc"), "queue 1, item 7"),
-}
 
 
 def problem(name: str, *, model: str, output: str, needs_weights: bool = False,
@@ -82,10 +71,6 @@ def get(name: str) -> ProblemSpec:
     _ensure_loaded()
     key = _ALIASES.get(name, name)
     if key not in PROBLEMS:
-        if name in NOT_PORTED:
-            raise KeyError(
-                f"problem {name!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md {NOT_PORTED[name]}); ported: {sorted(PROBLEMS)}")
         raise KeyError(
             f"unknown problem {name!r}; known: {sorted(PROBLEMS)} "
             f"(aliases: {sorted(_ALIASES)})")

@@ -1,11 +1,14 @@
-"""AMPC solver drivers — the engine's algorithm layer (torch port).
+"""AMPC and MPC solver drivers — the engine's algorithm layer (torch port).
 
-Ports of the JAX package's ``repro.ampc.solvers`` drivers for ``mis``,
-``msf`` and ``connectivity`` on their snapshot-free paths, registered with
+Ports of every driver of the JAX package's ``repro.ampc.solvers`` on its
+snapshot-free path (MIS, the matching family, MSF with its KKT filter,
+connectivity, 1-vs-2-cycle, and the MPC baselines), registered with
 :mod:`repro_torch.ampc.registry` so ``AmpcEngine.solve`` reaches them.  The
-host-side steps (graph layout, ternarization, the rank permutation drawn
-from ``np.random.default_rng(seed)``) are the reference's, so outputs,
-stats and ledger counters equal the reference's for the same graph and seed.
+host-side steps (graph layout, ternarization, every draw from
+``np.random.default_rng(seed)``, in the same order) are the reference's, so
+outputs, stats and ledger counters equal the reference's for the same graph
+and seed.  The MPC baselines read their loop condition on the host once a
+phase (``rounds.HOST_READS``), as the reference does.
 
 The ``dht`` parameter realizes the paper's last step of every AMPC round:
 machines read their outputs back from the immutable DHT snapshot
@@ -19,11 +22,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.connectivity import _canonicalize
-from ..core.mis import IN, UNKNOWN, _mis_fixpoint
-from ..core.msf import (boruvka_inround, contract_edges, pointer_jump,
-                        truncated_prim)
-from ..core.rounds import RoundLedger, nbytes_of
+from ..core import matching
+from ..core.connectivity import _canonicalize, _h2m_phase
+from ..core.mis import IN, UNKNOWN, _mis_fixpoint, _mis_wave
+from ..core.msf import (_mpc_boruvka_phase, boruvka_inround, contract_edges,
+                        pointer_jump, truncated_prim)
+from ..core.one_vs_two import (_local_contraction_phase, _walk_and_count,
+                               cycle_adjacency)
+from ..core.rounds import RoundLedger, host_read, nbytes_of
 from ..core.ternarize import ternarize
 from ..graph.coo import UGraph
 from .registry import problem
@@ -86,6 +92,256 @@ def mis_ampc(g: UGraph, seed: int = 0,
              "queries_dedup": qd,
              "cache_savings_factor": qn / max(qd, 1)}
     return status == IN, stats
+
+
+def mis_mpc_rootset(g: UGraph, seed: int = 0,
+                    ledger: Optional[RoundLedger] = None,
+                    max_phases: int = 500,
+                    device="cuda") -> Tuple[np.ndarray, dict]:
+    """MPC rootset baseline (paper Fig 2): one MIS wave a phase, two
+    shuffles a phase.  Returns (in_mis bool(n,), stats)."""
+    ledger = ledger if ledger is not None else RoundLedger("mpc_mis")
+    n = g.n
+    rng = np.random.default_rng(seed)
+    rank = _to(rng.permutation(n).astype(np.float32), device)
+    s, r, _, _ = g.symmetric()
+    s_l, r_l = _to(s, device).long(), _to(r, device).long()
+    lower = rank[r_l] < rank[s_l]
+    edge_ok = torch.ones(s_l.shape, dtype=torch.bool, device=device)
+    status = torch.zeros(n, dtype=torch.int32, device=device)
+    phases = 0
+    nb = nbytes_of(g.edges) * 2
+    remaining = n
+    while remaining > 0 and phases < max_phases:
+        # paper Fig 2: 2 shuffles per phase (mark-to-remove join, removal
+        # join)
+        with ledger.shuffle(f"rootset_mark_{phases}", nb):
+            status, _ = _mis_wave(status, s_l, r_l, lower, edge_ok, n)
+        with ledger.shuffle(f"rootset_remove_{phases}", nb):
+            remaining = host_read((status == UNKNOWN).sum())
+        phases += 1
+    status = ledger.harvest(status)
+    return status == IN, {"phases": phases}
+
+
+# ==========================================================================
+# Maximal matching (paper Section 4, Theorem 2)
+# ==========================================================================
+def _edge_ends(g: UGraph, device):
+    """The edges' endpoints on the device, as int64 index tensors."""
+    return _to(g.edges[:, 0], device).long(), _to(g.edges[:, 1],
+                                                   device).long()
+
+
+def mm_ampc(g: UGraph, seed: int = 0,
+            ledger: Optional[RoundLedger] = None,
+            caching: bool = True, erank: Optional[np.ndarray] = None,
+            dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
+    """Greedy maximal matching over the rank permutation ``erank``.
+
+    ``erank`` is the rank-injection point (Corollary 4.1): when omitted it
+    is a fresh random permutation drawn from ``seed``; weighted matching
+    passes decreasing-weight ranks instead.  Returns (in_mm bool(m,),
+    stats).
+    """
+    ledger = ledger if ledger is not None else RoundLedger("ampc_mm")
+    n, m = g.n, g.m
+    if erank is None:
+        rng = np.random.default_rng(seed)
+        erank = rng.permutation(m).astype(np.float32)
+    else:
+        erank = np.asarray(erank, np.float32)
+        if erank.shape != (m,):
+            raise ValueError("erank must be one rank per edge")
+
+    with ledger.shuffle("SortEdges+WriteKV", nbytes_of(g.edges) * 2):
+        u, v = _edge_ends(g, device)
+        jrank = _to(erank, device)
+
+    with ledger.shuffle("IsInMM", m):
+        estatus_dev, it, q0, q1 = matching._mm_fixpoint(
+            u, v, jrank, n, torch.zeros(m, dtype=torch.int32, device=device))
+        out_dev = _collect_dev(dht, ledger, estatus_dev)
+        estatus, qn, qd = ledger.harvest((out_dev, q0, q1))
+        qn, qd = int(qn), int(qd)
+    queries = qd if caching else qn
+    ledger.record_queries(queries, queries * 12, waves=it,
+                          deduped_away=(qn - qd) if caching else 0)
+    stats = {"fixpoint_iters": it, "queries_nodedup": qn,
+             "queries_dedup": qd, "erank": erank}
+    return estatus == IN, stats
+
+
+def mm_ampc_levels(g: UGraph, seed: int = 0,
+                   ledger: Optional[RoundLedger] = None,
+                   device="cuda") -> Tuple[np.ndarray, dict]:
+    """Algorithm 4: O(log log Δ) geometric sampling levels, one launch a
+    level (at most k, from the graph's maximum degree)."""
+    ledger = ledger if ledger is not None else RoundLedger("ampc_mm_levels")
+    n, m = g.n, g.m
+    rng = np.random.default_rng(seed)
+    erank01 = rng.permutation(m).astype(np.float64) / max(m, 1)  # in [0,1)
+    delta = int(g.degrees().max()) if m else 1
+    k = int(np.ceil(np.log2(max(np.log2(max(delta, 2)), 1.000001)))) + 1
+    u, v = _edge_ends(g, device)
+    jrank = _to(erank01.astype(np.float32), device)
+    rank01 = _to(erank01, device)
+    estatus = torch.zeros(m, dtype=torch.int32, device=device)
+    level_stats = []
+    ten_log_n = 10 * np.log(max(n, 2))
+    for i in range(1, k + 1):
+        # current maximum degree of the residual graph
+        unk = estatus == UNKNOWN
+        cur_delta = 0
+        if m:
+            deg = torch.zeros(n, dtype=torch.int64, device=device)
+            for end in (u, v):
+                deg.scatter_add_(0, end, unk.long())
+            cur_delta = host_read(deg.max())
+        if cur_delta == 0:
+            break
+        if cur_delta > ten_log_n:
+            thresh = float(delta) ** (-(0.5 ** i))
+        else:
+            thresh = 1.1  # H_i = G_i
+        in_h = (rank01 <= thresh) & unk
+        with ledger.shuffle(f"level_{i}_greedyMM", nbytes_of(g.edges)):
+            # resolve the sampled subgraph completely (one AMPC launch)
+            st, iters, _, _ = matching._mm_fixpoint(
+                u, v, torch.where(in_h, jrank, matching.INF), n,
+                torch.where(in_h, UNKNOWN, matching.OUT).to(torch.int32))
+            # edges of H_i resolved; commit IN edges, kill touched vertices
+            estatus = torch.where((st == IN) & in_h, IN, estatus)
+            matched = matching._mark(n, estatus == IN, u, v)
+            dead = (estatus == UNKNOWN) & ((matched[u] == 1)
+                                           | (matched[v] == 1))
+            estatus = torch.where(dead, matching.OUT, estatus)
+            # H_i \ M_i edges whose endpoints survive go back to G_{i+1}
+        level_stats.append({"level": i, "delta": cur_delta,
+                            "threshold": thresh, "iters": iters})
+    st = ledger.harvest(estatus)
+    return st == IN, {"levels": level_stats, "k": k,
+                      "erank": erank01.astype(np.float32)}
+
+
+def _vertex_launch(estatus, u, v, jrank, n: int, budget: int):
+    """One launch of the vertex process: every vertex has ``budget``
+    queries; an edge is decided only while an endpoint has budget left, and
+    the launch stops when no such edge is unresolved or after
+    4 * budget waves.  Returns (estatus, queries as a device scalar)."""
+    dev = u.device
+    qcount = torch.zeros(n, dtype=torch.int32, device=dev)
+    q = torch.zeros((), dtype=torch.int64, device=dev)
+    it = 0
+    while it < 4 * budget:
+        active = (qcount[u] < budget) | (qcount[v] < budget)
+        live = (estatus == UNKNOWN) & active
+        if not host_read(live.any()):
+            break
+        estatus, _ = matching._mm_wave(estatus, u, v, jrank, n,
+                                       active_edge=active)
+        # each unresolved active edge costs one query at each endpoint
+        # (every edge adds its 0 or 1 at its own endpoints: no one address
+        # takes the atomics of all the other edges)
+        cost = live.to(torch.int32)
+        for end in (u, v):
+            qcount.scatter_add_(0, end, cost)
+        q += live.sum()
+        it += 1
+    return estatus, q
+
+
+def mm_ampc_vertex_process(g: UGraph, epsilon: float = 0.5, seed: int = 0,
+                           ledger: Optional[RoundLedger] = None,
+                           device="cuda") -> Tuple[np.ndarray, dict]:
+    """Theorem 2 part 2: vertex-started truncated query process.
+
+    Each launch gives every vertex a fresh budget of n^ε queries; decisions
+    on an edge are applied only while at least one endpoint still has
+    budget, so resolution is delayed — never altered — and the output is
+    the exact LFMM (at most 64 launches).
+    """
+    ledger = ledger if ledger is not None else RoundLedger("ampc_mm_vertex")
+    n, m = g.n, g.m
+    rng = np.random.default_rng(seed)
+    erank = rng.permutation(m).astype(np.float32)
+    u, v = _edge_ends(g, device)
+    jrank = _to(erank, device)
+    budget = max(4, int(np.ceil(n ** epsilon)))
+    estatus = torch.zeros(m, dtype=torch.int32, device=device)
+    launches = 0
+    total_q = torch.zeros((), dtype=torch.int64, device=device)
+    while host_read((estatus == UNKNOWN).any()) and launches < 64:
+        with ledger.shuffle(f"vertex_process_{launches}", m):
+            estatus, q = _vertex_launch(estatus, u, v, jrank, n, budget)
+            total_q += q
+        launches += 1
+    st, total_q = ledger.harvest((estatus, total_q))
+    total_q = int(total_q)
+    ledger.record_queries(total_q, total_q * 12, waves=launches)
+    return st == IN, {"launches": launches, "budget": budget,
+                      "queries": total_q, "erank": erank}
+
+
+def mm_mpc_rootset(g: UGraph, seed: int = 0,
+                   ledger: Optional[RoundLedger] = None,
+                   max_phases: int = 500,
+                   device="cuda") -> Tuple[np.ndarray, dict]:
+    """MPC rootset baseline: one matching wave a phase, two shuffles a
+    phase.  Returns (in_mm bool(m,), stats)."""
+    ledger = ledger if ledger is not None else RoundLedger("mpc_mm")
+    n, m = g.n, g.m
+    rng = np.random.default_rng(seed)
+    erank = rng.permutation(m).astype(np.float32)
+    u, v = _edge_ends(g, device)
+    jrank = _to(erank, device)
+    estatus = torch.zeros(m, dtype=torch.int32, device=device)
+    phases, remaining = 0, m
+    nb = nbytes_of(g.edges)
+    while remaining > 0 and phases < max_phases:
+        with ledger.shuffle(f"rootset_mark_{phases}", nb):
+            estatus, _ = matching._mm_wave(estatus, u, v, jrank, n)
+        with ledger.shuffle(f"rootset_remove_{phases}", nb):
+            remaining = host_read((estatus == UNKNOWN).sum())
+        phases += 1
+    st = ledger.harvest(estatus)
+    return st == IN, {"phases": phases, "erank": erank}
+
+
+# ==========================================================================
+# Corollary 4.1 applications of the MM black box
+# ==========================================================================
+def mwm_greedy_ampc(g: UGraph, seed: int = 0,
+                    ledger: Optional[RoundLedger] = None,
+                    dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
+    """1/2-approx maximum weight matching: greedy by decreasing weight
+    (ties broken by a random permutation), via the AMPC MM fixpoint with
+    weight-derived ranks injected through ``mm_ampc(erank=...)``.
+    Returns (in_matching bool(m,), stats)."""
+    if g.weights is None:
+        raise ValueError("weighted matching needs a weighted graph")
+    rng = np.random.default_rng(seed)
+    tie = rng.permutation(g.m).astype(np.float64) / max(g.m, 1)
+    # rank: ascending = processed first => sort by decreasing weight
+    order = np.argsort(np.lexsort((tie, -g.weights.astype(np.float64))))
+    erank = order.astype(np.float32)
+    ledger = ledger if ledger is not None else RoundLedger("ampc_mwm")
+    in_mm, st = mm_ampc(g, seed=seed, ledger=ledger, erank=erank, dht=dht,
+                        device=device)
+    w = float(g.weights[in_mm].sum())
+    return in_mm, {"weight": w, **st}
+
+
+def vertex_cover_2approx(g: UGraph, seed: int = 0,
+                         ledger: Optional[RoundLedger] = None,
+                         dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
+    """2-approx minimum vertex cover = endpoints of a maximal matching."""
+    in_mm, stats = mm_ampc(g, seed=seed, ledger=ledger, dht=dht,
+                           device=device)
+    cover = np.zeros(g.n, bool)
+    cover[g.edges[in_mm, 0]] = True
+    cover[g.edges[in_mm, 1]] = True
+    return cover, {"cover_size": int(cover.sum()), **stats}
 
 
 # ==========================================================================
@@ -194,6 +450,41 @@ def msf_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
                          live_h, phases, cases_h, budget, nt)
 
 
+def msf_mpc_boruvka(g: UGraph, seed: int = 0,
+                    ledger: Optional[RoundLedger] = None,
+                    max_phases: int = 200,
+                    device="cuda") -> Tuple[np.ndarray, dict]:
+    """MPC red/blue Borůvka baseline (paper Section 5.5), 3 shuffles a
+    phase; one colour vector ``rng.random(n) < 0.5`` drawn a phase.
+    Returns (mask over g.edges, stats)."""
+    ledger = ledger if ledger is not None else RoundLedger("mpc_msf")
+    n, m = g.n, g.m
+    rng = np.random.default_rng(seed)
+    u, v = _to(g.edges[:, 0], device), _to(g.edges[:, 1], device)
+    w = _to(g.weights, device)
+    eid = torch.arange(m, dtype=torch.int32, device=device)
+    valid = torch.ones(m, dtype=torch.bool, device=device)
+    labels = torch.arange(n, dtype=torch.int32, device=device)
+    mask = torch.zeros(m, dtype=torch.bool, device=device)
+    phase_bytes = nbytes_of(g.edges, g.weights)
+    phases = 0
+    remaining = m
+    while remaining > 0 and phases < max_phases:
+        color = _to(rng.random(n) < 0.5, device)
+        # the paper's MPC algorithm performs 3 shuffles per contraction
+        # phase
+        with ledger.shuffle(f"boruvka_minedge_{phases}", phase_bytes):
+            pass
+        with ledger.shuffle(f"boruvka_hook_{phases}", n * 4):
+            labels, selected, valid, rem = _mpc_boruvka_phase(
+                u, v, w, eid, valid, labels, color, m)
+        with ledger.shuffle(f"boruvka_relabel_{phases}", phase_bytes):
+            mask |= selected
+            remaining = host_read(rem)
+        phases += 1
+    return ledger.harvest(mask), {"phases": phases}
+
+
 # ==========================================================================
 # Connectivity (paper Theorem 1)
 # ==========================================================================
@@ -261,6 +552,97 @@ def cc_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
     return labels, stats
 
 
+def cc_mpc_hash_to_min(g: UGraph, ledger: Optional[RoundLedger] = None,
+                       max_phases: int = 200,
+                       device="cuda") -> Tuple[np.ndarray, dict]:
+    """MPC baseline: hash-to-min label propagation, one launch and two
+    shuffles a phase.  Returns (labels(n,) canonical, stats)."""
+    ledger = ledger if ledger is not None else RoundLedger("mpc_cc")
+    n = g.n
+    u, v = _edge_ends(g, device)
+    labels = torch.arange(n, dtype=torch.int32, device=device)
+    phases = 0
+    nb = nbytes_of(g.edges)
+    while phases < max_phases:
+        with ledger.shuffle(f"h2m_join_{phases}", nb):
+            labels, changed = _h2m_phase(u, v, labels)
+        with ledger.shuffle(f"h2m_update_{phases}", n * 4):
+            ch = host_read(changed)
+        phases += 1
+        if not ch:
+            break
+    labels = _canonicalize(ledger.harvest(labels).astype(np.int64))
+    return labels, {"phases": phases,
+                    "num_components": int(len(np.unique(labels)))}
+
+
+# ==========================================================================
+# 1-vs-2-Cycle (paper Section 5.6)
+# ==========================================================================
+def one_vs_two_ampc(g: UGraph, p: float = 1.0 / 64, seed: int = 0,
+                    ledger: Optional[RoundLedger] = None,
+                    max_steps: Optional[int] = None,
+                    device="cuda") -> Tuple[int, dict]:
+    """Returns (num_cycles, stats): vertices sampled with probability
+    ``p`` walk to the next sample inside one round."""
+    ledger = ledger if ledger is not None else RoundLedger("ampc_1v2c")
+    n = g.n
+    rng = np.random.default_rng(seed)
+    with ledger.shuffle("WriteKV", nbytes_of(g.edges)):
+        nbr = _to(cycle_adjacency(g), device)
+        sampled_np = rng.random(n) < p
+        # guarantee at least one sample (paper: w.h.p. argument)
+        if not sampled_np.any():
+            sampled_np[rng.integers(n)] = True
+        sampled = _to(sampled_np, device)
+    ms = max_steps or int(min(n + 1, np.ceil(8 * np.log(max(n, 2)) / p)))
+    with ledger.shuffle("SampleWalk", int(sampled_np.sum()) * 4):
+        ncomp, steps, ok = ledger.harvest(_walk_and_count(nbr, sampled, ms))
+        ncomp, total_steps, ok = int(ncomp), int(steps), bool(ok)
+    ledger.record_queries(total_steps, total_steps * 12, waves=1)
+    if not ok:
+        raise RuntimeError("walk budget exceeded; increase p or max_steps")
+    stats = {"samples": int(sampled_np.sum()),
+             "walk_steps": total_steps, "max_steps": ms}
+    return ncomp, stats
+
+
+def one_vs_two_mpc(g: UGraph, seed: int = 0,
+                   ledger: Optional[RoundLedger] = None,
+                   device="cuda") -> Tuple[int, dict]:
+    """CC-LocalContraction MPC baseline (Section 5.6): each phase removes
+    the rank-local-minima of every cycle and reconnects; 3 shuffles per
+    phase, O(log n) phases (at most 200); the residual graph is finished
+    in memory."""
+    ledger = ledger if ledger is not None else RoundLedger("mpc_1v2c")
+    n = g.n
+    rng = np.random.default_rng(seed)
+    nbr = cycle_adjacency(g)
+    a, b = _to(nbr[:, 0], device), _to(nbr[:, 1], device)
+    rank = _to(rng.permutation(n).astype(np.float32), device)
+    ids = torch.arange(n, dtype=torch.int32, device=device)
+    parent = ids
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    phases, remaining = 0, n
+    nb = nbytes_of(g.edges)
+    shrink = []
+    while remaining > 0 and phases < 200:
+        prev = remaining
+        with ledger.shuffle(f"lc_minima_{phases}", nb):
+            a, b, parent, alive, rem = _local_contraction_phase(
+                a, b, parent, alive, rank)
+        with ledger.shuffle(f"lc_reconnect_{phases}", nb):
+            remaining = host_read(rem)
+        with ledger.shuffle(f"lc_relabel_{phases}", n * 4):
+            shrink.append(prev / max(remaining, 1))
+        phases += 1
+    # in-memory finish: pointer-jump parents to roots; the distinct roots
+    # are the roots' own fixed points
+    roots, _ = pointer_jump(parent)
+    ncomp = int(ledger.harvest((roots == ids).sum()))
+    return ncomp, {"phases": phases, "shrink_per_phase": shrink}
+
+
 # ==========================================================================
 # Registry entries — the engine's dispatch table
 # ==========================================================================
@@ -272,6 +654,59 @@ def _p_mis(ctx, g, **opts):
                     device=ctx.device, **opts)
 
 
+@problem("mis-mpc", model="mpc", output="vertex_mask", baseline_of="mis",
+         summary="MPC rootset baseline, 2 shuffles/phase (Fig 2)")
+def _p_mis_mpc(ctx, g, **opts):
+    return mis_mpc_rootset(g, seed=ctx.seed, ledger=ctx.ledger,
+                           device=ctx.device, **opts)
+
+
+@problem("matching", model="ampc", output="edge_mask",
+         aliases=("mm", "maximal-matching"), table3_shuffles=2,
+         summary="LFMM by in-round edge fixpoint (Section 5.4)")
+def _p_mm(ctx, g, **opts):
+    return mm_ampc(g, seed=ctx.seed, ledger=ctx.ledger, dht=ctx.dht,
+                   device=ctx.device, **opts)
+
+
+@problem("matching-levels", model="ampc", output="edge_mask",
+         summary="Algorithm 4: O(log log Δ) geometric sampling levels")
+def _p_mm_levels(ctx, g, **opts):
+    return mm_ampc_levels(g, seed=ctx.seed, ledger=ctx.ledger,
+                          device=ctx.device, **opts)
+
+
+@problem("matching-vertex-process", model="ampc", output="edge_mask",
+         summary="Theorem 2.2: n^ε-budget truncated vertex query process")
+def _p_mm_vertex(ctx, g, **opts):
+    return mm_ampc_vertex_process(g, epsilon=ctx.epsilon, seed=ctx.seed,
+                                  ledger=ctx.ledger, device=ctx.device,
+                                  **opts)
+
+
+@problem("matching-mpc", model="mpc", output="edge_mask",
+         baseline_of="matching",
+         summary="MPC rootset baseline, 2 shuffles/phase")
+def _p_mm_mpc(ctx, g, **opts):
+    return mm_mpc_rootset(g, seed=ctx.seed, ledger=ctx.ledger,
+                          device=ctx.device, **opts)
+
+
+@problem("weighted-matching", model="ampc", output="edge_mask",
+         aliases=("mwm",), needs_weights=True, table3_shuffles=2,
+         summary="Corollary 4.1: greedy 1/2-approx MWM via erank injection")
+def _p_mwm(ctx, g, **opts):
+    return mwm_greedy_ampc(g, seed=ctx.seed, ledger=ctx.ledger, dht=ctx.dht,
+                           device=ctx.device, **opts)
+
+
+@problem("vertex-cover", model="ampc", output="vertex_mask",
+         summary="Corollary 4.1: 2-approx vertex cover = V(maximal matching)")
+def _p_vc(ctx, g, **opts):
+    return vertex_cover_2approx(g, seed=ctx.seed, ledger=ctx.ledger,
+                                dht=ctx.dht, device=ctx.device, **opts)
+
+
 @problem("msf", model="ampc", output="edge_mask", needs_weights=True,
          table3_shuffles=5,
          summary="Algorithm 2: 5-shuffle truncated-Prim MSF")
@@ -280,9 +715,49 @@ def _p_msf(ctx, g, **opts):
                     dht=ctx.dht, device=ctx.device, **opts)
 
 
+@problem("msf-kkt", model="ampc", output="edge_mask", needs_weights=True,
+         summary="Algorithm 3: KKT sample + F-light filter + MSF")
+def _p_msf_kkt(ctx, g, **opts):
+    from ..core.kkt_filter import msf_kkt
+    return msf_kkt(g, epsilon=ctx.epsilon, seed=ctx.seed, ledger=ctx.ledger,
+                   device=ctx.device, **opts)
+
+
+@problem("msf-mpc", model="mpc", output="edge_mask", needs_weights=True,
+         baseline_of="msf",
+         summary="MPC red/blue Borůvka baseline, 3 shuffles/phase")
+def _p_msf_mpc(ctx, g, **opts):
+    return msf_mpc_boruvka(g, seed=ctx.seed, ledger=ctx.ledger,
+                           device=ctx.device, **opts)
+
+
 @problem("connectivity", model="ampc", output="labels", aliases=("cc",),
          table3_shuffles=5,
          summary="Theorem 1: MSF on unit weights + forest connectivity")
 def _p_cc(ctx, g, **opts):
     return cc_ampc(g, epsilon=ctx.epsilon, seed=ctx.seed, ledger=ctx.ledger,
                    dht=ctx.dht, device=ctx.device, **opts)
+
+
+@problem("connectivity-mpc", model="mpc", output="labels",
+         baseline_of="connectivity",
+         summary="MPC hash-to-min label propagation baseline")
+def _p_cc_mpc(ctx, g, **opts):
+    return cc_mpc_hash_to_min(g, ledger=ctx.ledger, device=ctx.device,
+                              **opts)
+
+
+@problem("one-vs-two", model="ampc", output="count", aliases=("1v2c",),
+         needs_cycles=True, table3_shuffles=2,
+         summary="Section 5.6: adaptive cycle walk, the AMPC/MPC separation")
+def _p_1v2(ctx, g, **opts):
+    return one_vs_two_ampc(g, seed=ctx.seed, ledger=ctx.ledger,
+                           device=ctx.device, **opts)
+
+
+@problem("one-vs-two-mpc", model="mpc", output="count",
+         baseline_of="one-vs-two", needs_cycles=True,
+         summary="CC-LocalContraction MPC baseline, 3 shuffles/phase")
+def _p_1v2_mpc(ctx, g, **opts):
+    return one_vs_two_mpc(g, seed=ctx.seed, ledger=ctx.ledger,
+                          device=ctx.device, **opts)

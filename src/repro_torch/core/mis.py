@@ -23,6 +23,21 @@ def _segment_any(flags: torch.Tensor, segments: torch.Tensor, n: int):
     return out.scatter_reduce_(0, segments, flags.to(torch.int32), "amax")
 
 
+def _mis_wave(status, s_l, r_l, lower, edge_ok, n: int):
+    """One wave: an undecided vertex with an IN neighbour goes OUT; one
+    whose lower-rank neighbours are all OUT goes IN.  Returns (status,
+    s_unk: the edges whose sender was undecided)."""
+    st_r = status[r_l]
+    s_unk = (status[s_l] == UNKNOWN) & edge_ok
+    # does sender have any lower-rank neighbour that is not OUT?
+    has_block = _segment_any(s_unk & lower & (st_r != OUT), s_l, n)
+    has_in = _segment_any(s_unk & (st_r == IN), s_l, n)
+    unk = status == UNKNOWN
+    status = torch.where(unk & (has_in > 0), OUT, status)
+    status = torch.where(unk & (has_in <= 0) & (has_block <= 0), IN, status)
+    return status, s_unk
+
+
 def _mis_fixpoint_masked(senders, receivers, rank, n: int, edge_ok):
     """LFMIS fixpoint with an edge-validity mask.
 
@@ -44,15 +59,7 @@ def _mis_fixpoint_masked(senders, receivers, rank, n: int, edge_ok):
     q0 = torch.zeros((), dtype=torch.int64, device=dev)
     q1 = torch.zeros((), dtype=torch.int64, device=dev)
     while host_read((status == UNKNOWN).any()):
-        st_r = status[r_l]
-        s_unk = (status[s_l] == UNKNOWN) & edge_ok
-        # does sender have any lower-rank neighbour that is not OUT?
-        has_block = _segment_any(s_unk & lower & (st_r != OUT), s_l, n)
-        has_in = _segment_any(s_unk & (st_r == IN), s_l, n)
-        unk = status == UNKNOWN
-        status = torch.where(unk & (has_in > 0), OUT, status)
-        status = torch.where(unk & (has_in <= 0) & (has_block <= 0), IN,
-                             status)
+        status, s_unk = _mis_wave(status, s_l, r_l, lower, edge_ok, n)
         # queries: edges scanned this wave (sender undecided)
         q0 += s_unk.sum()
         # dedup: distinct receivers queried this wave (slot n drops)

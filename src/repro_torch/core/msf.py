@@ -9,6 +9,8 @@ Ports of the JAX package's ``repro.core.msf`` primitives:
   * ``contract_edges``  — relabel + self-loop removal + min-weight dedup.
   * ``boruvka_inround`` — DenseMSF stand-in: Borůvka hook-and-contract run
     to completion inside one round.
+  * ``_mpc_boruvka_phase`` — one phase of the MPC red/blue Borůvka
+    baseline (paper Section 5.5).
 
 The reference runs each per-vertex ``while_loop`` under ``vmap``; here every
 loop is one eager loop over all lanes in lockstep, with masked updates, which
@@ -239,3 +241,26 @@ def boruvka_core(u, v, w, eid, valid, n_labels: int, max_eid: int):
 
 
 boruvka_inround = boruvka_core
+
+
+# --------------------------------------------------------------------------
+# MPC baseline: red/blue Borůvka, 3 shuffles per phase (paper Section 5.5)
+# --------------------------------------------------------------------------
+def _mpc_boruvka_phase(u, v, w, eid, valid, labels, color, max_eid: int):
+    """One red/blue Borůvka phase: each *blue* component computes its
+    minimum incident cross edge and contracts into the partner only if the
+    partner is *red*.  Returns (labels, selected (max_eid,) bool, valid,
+    remaining valid edges as a device scalar)."""
+    n = labels.shape[0]
+    u_l, v_l = u.long(), v.long()
+    lu, lv = labels[u_l], labels[v_l]
+    min_eid, partner, has = _component_min_edge(lu, lv, w, eid, valid, n)
+    ids = torch.arange(n, dtype=torch.int32, device=u.device)
+    hook = has & color & ~color[partner.long()]   # I am blue, partner red
+    parent = torch.where(hook, partner, ids)      # depth 1, acyclic
+    sel = torch.where(hook & (min_eid >= 0), min_eid, max_eid).long()
+    selected = torch.zeros(max_eid + 1, dtype=torch.bool, device=u.device)
+    selected[sel] = True
+    labels = parent[labels.long()]
+    new_valid = valid & (labels[u_l] != labels[v_l])
+    return labels, selected[:max_eid], new_valid, new_valid.sum()

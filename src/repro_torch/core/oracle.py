@@ -1,9 +1,9 @@
 """Sequential numpy oracles — ground truth for the port's AMPC solvers.
 
-A copy of the JAX package's ``repro.core.oracle`` (the parts the ported
-problems need): random-greedy MIS is uniquely determined by the rank
-permutation, the MSF is unique when weights are distinct, connected
-components are unique.
+A copy of the JAX package's ``repro.core.oracle`` (the parts the port's
+problems need): random-greedy MIS and maximal matching are uniquely
+determined by the rank permutation, the MSF is unique when weights are
+distinct, connected components are unique.
 """
 from __future__ import annotations
 
@@ -43,6 +43,10 @@ def connected_components(g: UGraph) -> np.ndarray:
     return mins[roots]
 
 
+def num_components(g: UGraph) -> int:
+    return len(np.unique(connected_components(g)))
+
+
 def kruskal_msf(g: UGraph):
     """Return (edge_index_mask, total_weight). Unique if weights distinct."""
     if g.weights is None:
@@ -74,6 +78,37 @@ def greedy_mis(g: UGraph, rank: np.ndarray) -> np.ndarray:
             blocked[indices[indptr[v]:indptr[v + 1]]] = True
             blocked[v] = True
     return in_mis
+
+
+def greedy_mm(g: UGraph, edge_rank: np.ndarray) -> np.ndarray:
+    """Random-greedy maximal matching by edge rank. Returns bool (m,).
+
+    The reference's loop over the edges in rank order, on Python lists."""
+    order = np.argsort(edge_rank, kind="stable")
+    eu = g.edges[order, 0].tolist()
+    ev = g.edges[order, 1].tolist()
+    matched = bytearray(g.n)
+    taken = []
+    for k, (u, v) in enumerate(zip(eu, ev)):
+        if not matched[u] and not matched[v]:
+            taken.append(k)
+            matched[u] = matched[v] = 1
+    in_mm = np.zeros(g.m, bool)
+    in_mm[order[np.asarray(taken, np.int64)]] = True
+    return in_mm
+
+
+def is_maximal_matching(g: UGraph, in_mm: np.ndarray) -> bool:
+    matched = np.zeros(g.n, bool)
+    for ei in np.where(in_mm)[0]:
+        u, v = g.edges[ei]
+        if matched[u] or matched[v]:
+            return False  # not a matching
+        matched[u] = matched[v] = True
+    for u, v in g.edges:
+        if not matched[u] and not matched[v]:
+            return False  # not maximal
+    return True
 
 
 def is_mis(g: UGraph, in_set: np.ndarray) -> bool:

@@ -17,6 +17,17 @@ def cycle(n: int, offset: int = 0) -> UGraph:
     return UGraph(n, np.stack([u + offset, v + offset], axis=1))
 
 
+def two_cycles(k: int) -> UGraph:
+    """The paper's 2xk family: two disjoint cycles of length k."""
+    c1 = cycle(k)
+    c2 = cycle(k, offset=k)
+    return UGraph(2 * k, np.concatenate([c1.edges, c2.edges], axis=0))
+
+
+def one_cycle(n: int) -> UGraph:
+    return cycle(n)
+
+
 def path(n: int) -> UGraph:
     u = np.arange(n - 1, dtype=np.int32)
     return UGraph(n, np.stack([u, u + 1], axis=1))

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.ampc import AmpcEngine
+from repro_torch.ampc import AmpcEngine, registry
 from repro_torch.ampc.engine import _field_eq
 from repro_torch.graph import generators as gen
 from repro_torch.kernels.dht_gather import ops
@@ -104,14 +104,19 @@ def test_kernel_empty_batch_launches_nothing(card):
     assert ops.dht_gather.launches == before
 
 
-@pytest.mark.parametrize("problem", ["mis", "connectivity", "msf"])
+@pytest.mark.parametrize("problem", registry.names())
 def test_cuda_solve_equals_cpu_solve(card, problem):
-    g = gen.rmat(10, 8.0, seed=1)
-    if problem == "msf":
+    spec = registry.get(problem)
+    opts = {"p": 1 / 8} if problem == "one-vs-two" else {}
+    if spec.needs_cycles:
+        g = gen.two_cycles(500)
+    else:
+        g = gen.rmat(10, 8.0, seed=1)
+    if spec.needs_weights:
         g = g.with_random_weights(2)
-    want = AmpcEngine(seed=0, device="cpu").solve(g, problem)
+    want = AmpcEngine(seed=0, device="cpu").solve(g, problem, **opts)
     before = ops.dht_gather.launches
-    got = AmpcEngine(seed=0).solve(g, problem)
+    got = AmpcEngine(seed=0).solve(g, problem, **opts)
     assert ops.dht_gather.launches - before == \
         (2 if problem == "connectivity" else 0)
     np.testing.assert_array_equal(got.output, want.output)

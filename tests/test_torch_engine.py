@@ -1,16 +1,18 @@
 """The port's ``AmpcEngine.solve`` against the JAX package's (tolerance 0).
 
-For ``mis``, ``connectivity`` and ``msf`` on every test graph: outputs,
-stats and ledger summaries are equal (only ``wall_time_s`` and the
-``phase_times`` values may differ), and the answers agree with the oracles.
-Graphs are built by the JAX package's generators and carried across with
-``repro_torch.convert``.
+For every problem the reference registers, on every test graph the JAX
+engine solves (the cycle problems on two cycles of 60 and one of 101):
+outputs, stats and ledger summaries are equal (only ``wall_time_s`` and the
+``phase_times`` values may differ), and the answers agree with the oracles
+as ``tests/test_engine.py::_oracle_check`` holds them.  Graphs are built by
+the JAX package's generators and carried across with ``repro_torch.convert``.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro.ampc import AmpcEngine as JaxEngine
+from repro.ampc import registry as jregistry
 from repro.graph import generators as jgen
 from repro.graph.coo import UGraph as JaxGraph
 
@@ -30,13 +32,33 @@ GRAPHS = {
     "edgeless": lambda: JaxGraph(12, np.zeros((0, 2), np.int32)),
     "dense": lambda: jgen.erdos_renyi(40, 20.0, seed=3),
 }
+CYCLES = {
+    "two_cycles60": lambda: jgen.two_cycles(60),
+    "one_cycle101": lambda: jgen.one_cycle(101),
+}
 SPARSE_MSF = {"skip_ternarize_if_dense": False}
+WALK = {"p": 1 / 8}
+ALL_GRAPHS = ["matching", "weighted-matching", "vertex-cover",
+              "matching-levels", "matching-vertex-process", "mis-mpc",
+              "matching-mpc", "msf-mpc", "connectivity-mpc"]
 CASES = (
     [(g, "mis", {}) for g in GRAPHS]
     + [(g, "connectivity", {}) for g in GRAPHS]
     + [(g, "msf", {}) for g in GRAPHS if g != "edgeless"]
     + [("dense", "msf", SPARSE_MSF), ("rmat8", "msf", SPARSE_MSF)]
+    + [(g, p, {}) for p in ALL_GRAPHS for g in GRAPHS]
+    # the reference's sample step draws rng.integers(0) on an edgeless graph
+    + [(g, "msf-kkt", {}) for g in GRAPHS if g != "edgeless"]
+    + [(g, "one-vs-two", WALK) for g in CYCLES]
+    + [(g, "one-vs-two-mpc", {}) for g in CYCLES]
 )
+# device-to-host harvests a solve makes: msf-kkt's two inner msf solves
+# and its path-max read
+HARVESTS = {"msf-kkt": 3}
+
+
+def _case_id(name, problem, opts):
+    return f"{name}-{problem}{'-sparse' if opts is SPARSE_MSF else ''}"
 
 
 @pytest.fixture(scope="module")
@@ -45,8 +67,8 @@ def engines():
 
 
 def _inputs(name, problem):
-    jg = GRAPHS[name]()
-    if problem == "msf":
+    jg = {**GRAPHS, **CYCLES}[name]()
+    if registry.get(problem).needs_weights:
         jg = jg.with_random_weights(2)
     return jg, graph_from_reference(jg)
 
@@ -59,9 +81,37 @@ def _ledger_equal(a, b):
     return a == b and list(pa) == list(pb)
 
 
+def _oracle_check(problem, g, res):
+    """The answer against the port's oracles, as the reference's
+    ``tests/test_engine.py::_oracle_check`` checks its own."""
+    out = res.output
+    if problem in ("mis", "mis-mpc"):
+        rank = np.random.default_rng(0).permutation(g.n)
+        np.testing.assert_array_equal(out, oracle.greedy_mis(g, rank))
+        assert oracle.is_mis(g, out)
+    elif problem in ("matching", "matching-levels", "matching-vertex-process",
+                     "matching-mpc", "weighted-matching"):
+        np.testing.assert_array_equal(
+            out, oracle.greedy_mm(g, res.stats["erank"]))
+        assert oracle.is_maximal_matching(g, out)
+    elif problem == "vertex-cover":
+        mm = oracle.greedy_mm(g, res.stats["erank"])
+        cover = np.zeros(g.n, bool)
+        cover[g.edges[mm, 0]] = True
+        cover[g.edges[mm, 1]] = True
+        np.testing.assert_array_equal(out, cover)
+    elif problem in ("connectivity", "connectivity-mpc"):
+        np.testing.assert_array_equal(out, oracle.connected_components(g))
+    elif problem in ("msf", "msf-kkt", "msf-mpc"):
+        np.testing.assert_array_equal(out, oracle.kruskal_msf(g)[0])
+    elif problem in ("one-vs-two", "one-vs-two-mpc"):
+        assert out == oracle.num_components(g)
+    else:  # a new problem must add an oracle here
+        raise AssertionError(f"no oracle check for {problem}")
+
+
 @pytest.mark.parametrize("name,problem,opts", CASES,
-                         ids=[f"{g}-{p}{'-sparse' if o else ''}"
-                              for g, p, o in CASES])
+                         ids=[_case_id(*c) for c in CASES])
 def test_solve_matches_jax_engine_and_oracle(engines, name, problem, opts):
     jax_eng, eng = engines
     jg, tg = _inputs(name, problem)
@@ -75,24 +125,18 @@ def test_solve_matches_jax_engine_and_oracle(engines, name, problem, opts):
     assert (got.problem, got.model, got.backend) == \
         (want.problem, want.model, want.backend)
     np.testing.assert_array_equal(got.output, want.output)
-    assert got.output.dtype == np.asarray(want.output).dtype
+    assert np.asarray(got.output).dtype == np.asarray(want.output).dtype
     assert _field_eq(got.stats, want.stats), (got.stats, want.stats)
     assert _ledger_equal(got.ledger, want.ledger), (got.ledger, want.ledger)
     # one device-to-host harvest per solve (none for the trivial m == 0 cc)
     trivial = problem == "connectivity" and tg.m == 0
-    assert len(calls) == (0 if trivial else 1)
+    assert len(calls) == (0 if trivial else HARVESTS.get(problem, 1))
 
-    if problem == "mis":
-        rank = np.random.default_rng(0).permutation(tg.n)
-        np.testing.assert_array_equal(got.output, oracle.greedy_mis(tg, rank))
-        assert oracle.is_mis(tg, got.output)
-    elif problem == "connectivity":
-        np.testing.assert_array_equal(got.output,
-                                      oracle.connected_components(tg))
-    else:
-        np.testing.assert_array_equal(got.output, oracle.kruskal_msf(tg)[0])
-    if tg.m and (problem != "msf" or opts or got.stats["path"] == "sparse"):
-        assert got.shuffles == registry.get(problem).table3_shuffles
+    _oracle_check(problem, tg, got)
+    table3 = registry.get(problem).table3_shuffles
+    if table3 is not None and tg.m and (
+            problem != "msf" or opts or got.stats["path"] == "sparse"):
+        assert got.shuffles == table3
 
 
 def test_dense_graph_takes_both_msf_paths(engines):
@@ -105,12 +149,20 @@ def test_dense_graph_takes_both_msf_paths(engines):
     np.testing.assert_array_equal(dense.output, sparse.output)
 
 
-@pytest.mark.parametrize("problem", ["mis", "connectivity", "msf"])
+def _trace_input(problem):
+    if registry.get(problem).needs_cycles:
+        return ("two_cycles60", WALK if problem == "one-vs-two" else {})
+    return "er200", {}
+
+
+@pytest.mark.parametrize("problem", registry.names())
 def test_trace_spans_match_jax_engine(problem):
-    jg, tg = _inputs("er200", problem)
-    want = JaxEngine(seed=0, trace=True, metrics=False).solve(jg, problem)
+    name, opts = _trace_input(problem)
+    jg, tg = _inputs(name, problem)
+    want = JaxEngine(seed=0, trace=True, metrics=False).solve(jg, problem,
+                                                              **opts)
     got = AmpcEngine(seed=0, trace=True, metrics=False,
-                     device="cpu").solve(tg, problem)
+                     device="cpu").solve(tg, problem, **opts)
 
     def names(span):
         return [s.name for s in span.walk()]
@@ -159,8 +211,6 @@ def test_engine_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
 def test_unported_surface_names_its_roadmap_item():
     eng = AmpcEngine(device="cpu")
     g = graph_from_arrays(3, np.array([[0, 1], [1, 2]]))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        eng.solve(g, "matching")
     with pytest.raises(KeyError, match="unknown problem"):
         eng.solve(g, "no-such-problem")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -171,21 +221,65 @@ def test_unported_surface_names_its_roadmap_item():
             call()
     with pytest.raises(ValueError, match="weights"):
         eng.solve(g, "msf")
-    assert eng.problems() == ["connectivity", "mis", "msf"]
+    assert eng.problems() == [
+        "connectivity", "connectivity-mpc", "matching", "matching-levels",
+        "matching-mpc", "matching-vertex-process", "mis", "mis-mpc", "msf",
+        "msf-kkt", "msf-mpc", "one-vs-two", "one-vs-two-mpc", "vertex-cover",
+        "weighted-matching"]
     assert eng.solve(g, "cc").problem == "connectivity"
 
 
-@pytest.mark.parametrize("problem,item", [
-    ("matching", 5), ("weighted-matching", 5), ("vertex-cover", 5),
-    ("one-vs-two", 6), ("1v2c", 6), ("mis-mpc", 7), ("msf-kkt", 7)])
-def test_unported_problem_names_the_roadmap_item_that_ports_it(problem,
-                                                              item):
-    """ROADMAP queue 1 numbers its items: the matching family is item 5,
-    one-vs-two item 6, the MPC baselines item 7 (item 4 is the MoE LM)."""
-    eng = AmpcEngine(device="cpu")
-    g = graph_from_arrays(3, np.array([[0, 1], [1, 2]]))
-    with pytest.raises(KeyError, match=f"queue 1, item {item}\\)"):
-        eng.solve(g, problem)
+def test_registry_equals_the_reference_registry():
+    """Every problem and alias of ``repro.ampc.registry``, with the same
+    declared kind, needs, baseline and Table-3 count."""
+    assert registry.names() == jregistry.names()
+    for model in ("ampc", "mpc"):
+        assert registry.names(model) == jregistry.names(model)
+    assert registry._ALIASES == jregistry._ALIASES
+    fields = ("model", "output", "needs_weights", "needs_cycles",
+              "baseline_of", "summary", "table3_shuffles")
+    for name in registry.names():
+        got, want = registry.get(name), jregistry.get(name)
+        assert [getattr(got, f) for f in fields] == \
+            [getattr(want, f) for f in fields], name
+    for alias, name in jregistry._ALIASES.items():
+        assert registry.get(alias).name == name
+
+
+@pytest.mark.parametrize("problem", registry.names())
+def test_baseline_for_matches_jax_engine(engines, problem):
+    jax_eng, eng = engines
+    assert eng.baseline_for(problem) == jax_eng.baseline_for(problem)
+
+
+@pytest.mark.parametrize("problem", ["mis", "matching", "msf",
+                                     "connectivity", "one-vs-two"])
+def test_mpc_baselines_use_more_shuffles(engines, problem):
+    _, eng = engines
+    base = eng.baseline_for(problem)
+    assert base is not None, f"no MPC baseline registered for {problem}"
+    spec = registry.get(problem)
+    if spec.needs_cycles:
+        tg = graph_from_reference(CYCLES["two_cycles60"]())
+        opts = WALK
+    else:
+        tg = graph_from_reference(jgen.erdos_renyi(120, 3.0, seed=2))
+        opts = SPARSE_MSF if problem == "msf" else {}
+    if spec.needs_weights:
+        tg = tg.with_random_weights(3)
+    ampc = eng.solve(tg, problem, **opts)
+    mpc = eng.solve(tg, base)
+    assert mpc.shuffles > ampc.shuffles, (problem, ampc.shuffles,
+                                          mpc.shuffles)
+    np.testing.assert_array_equal(mpc.output, ampc.output)
+
+
+@pytest.mark.parametrize("problem", ["one-vs-two", "one-vs-two-mpc", "1v2c"])
+def test_cycle_problems_need_a_union_of_cycles(engines, problem):
+    _, eng = engines
+    path = graph_from_reference(jgen.path(10))
+    with pytest.raises(ValueError, match="disjoint union of cycles"):
+        eng.solve(path, problem)
 
 
 def test_graph_from_arrays_copies_and_casts():
