@@ -43,7 +43,32 @@ CUDA toolkit.  It:
    memory, ledger and stats (the walk's steps for one-vs-two).  The label
    maps each connectivity solve reads through the DHT go through the
    kernel and its plain version once more, after the counts are read, and
-   must agree;
+   must agree.  Then the serving layers, each phase with the counts set
+   to 0 just before it and read just after:
+   * ``sessions``: each snapshot problem (connectivity, mis, msf,
+     matching, weighted-matching, vertex-cover at rmat20; one-vs-two on
+     both cycle graphs) solved cold, then warm, in a ``GraphSession`` of
+     its own: each output equal to the engine phase's, ``snapshot.hit``
+     False then True, 2 shuffles then 1, 2 ``dht_gather`` launches a
+     connectivity solve (cold and warm) and 0 for the others; each solve's
+     wall, host reads and peak memory, and ``cache_info("snapshot")``;
+   * ``solve_many``: fleets at card scale (16 ``erdos_renyi(n, 4.0)`` at
+     the reference benchmark's sizes × 1024 for mis, matching,
+     vertex-cover and connectivity; the same sizes at degree 2 / 10 plus
+     4 dense lanes of degree 128 for weighted-matching and msf; the
+     reference test's cycle fleet × 1024 for one-vs-two, p 1/64): the
+     sequential ``solve`` loop, a cold and a warm ``solve_many`` on a fresh
+     engine, every output equal to its sequential one, the cold call one
+     cache miss a bucket (msf: a bucket and path), the warm call a hit a
+     graph and no miss, one harvest a bucket, no ``dht_gather`` launch;
+     the three walls, the per-graph wall and the host reads;
+   * ``async``: ``AmpcEngine(max_workers=4)`` runs ``submit_many`` on 8
+     fleet graphs for mis and connectivity, each result equal to
+     ``solve``'s; one connectivity submit under an injected ``preempted``
+     transient is retried exactly once (``retry_transients_total``) and
+     still equal; a ``GraphSession.submit`` warm hit at rmat16; 2 launches
+     a connectivity solve; ``engine_async_inflight`` back to 0 after
+     shutdown;
 5. holds the flash-attention forward kernels against their plain version
    on the card, element by element (bf16 within 2^-7 of each output plus
    1e-3, f32 within 1e-5: the kernel sums in another order) at the LM
@@ -151,7 +176,8 @@ CUDA toolkit.  It:
    (``bag_sector_bytes``: what HBM serves when no row stays in L2 from
    one bag to the next);
 13. prints one ``{"kernels": [...]}`` line (dht_gather: the first
-   connectivity solve's root-label read, with its launches by phase; the
+   connectivity solve's root-label read, with its launches by phase
+   (the engine's solves, the serving phases, the SASRec cells); the
    flash forward: the first layer's own q, k, v, its kernel route and the
    SIMT kernel's time there; dq and dk/dv: the
    training path's shape, their route and the SIMT kernels' time there;
@@ -196,6 +222,25 @@ CYCLE_SOLVES = (("one-vs-two", 2), ("one-vs-two-mpc", 1))
 EXPECTED_SHUFFLES = {"connectivity": 5, "mis": 2, "msf": 5, "matching": 2,
                      "weighted-matching": 2, "one-vs-two": 2}
 CC_LAUNCHES_PER_SOLVE = 2
+# the sessions phase: each snapshot problem but one-vs-two at rmat20 (on
+# the weighted graph: the others ignore weights), one-vs-two on the cycles
+SESSION_RMAT = ("connectivity", "mis", "msf", "matching",
+                "weighted-matching", "vertex-cover")
+# the solve_many phase: the reference benchmark's fleet sizes
+# (benchmarks/solve_many.py:29-30) and the reference test's cycle sizes
+# (tests/test_solve_many.py::_cycle_fleet), times 1024; 4 dense lanes of
+# average degree 128 so msf's dense sub-launch runs
+FLEET_SIZES = (50, 60, 100, 120, 70, 50, 90, 110, 55, 65, 95, 115, 75, 85,
+               105, 125)
+FLEET_CYCLE_KS = (30, 40, 60, 30, 45, 50, 35, 55, 40, 30, 60, 45, 50, 35, 55,
+                  30)
+FLEET_SCALE = 1024
+FLEET_DENSE_LANES = (4096, 4608, 5120, 5632)
+MANY_SOLVES = (("mis", "plain", {}), ("matching", "plain", {}),
+               ("vertex-cover", "plain", {}), ("connectivity", "plain", {}),
+               ("weighted-matching", "weighted", {}),
+               ("msf", "weighted", {}), ("one-vs-two", "cycles", {}))
+ASYNC_GRAPHS = 8
 # dense peaks of the H100 SXM data sheet: bf16 tensor cores, f32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # kernel vs plain version, element by element: |out - ref| <= atol + rtol
@@ -502,17 +547,16 @@ def jsonable(stats):
     return stats
 
 
-def engine_phase(g, gw):
+def engine_phase(g, gw, cycles):
     """Solve every problem on the card with the launch counts set to 0
     first; check each answer, the Table-3 counts and that each MPC
     baseline takes more shuffles than its AMPC problem.  Returns the main
-    path's kernel launches and the kernel's rows on the connectivity
-    solves' own label maps."""
+    path's kernel launches, the kernel's rows on the connectivity solves'
+    own label maps, and each (graph, problem)'s first output."""
     import numpy as np
     import torch
     from repro_torch.ampc import AmpcEngine
     from repro_torch.core import rounds
-    from repro_torch.graph import generators as gen
     from repro_torch.kernels.dht_gather import ops
 
     t0 = time.perf_counter()
@@ -533,7 +577,7 @@ def engine_phase(g, gw):
         return local_lookup(values, keys, dedup=dedup, **kw)
 
     eng.dht.lookup = recorded_lookup
-    main_launches, solve_rows, shuffles = 0, [], {}
+    main_launches, solve_rows, shuffles, outputs = 0, [], {}, {}
     ops.dht_gather.launches = 0
 
     def solve(graph_name, graph, problem, rep, **opts):
@@ -573,6 +617,7 @@ def engine_phase(g, gw):
             emit({"phase": "kernel", "name": "dht_gather", **row})
             solve_rows.append(row)
         reads.clear()
+        outputs.setdefault((graph_name, problem), res.output)
         return res.output
 
     for problem, weighted, reps in RMAT_SOLVES:
@@ -590,17 +635,13 @@ def engine_phase(g, gw):
                       f"{problem} differs from its host answer")
     del want
 
-    k = 2 ** (CYCLE_LOG2 - 1)
-    for graph_name, graph, answer in (
-            (f"two_cycles_2^{CYCLE_LOG2 - 1}", gen.two_cycles(k), 2),
-            (f"one_cycle_2^{CYCLE_LOG2}", gen.one_cycle(2 * k), 1)):
+    for graph_name, graph, answer in cycles:
         for problem, reps in CYCLE_SOLVES:
             for rep in range(reps):
                 out = solve(graph_name, graph, problem, rep)
                 check(out == answer,
                       f"{problem} counts {out} cycles on {graph_name}, "
                       f"not {answer}")
-        del graph
 
     # every MPC baseline takes more shuffles than its AMPC problem
     more = {}
@@ -615,7 +656,240 @@ def engine_phase(g, gw):
     check(len(more) == 6, f"AMPC/MPC shuffle pairs: {sorted(more)}")
     emit({"phase": "engine_shuffles", "pairs": more})
     eng.dht.lookup = local_lookup
-    return main_launches, solve_rows
+    return main_launches, solve_rows, outputs
+
+
+# --------------------------------------------------------------------------
+# phase: snapshot sessions at rmat20 and on the cycles
+# --------------------------------------------------------------------------
+def timed_call(fn):
+    """``fn()`` on the card: (result, wall s, host reads, dht_gather
+    launches, peak GiB), the wall ending in a synchronize."""
+    import torch
+    from repro_torch.core import rounds
+    from repro_torch.kernels.dht_gather import ops
+    launches0, reads0 = ops.dht_gather.launches, rounds.HOST_READS
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, rounds.HOST_READS - reads0,
+            ops.dht_gather.launches - launches0,
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def sessions_phase(gw, cycles, outputs):
+    """Each snapshot problem solved cold, then warm, in a session of its
+    own, on the engine phase's graphs: outputs equal to the engine
+    phase's, ``snapshot.hit`` False then True, shuffles 2 then 1, and 2
+    ``dht_gather`` launches a connectivity solve (its two label-map reads),
+    0 for the others.  Returns the phase's launches."""
+    import numpy as np
+    from repro_torch.ampc import AmpcEngine
+    from repro_torch.kernels.dht_gather import ops
+
+    eng = AmpcEngine(dht_backend="local", seed=0)
+    runs = [("rmat20", gw, p) for p in SESSION_RMAT] + [
+        (name, graph, "one-vs-two") for name, graph, _ in cycles]
+    ops.dht_gather.launches = 0
+    for graph_name, graph, problem in runs:
+        sess = eng.session(graph)
+        want = outputs[(graph_name, problem)]
+        for call, hit, n_shuffles in (("cold", False, 2), ("warm", True, 1)):
+            res, wall, reads, launches, peak = timed_call(
+                lambda: sess.solve(problem))
+            emit({"phase": "sessions", "graph": graph_name,
+                  "problem": problem, "call": call, "wall_s": wall,
+                  "host_reads": reads, "dht_gather_launches": launches,
+                  "peak_mem_gib": peak, "ledger": res.ledger,
+                  "stats": jsonable(res.stats)})
+            check(np.array_equal(res.output, want),
+                  f"session {problem} ({call}) on {graph_name} differs "
+                  "from the engine phase's output")
+            check(res.stats["snapshot"]["hit"] is hit,
+                  f"session {problem} ({call}): snapshot hit "
+                  f"{res.stats['snapshot']['hit']}")
+            check(res.shuffles == n_shuffles,
+                  f"session {problem} ({call}): {res.shuffles} shuffles, "
+                  f"expected {n_shuffles}")
+            expect = CC_LAUNCHES_PER_SOLVE if problem == "connectivity" \
+                else 0
+            check(launches == expect,
+                  f"session {problem} ({call}): dht_gather launched "
+                  f"{launches} times, expected {expect}")
+        sess.invalidate()
+    launches = ops.dht_gather.launches
+    info = eng.cache_info("snapshot")
+    emit({"phase": "sessions_cache", "hits": info.hits,
+          "misses": info.misses, "size": info.size})
+    check((info.hits, info.misses, info.size) == (len(runs), len(runs), 0),
+          f"snapshot cache {info}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase: solve_many on fleets at card scale
+# --------------------------------------------------------------------------
+def serving_fleets():
+    """The solve_many fleets: plain, weighted (with its dense lanes) and
+    cycles, as ``benchmarks/solve_many.py`` and ``tests/test_solve_many.py``
+    size them, times ``FLEET_SCALE``."""
+    from repro_torch.graph import generators as gen
+    plain = [gen.erdos_renyi(n * FLEET_SCALE, 4.0, seed=i)
+             for i, n in enumerate(FLEET_SIZES)]
+    weighted = [gen.erdos_renyi(n * FLEET_SCALE, 2.0 if i % 2 == 0 else 10.0,
+                                seed=i).with_random_weights(seed=i)
+                for i, n in enumerate(FLEET_SIZES)]
+    weighted += [gen.erdos_renyi(n, 128.0, seed=100 + i).with_random_weights(
+        seed=100 + i) for i, n in enumerate(FLEET_DENSE_LANES)]
+    cycles = [gen.two_cycles(k * FLEET_SCALE) if i % 2 == 0
+              else gen.one_cycle(2 * k * FLEET_SCALE)
+              for i, k in enumerate(FLEET_CYCLE_KS)]
+    return {"plain": plain, "weighted": weighted, "cycles": cycles}
+
+
+def solve_many_phase(fleets):
+    """For each batched problem: the sequential ``solve`` loop, then a cold
+    and a warm ``solve_many`` on a fresh engine.  Every output equals its
+    sequential one; the cold call misses once a bucket (msf: once a bucket
+    and path) and hits for the rest, the warm call adds a hit a graph and
+    no miss; one harvest a bucket; no ``dht_gather`` launch in either
+    call.  Returns the phase's launches (the sequential connectivity
+    solves')."""
+    import numpy as np
+    from repro_torch.ampc import AmpcEngine
+    from repro_torch.core import rounds
+    from repro_torch.graph import batching
+    from repro_torch.kernels.dht_gather import ops
+
+    ops.dht_gather.launches = 0
+    for problem, fleet_name, opts in MANY_SOLVES:
+        fleet = fleets[fleet_name]
+        buckets = batching.bucketize(fleet)
+        eps = 0.5
+        sub_launches = len(buckets) if problem != "msf" else sum(
+            len({g.m >= g.n ** (1.0 + eps / 2.0) for g in b.graphs})
+            for b in buckets.values())
+        eng = AmpcEngine(dht_backend="local", seed=0, epsilon=eps)
+        seq, seq_wall, seq_reads, _, _ = timed_call(
+            lambda: [eng.solve(g, problem, **opts).output for g in fleet])
+        row = {"phase": "solve_many", "problem": problem,
+               "fleet": fleet_name, "graphs": len(fleet),
+               "buckets": len(buckets), "sequential_s": seq_wall,
+               "sequential_host_reads": seq_reads}
+        for call in ("cold", "warm"):
+            before = eng.cache_info()
+            harvests = []
+            rounds.HARVEST_HOOK = harvests.append
+            try:
+                res, wall, reads, launches, peak = timed_call(
+                    lambda: eng.solve_many(fleet, problem, **opts))
+            finally:
+                rounds.HARVEST_HOOK = None
+            after = eng.cache_info()
+            row.update({f"{call}_s": wall, f"{call}_host_reads": reads,
+                        f"{call}_peak_mem_gib": peak,
+                        f"{call}_cache": [after.hits, after.misses]})
+            for i, (r, want) in enumerate(zip(res, seq)):
+                check(np.array_equal(r.output, want),
+                      f"solve_many {problem} ({call}) graph {i} differs "
+                      "from its sequential solve")
+            check(len(harvests) == len(buckets),
+                  f"solve_many {problem} ({call}): {len(harvests)} "
+                  f"harvests for {len(buckets)} buckets")
+            check(launches == 0,
+                  f"solve_many {problem} ({call}): dht_gather launched "
+                  f"{launches} times")
+            hits, misses = (after.hits - before.hits,
+                            after.misses - before.misses)
+            want_hm = ((len(fleet) - sub_launches, sub_launches)
+                       if call == "cold" else (len(fleet), 0))
+            check((hits, misses) == want_hm,
+                  f"solve_many {problem} ({call}): {hits} hits and "
+                  f"{misses} misses, expected {want_hm}")
+        row["per_graph_warm_s"] = row["warm_s"] / len(fleet)
+        row["per_graph_sequential_s"] = seq_wall / len(fleet)
+        emit(row)
+    return ops.dht_gather.launches
+
+
+# --------------------------------------------------------------------------
+# phase: async submits, a retried transient, a session submit
+# --------------------------------------------------------------------------
+def async_phase(fleet, g16):
+    """``submit_many`` on 8 fleet graphs for mis and connectivity on an
+    engine of 4 workers, each result equal to ``solve``'s; one submit
+    under an injected ``preempted`` transient, retried exactly once; a
+    ``GraphSession.submit`` warm hit at rmat16; ``engine_async_inflight``
+    back to 0 after shutdown.  Returns the phase's launches: 2 a
+    connectivity solve, whatever thread ran it."""
+    import numpy as np
+    from repro_torch.ampc import AmpcEngine
+    from repro_torch.kernels.dht_gather import ops
+    from repro_torch.obs.metrics import MetricsRegistry, default_registry
+    from repro_torch.runtime.retry import inject_transients
+
+    graphs = fleet[:ASYNC_GRAPHS]
+    reg = MetricsRegistry()
+    retried = default_registry().counter("retry_transients_total",
+                                         labelnames=("marker",))
+    retried0 = retried.value(marker="preempted")
+    cc_solves = 0
+    ops.dht_gather.launches = 0
+    with AmpcEngine(dht_backend="local", seed=0, max_workers=4,
+                    metrics=reg) as eng:
+        for problem in ("mis", "connectivity"):
+            want, seq_wall, _, _, _ = timed_call(
+                lambda: [eng.solve(g, problem).output for g in graphs])
+            res, wall, reads, launches, peak = timed_call(
+                lambda: [f.result(timeout=600)
+                         for f in eng.submit_many(graphs, problem)])
+            cc_solves += 2 * len(graphs) * (problem == "connectivity")
+            for i, (r, w) in enumerate(zip(res, want)):
+                check(np.array_equal(r.output, w),
+                      f"async {problem} graph {i} differs from solve")
+            emit({"phase": "async", "problem": problem,
+                  "graphs": len(graphs), "sequential_s": seq_wall,
+                  "submit_many_s": wall, "host_reads": reads,
+                  "dht_gather_launches": launches, "peak_mem_gib": peak,
+                  "queue_wait_s": [r.stats["async"]["queue_wait_s"]
+                                   for r in res]})
+        with inject_transients(marker="preempted", times=1):
+            res, wall, _, launches, _ = timed_call(
+                lambda: eng.submit(graphs[0], "connectivity").result(
+                    timeout=600))
+        cc_solves += 1
+        n_retried = retried.value(marker="preempted") - retried0
+        check(n_retried == 1,
+              f"the injected transient was retried {n_retried} times")
+        check(np.array_equal(res.output, eng.solve(graphs[0],
+                                                   "connectivity").output),
+              "the retried connectivity solve differs from solve")
+        cc_solves += 1
+        sess = eng.session(g16)
+        cold = sess.solve("connectivity")
+        warm, wall_warm, _, launches_warm, _ = timed_call(
+            lambda: sess.submit("connectivity").result(timeout=600))
+        cc_solves += 2
+        check(warm.stats["snapshot"]["hit"] is True and warm.shuffles == 1,
+              f"session submit: snapshot {warm.stats['snapshot']}, "
+              f"{warm.shuffles} shuffles")
+        check(np.array_equal(warm.output, cold.output),
+              "session submit differs from the cold session solve")
+        check(launches_warm == CC_LAUNCHES_PER_SOLVE,
+              f"session submit launched dht_gather {launches_warm} times")
+        emit({"phase": "async_retry_and_session", "retried": n_retried,
+              "retried_wall_s": wall, "retried_launches": launches,
+              "session_submit_wall_s": wall_warm,
+              "session_submit_launches": launches_warm})
+    inflight = reg.gauge("engine_async_inflight").value()
+    check(inflight == 0, f"engine_async_inflight {inflight} after shutdown")
+    launches = ops.dht_gather.launches
+    check(launches == CC_LAUNCHES_PER_SOLVE * cc_solves,
+          f"async phase: {launches} dht_gather launches for {cc_solves} "
+          "connectivity solves")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2118,9 +2392,27 @@ def main() -> int:
     for row in rows:
         emit({"phase": "kernel", "name": "dht_gather", **row})
 
-    launches, solve_rows = engine_phase(g, gw)
+    k = 2 ** (CYCLE_LOG2 - 1)
+    cycles = [(f"two_cycles_2^{CYCLE_LOG2 - 1}", gen.two_cycles(k), 2),
+              (f"one_cycle_2^{CYCLE_LOG2}", gen.one_cycle(2 * k), 1)]
+    launches, solve_rows, outputs = engine_phase(g, gw, cycles)
     check(launches > 0, "the main path launched no dht_gather kernel")
     rows = solve_rows + rows
+    serving_launches = {"sessions": sessions_phase(gw, cycles, outputs)}
+    del cycles, outputs
+    t0 = time.perf_counter()
+    fleets = serving_fleets()
+    emit({"phase": "fleets", "seconds": time.perf_counter() - t0,
+          **{name: [[f.n, f.m] for f in fleet]
+             for name, fleet in fleets.items()}})
+    serving_launches["solve_many_sequential"] = solve_many_phase(fleets)
+    serving_launches["async"] = async_phase(
+        fleets["plain"], gen.rmat(16, RMAT_DEG, seed=RMAT_SEED))
+    del fleets
+    check(serving_launches["sessions"] > 0
+          and serving_launches["async"] > 0,
+          f"a serving phase launched no dht_gather kernel: "
+          f"{serving_launches}")
 
     flash_rows = flash_phase()
     for row in flash_rows:
@@ -2165,8 +2457,10 @@ def main() -> int:
         "name": "dht_gather", "route": "cuda",
         "source": "src/repro_torch/kernels/dht_gather/csrc/dht_gather.cu",
         "replaces": "src/repro/kernels/dht_gather/kernel.py:28",
-        "launches": launches + sum(rec_launches.values()),
-        "launches_by_phase": {"ampc_solves": launches, **rec_launches},
+        "launches": launches + sum(serving_launches.values())
+        + sum(rec_launches.values()),
+        "launches_by_phase": {"ampc_solves": launches, **serving_launches,
+                              **rec_launches},
         "max_abs_err": max(r["max_abs_err"] for r in rows + rec_rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",

@@ -3,18 +3,28 @@
     from repro_torch.ampc import AmpcEngine
     res = AmpcEngine().solve(g, "connectivity")          # on the card
     res = AmpcEngine(device="cpu").solve(g, "mis")       # on the host
+    results = AmpcEngine().solve_many(graphs, "mis")     # batched serving
+    fut = AmpcEngine().submit(g, "mis")                  # async serving
+    sess = AmpcEngine().session(g)                       # snapshot reuse
 
 Every problem the JAX package registers (``AmpcEngine().problems()``: the
-AMPC problems and their MPC baselines); the local DHT backend.
+AMPC problems and their MPC baselines), the batch adapters of its
+``solve_many``, its snapshot sessions and its async worker pool; the local
+DHT backend.
 """
+from .async_engine import AmpcFuture
 from .backends import DhtBackend, LocalDht, resolve_backend
-from .engine import AmpcEngine, AmpcResult, SolveContext
-from .registry import ProblemSpec, get as get_problem, \
+from .cache import CacheInfo, SolverCache
+from .engine import AmpcEngine, AmpcResult, BatchSolveContext, SolveContext
+from .registry import ProblemSpec, batched_impl, get as get_problem, \
     names as problem_names, problem, specs as problem_specs
+from .session import GraphSession, GraphSnapshot, SNAPSHOT_PROBLEMS
 
 __all__ = [
-    "AmpcEngine", "AmpcResult", "SolveContext",
+    "AmpcEngine", "AmpcResult", "SolveContext", "BatchSolveContext",
+    "AmpcFuture", "GraphSession", "GraphSnapshot", "SNAPSHOT_PROBLEMS",
     "DhtBackend", "LocalDht", "resolve_backend",
-    "ProblemSpec", "problem", "get_problem", "problem_names",
+    "CacheInfo", "SolverCache",
+    "ProblemSpec", "problem", "batched_impl", "get_problem", "problem_names",
     "problem_specs",
 ]

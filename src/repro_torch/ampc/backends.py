@@ -5,17 +5,23 @@ hash table written by the previous round and queried adaptively inside the
 current one.  A backend binds a value tensor and a ledger into a
 ``core.dht.ShardedDHT`` snapshot, and every query goes through
 ``ShardedDHT.lookup`` — the single accounting choke point.
+``lookup_many`` is the batched (``solve_many``) variant: one exchange
+serves a whole shape bucket, with per-graph query counts split by the
+padding mask.
 
 Only the ``local`` backend is ported; ``routed`` (the all-to-all router)
-and the batched ``lookup_many`` wait for ROADMAP queue 1, items 9 and 8.
+waits for ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
 from typing import Optional, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
 from ..core.dht import ShardedDHT
+from ..core.rounds import RoundLedger
+from ..obs import trace as obs_trace
 
 
 @runtime_checkable
@@ -35,12 +41,94 @@ class DhtBackend(Protocol):
         """One-shot snapshot + query batch (convenience for single reads)."""
         ...
 
+    def lookup_many(self, values, keys, *, ledgers=None, key_mask=None,
+                    dedup: bool = False, value_bytes: Optional[int] = None):
+        """Batched snapshot read over a graph batch (see ``_BackendBase``)."""
+        ...
+
 
 class _BackendBase:
     def lookup(self, values, keys, *, ledger=None, dedup: bool = True,
                value_bytes: Optional[int] = None):
         return self.snapshot(values, ledger=ledger,
                              value_bytes=value_bytes).lookup(keys, dedup=dedup)
+
+    def lookup_many(self, values, keys, *, ledgers=None, key_mask=None,
+                    dedup: bool = False, value_bytes: Optional[int] = None):
+        """One exchange serving a whole ``solve_many`` bucket.
+
+        ``values`` is (B, n, ...) — graph ``b``'s snapshot in row ``b`` —
+        and ``keys`` is (B, K) int32.  The batch is flattened into a single
+        keyspace (graph ``b``'s key ``k`` becomes ``b * n + k``) so the
+        gather runs **once** for the whole bucket; graphs cannot alias each
+        other's rows because their key ranges are disjoint.
+
+        ``key_mask`` (B, K), a host array (the bucket's padding mask),
+        marks the real queries: masked lanes become the ``-1`` padding keys
+        the DHT ignores.  When ``ledgers`` is given (one
+        ``RoundLedger`` per graph, batch order), each graph's ledger records
+        *its own* valid-query count and bytes.  The exchange's overflow
+        count is recorded on **every** participating ledger, so per graph
+        ``dht_overflows == 0`` still certifies exact answers.  With the
+        default ``dedup=False`` the read is a plain gather (no kernel), as
+        the reference's is a ``take``.  Returns the gathered (B, K, ...)
+        tensor.
+        """
+        values = torch.as_tensor(values)
+        keys = torch.as_tensor(keys, device=values.device).to(torch.int32)
+        B, n = values.shape[0], values.shape[1]
+        tracer = next((led.tracer for led in (ledgers or ())
+                       if led is not None and led.tracer is not None
+                       and led.tracer.enabled), None)
+        if tracer is None:
+            # solve_many bucket ledgers carry no tracer (the engine emits
+            # per-graph spans afterwards); attach the batched exchange to
+            # whatever bucket span is open instead
+            amb = obs_trace.current_tracer()
+            tracer = amb if amb.enabled else None
+        if tracer is not None:
+            with tracer.span("dht:lookup_many", backend=self.name, batch=B,
+                             keys_per_graph=int(keys.shape[1])):
+                return self._lookup_many(values, keys, B, n,
+                                         ledgers=ledgers, key_mask=key_mask,
+                                         dedup=dedup, value_bytes=value_bytes)
+        return self._lookup_many(values, keys, B, n, ledgers=ledgers,
+                                 key_mask=key_mask, dedup=dedup,
+                                 value_bytes=value_bytes)
+
+    def _lookup_many(self, values, keys, B, n, *, ledgers, key_mask, dedup,
+                     value_bytes):
+        dev = values.device
+        flat_vals = values.reshape((B * n,) + tuple(values.shape[2:]))
+        offset = (torch.arange(B, dtype=torch.int32, device=dev) * n)[:, None]
+        flat_keys = keys + offset
+        if key_mask is not None:
+            mask = torch.as_tensor(key_mask, device=dev)
+            flat_keys = torch.where(mask, flat_keys, -1)
+        # scratch ledger: captures the exchange's overflow count without
+        # recording the query totals twice; they are re-attributed per
+        # graph below.  Its records stay device values.
+        scratch = RoundLedger("lookup_many")
+        snap = self.snapshot(flat_vals, ledger=scratch,
+                             value_bytes=value_bytes)
+        out = snap.lookup(flat_keys.reshape(-1), dedup=dedup)
+        out = out.reshape((B, keys.shape[1]) + tuple(out.shape[1:]))
+        if ledgers is not None:
+            pending = scratch.device.drain()
+            # record layout: (queries, nbytes, waves, deduped_away, overflow)
+            overflow = pending[-1][0][4] if pending else 0
+            if key_mask is None:
+                counts = [int(keys.shape[1])] * B
+            else:
+                counts = [int(c) for c in np.sum(np.asarray(key_mask),
+                                                 axis=1)]
+            row_bytes = value_bytes or snap._row_bytes
+            for ledger, cnt in zip(ledgers, counts):
+                if ledger is not None:
+                    ledger.record_queries_deferred(
+                        cnt, cnt * (row_bytes + 4), waves=1,
+                        overflow=overflow)
+        return out
 
 
 class LocalDht(_BackendBase):

@@ -13,24 +13,43 @@ and the seed/epsilon defaults, and resolves problems through
 :mod:`repro_torch.ampc.registry`.  It runs on ``"cuda"`` unless the caller
 passes another ``device`` (the tests pass ``device="cpu"``).
 
-Not ported yet: ``solve_many`` (ROADMAP queue 1, item 8), ``session`` and
-``submit`` (step 8), the routed backend (step 9).
+The serving layers come with it, as in the reference:
+
+  * :meth:`AmpcEngine.solve_many` pads a fleet into power-of-two shape
+    buckets and runs each bucket as one eager loop over its
+    offset-flattened graphs, memoizing the bucket's solver per
+    ``(problem, backend, bucket)`` in a
+    :class:`~repro_torch.ampc.cache.SolverCache` (:meth:`cache_info`);
+  * :meth:`AmpcEngine.session` returns a
+    :class:`~repro_torch.ampc.session.GraphSession` whose solves share one
+    cached DHT snapshot of the graph;
+  * ``submit`` / ``submit_many`` / ``shutdown``
+    (:mod:`repro_torch.ampc.async_engine`) serve solves from a bounded
+    worker pool, with device work serialized by one launch lock.
+
+Not ported yet: the routed backend (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..core.rounds import RoundLedger
 from ..devices import resolve_device
+from ..graph import batching
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
 from . import registry
+from .async_engine import AsyncEngineMixin
 from .backends import DhtBackend, resolve_backend
+from .cache import CacheInfo, SolverCache
+from .session import GraphSession
 
 
 def _field_eq(a, b) -> bool:
@@ -48,7 +67,7 @@ def _field_eq(a, b) -> bool:
 
 @dataclasses.dataclass(eq=False)
 class AmpcResult:
-    """Uniform result of ``AmpcEngine.solve``.
+    """Uniform result of ``AmpcEngine.solve`` / ``AmpcEngine.solve_many``.
 
     ``output`` follows the problem's declared kind: ``vertex_mask`` (bool
     (n,)), ``edge_mask`` (bool (m,)) or ``labels`` (int (n,)), as numpy
@@ -98,7 +117,33 @@ class SolveContext:
     device: torch.device
 
 
-class AmpcEngine:
+@dataclasses.dataclass
+class BatchSolveContext:
+    """Cross-cutting state handed to a batch adapter for one bucket launch.
+
+    ``ledgers`` holds one ``RoundLedger`` per graph in the batch (batch
+    order): the single physical launch is attributed per graph — each ledger
+    records the bucket's shuffle structure with that graph's own bytes and
+    its own share of the DHT query counts (split by mask).
+    """
+
+    ledgers: List[RoundLedger]
+    dht: DhtBackend
+    seed: int
+    epsilon: float
+    cache: SolverCache
+    device: torch.device
+    problem: str = ""
+    backend_name: str = ""
+
+    def solver_key(self, batch, *extra):
+        """Cache key for this bucket's solver.  ``extra`` captures options
+        the solver closes over (e.g. a walk budget)."""
+        return (self.problem, self.backend_name,
+                batch.n_bucket, batch.m_bucket, *extra)
+
+
+class AmpcEngine(AsyncEngineMixin):
     """Session object for AMPC graph solves.
 
     Parameters
@@ -111,14 +156,25 @@ class AmpcEngine:
                   share one; ``None`` (default) → the process default.
     metrics:      a ``repro_torch.obs.MetricsRegistry``, ``False`` to
                   disable, or ``None`` (default) for the process-wide one.
-    record_events: force the ``RoundLedger.events`` raw-string log on/off.
+    record_events: force the ``RoundLedger.events`` raw-string log on/off;
+                  ``None`` (default) keeps it on for ``solve`` and off
+                  inside ``solve_many`` bucket loops.
     device:       where tensors live; ``None`` means ``"cuda"``, and raises
                   when CUDA is missing.
+    max_workers:  size of the async worker pool behind ``engine.submit``
+                  (lazy: no threads exist until the first submit).
+    queue_depth:  bound on the submit queue before ``submit`` blocks for
+                  backpressure; default ``2 * max_workers``.
+    serialize_launches: hold one engine-wide lock around every solve's and
+                  bucket's device work, so concurrent async solves overlap
+                  host-side phases but never race on the device.
     """
 
     def __init__(self, dht_backend="local", epsilon: float = 0.5,
                  seed: int = 0, *, trace=None, metrics=None,
-                 record_events: Optional[bool] = None, device=None):
+                 record_events: Optional[bool] = None, device=None,
+                 max_workers: int = 4, queue_depth: Optional[int] = None,
+                 serialize_launches: bool = True):
         self.device = resolve_device(device, "AmpcEngine")
         self.dht = resolve_backend(dht_backend)
         self.epsilon = float(epsilon)
@@ -126,6 +182,13 @@ class AmpcEngine:
         self.tracer = obs_trace.as_tracer(trace)
         self.metrics = obs_metrics.as_registry(metrics)
         self.record_events = record_events
+        self._solver_cache = SolverCache(metrics=self.metrics)
+        # snapshot store for GraphSessions; separate from the solver cache
+        # so solver hit/miss accounting stays comparable across versions
+        self._snapshot_cache = SolverCache()
+        self._launch_lock = (threading.RLock() if serialize_launches
+                             else contextlib.nullcontext())
+        self._init_async(max_workers, queue_depth)
 
     # ------------------------------------------------------------------
     def _ledger(self, spec, record_events: bool) -> RoundLedger:
@@ -181,13 +244,17 @@ class AmpcEngine:
         tracer = self.tracer
         span = None
         t0 = time.perf_counter()
+        # the launch lock serializes device work across async workers; the
+        # wait for it is part of the solve span (device-contention time)
         if tracer.enabled:
             with tracer.span("solve", problem=spec.name, model=spec.model,
                              backend=self.dht.name, n=int(graph.n),
                              m=int(graph.m)) as span:
-                output, stats = spec.fn(ctx, graph, **opts)
+                with self._launch_lock:
+                    output, stats = spec.fn(ctx, graph, **opts)
         else:
-            output, stats = spec.fn(ctx, graph, **opts)
+            with self._launch_lock:
+                output, stats = spec.fn(ctx, graph, **opts)
         wall = time.perf_counter() - t0
         self._observe_solve(spec, wall, "solve")
         return AmpcResult(problem=spec.name, model=spec.model,
@@ -195,20 +262,133 @@ class AmpcEngine:
                           ledger=ledger.summary(), wall_time_s=wall,
                           raw_ledger=ledger, trace=span)
 
-    def solve_many(self, graphs, problem: str, **kw):
-        raise NotImplementedError(
-            "solve_many is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 8)")
+    # ------------------------------------------------------------------
+    def solve_many(self, graphs: Sequence[Any], problem: str, *,
+                   seed: Optional[int] = None,
+                   epsilon: Optional[float] = None,
+                   record_events: Optional[bool] = None,
+                   **opts) -> List[AmpcResult]:
+        """Solve ``problem`` on a fleet of graphs, one result per graph.
 
-    def session(self, graph):
-        raise NotImplementedError(
-            "session is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 8)")
+        Graphs are padded into power-of-two ``(n_bucket, m_bucket)`` shape
+        buckets (:mod:`repro_torch.graph.batching`); each bucket runs as one
+        eager loop over its offset-flattened graphs, with one harvest, and
+        its solver is memoized in the engine's :class:`SolverCache`.
+        Outputs equal sequential ``solve`` outputs; ``wall_time_s`` is the
+        bucket launch amortized over its occupants.
 
-    def submit(self, graph, problem: str, **kw):
-        raise NotImplementedError(
-            "submit is not ported to repro_torch yet "
-            "(ROADMAP.md queue 1, item 8)")
+        Bucket-loop ledgers default to ``record_events=False``.  With
+        tracing enabled each bucket launch is one ``bucket`` span whose
+        per-graph ``graph[i]`` children carry that graph's ledger
+        attribution; ``result.trace`` points at the graph's own span.
+
+        Problems without a registered batch adapter fall back to sequential
+        ``solve`` calls — same results, no batching.
+        """
+        graphs = list(graphs)
+        spec = registry.get(problem)
+        for g in graphs:
+            self._validate(spec, g)
+        if record_events is None:
+            record_events = self.record_events
+        rec = False if record_events is None else record_events
+        if spec.batch_fn is None:
+            return [self.solve(g, problem, seed=seed, epsilon=epsilon,
+                               record_events=rec, **opts)
+                    for g in graphs]
+        tracer = self.tracer
+        results: List[Optional[AmpcResult]] = [None] * len(graphs)
+        root = tracer.span("solve_many", problem=spec.name,
+                           backend=self.dht.name, n_graphs=len(graphs)) \
+            if tracer.enabled else contextlib.nullcontext()
+        with root:
+            for batch in batching.bucketize(graphs).values():
+                self._solve_bucket(spec, batch, results, rec,
+                                   seed=seed, epsilon=epsilon, **opts)
+        return results
+
+    def _solve_bucket(self, spec, batch, results, rec, *, seed, epsilon,
+                      **opts) -> None:
+        """One bucket launch of ``solve_many``: run, attribute, trace."""
+        tracer = self.tracer
+        # tracer=None on bucket ledgers: one physical launch must not emit
+        # B copies of every shuffle span — the per-graph share is attached
+        # afterwards, from each ledger's phase_times.
+        ledgers = [RoundLedger(f"{spec.model}_{spec.name}",
+                               metrics=self.metrics, record_events=rec)
+                   for _ in range(len(batch))]
+        bctx = BatchSolveContext(
+            ledgers=ledgers, dht=self.dht,
+            seed=self.seed if seed is None else int(seed),
+            epsilon=self.epsilon if epsilon is None else float(epsilon),
+            cache=self._solver_cache, device=self.device,
+            problem=spec.name, backend_name=self.dht.name)
+        bspan = tracer.span(
+            "bucket", problem=spec.name, n_bucket=batch.n_bucket,
+            m_bucket=batch.m_bucket, batch_size=len(batch)) \
+            if tracer.enabled else None
+        t0 = time.perf_counter()
+        with bspan if bspan is not None else contextlib.nullcontext():
+            with self._launch_lock:
+                outs = spec.batch_fn(bctx, batch, **opts)
+        wall = time.perf_counter() - t0
+        if len(outs) != len(batch):
+            raise RuntimeError(
+                f"batch adapter for {spec.name!r} returned {len(outs)} "
+                f"results for {len(batch)} graphs")
+        per_graph_wall = wall / max(len(batch), 1)
+        for slot, (idx, (output, stats)) in enumerate(
+                zip(batch.indices, outs)):
+            stats.setdefault("batch", {
+                "bucket": batch.key, "batch_size": len(batch),
+                "slot": slot})
+            ledger = ledgers[slot]
+            gspan = None
+            if bspan is not None:
+                gspan = tracer.record_span(
+                    f"graph[{idx}]", dur_s=per_graph_wall, parent=bspan,
+                    problem=spec.name, bucket=batch.key, slot=slot)
+                for phase, secs in ledger.phase_times.items():
+                    tracer.record_span(f"shuffle:{phase}", dur_s=secs,
+                                       parent=gspan,
+                                       algorithm=ledger.algorithm)
+            self._observe_solve(spec, per_graph_wall, "solve_many")
+            results[idx] = AmpcResult(
+                problem=spec.name, model=spec.model,
+                backend=self.dht.name, output=output, stats=stats,
+                ledger=ledger.summary(),
+                wall_time_s=per_graph_wall, raw_ledger=ledger,
+                trace=gspan)
+
+    # ------------------------------------------------------------------
+    def session(self, graph) -> GraphSession:
+        """A :class:`~repro_torch.ampc.session.GraphSession` on ``graph``:
+        solves through it share one DHT graph-KV snapshot (built on first
+        use, on this engine's device, reported in
+        ``AmpcResult.stats["snapshot"]``)."""
+        return GraphSession(self, graph)
+
+    def cache_info(self, kind: str = "solver") -> CacheInfo:
+        """Hit/miss/size counters of an engine cache.
+
+        ``kind="solver"`` (default): the bucket-solver cache — one miss per
+        solver built; one hit per graph served by an already-built solver
+        (so a cold bucket of ``B`` graphs counts ``1`` miss and ``B - 1``
+        hits).  ``kind="snapshot"``: the GraphSession snapshot store — one
+        miss per snapshot view built, one hit per solve that reused one.
+        """
+        if kind == "solver":
+            return self._solver_cache.info()
+        if kind == "snapshot":
+            return self._snapshot_cache.info()
+        raise ValueError(
+            f"kind must be 'solver' or 'snapshot', got {kind!r}")
+
+    def clear_cache(self) -> None:
+        """Drop every memoized solver and graph snapshot, and reset both
+        caches' hit/miss counters."""
+        self._solver_cache.clear()
+        self._snapshot_cache.clear()
 
     def metrics_report(self) -> str:
         """Plain-text dump of this engine's metrics registry."""

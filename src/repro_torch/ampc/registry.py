@@ -5,6 +5,11 @@ each solver with a normalized signature ``fn(ctx, graph, **opts)`` so
 ``AmpcEngine.solve(graph, "<name>")`` dispatches without per-algorithm
 special cases.  The port registers every problem and alias the reference
 does.
+
+A problem may also carry a *batch adapter* (``@batched_impl``) with
+signature ``fn(bctx, batch, **opts)``; ``AmpcEngine.solve_many`` runs it
+once per shape bucket and falls back to sequential ``solve`` calls when it
+is absent.
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ class ProblemSpec:
     # Table 3: expected shuffle count on the default (sparse) path, or None
     # when the count is input-dependent.
     table3_shuffles: Optional[int] = None
+    # solve_many's adapter: fn(bctx, batch, **opts) -> [(output, stats), ...]
+    # in batch order; None => sequential solves
+    batch_fn: Optional[Callable] = None
 
 
 PROBLEMS: Dict[str, ProblemSpec] = {}
@@ -57,6 +65,29 @@ def problem(name: str, *, model: str, output: str, needs_weights: bool = False,
         PROBLEMS[name] = spec
         for a in aliases:
             _ALIASES[a] = name
+        return fn
+
+    return deco
+
+
+def batched_impl(name: str):
+    """Attach a batch-safe ``solve_many`` adapter to a registered problem.
+
+    The adapter receives ``(bctx, batch, **opts)`` — an
+    ``engine.BatchSolveContext`` and a ``graph.batching.GraphBatch`` — and
+    returns one ``(output, stats)`` pair per graph in the batch, in batch
+    order.  Problems without an adapter fall back to sequential ``solve``
+    calls inside ``solve_many``.
+    """
+
+    def deco(fn):
+        key = _ALIASES.get(name, name)
+        if key not in PROBLEMS:
+            raise KeyError(f"cannot attach batch adapter: unknown problem "
+                           f"{name!r}")
+        if PROBLEMS[key].batch_fn is not None:
+            raise ValueError(f"duplicate batch adapter for {key!r}")
+        PROBLEMS[key] = dataclasses.replace(PROBLEMS[key], batch_fn=fn)
         return fn
 
     return deco

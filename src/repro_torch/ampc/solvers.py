@@ -1,9 +1,11 @@
 """AMPC and MPC solver drivers — the engine's algorithm layer (torch port).
 
-Ports of every driver of the JAX package's ``repro.ampc.solvers`` on its
-snapshot-free path (MIS, the matching family, MSF with its KKT filter,
-connectivity, 1-vs-2-cycle, and the MPC baselines), registered with
-:mod:`repro_torch.ampc.registry` so ``AmpcEngine.solve`` reaches them.  The
+Ports of every driver of the JAX package's ``repro.ampc.solvers`` (MIS,
+the matching family, MSF with its KKT filter, connectivity, 1-vs-2-cycle,
+and the MPC baselines), with the snapshot paths ``GraphSession`` solves
+take, registered with :mod:`repro_torch.ampc.registry` so
+``AmpcEngine.solve`` reaches them, and the seven ``@batched_impl``
+adapters behind ``AmpcEngine.solve_many`` (bottom of this module).  The
 host-side steps (graph layout, ternarization, every draw from
 ``np.random.default_rng(seed)``, in the same order) are the reference's, so
 outputs, stats and ledger counters equal the reference's for the same graph
@@ -17,22 +19,26 @@ machines read their outputs back from the immutable DHT snapshot
 """
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core import matching
-from ..core.connectivity import _canonicalize, _h2m_phase
-from ..core.mis import IN, UNKNOWN, _mis_fixpoint, _mis_wave
-from ..core.msf import (_mpc_boruvka_phase, boruvka_inround, contract_edges,
-                        pointer_jump, truncated_prim)
+from ..core.connectivity import (_canonicalize, _cc_fixpoint_masked,
+                                 _h2m_phase)
+from ..core.mis import (IN, UNKNOWN, _mis_fixpoint, _mis_fixpoint_lanes,
+                        _mis_wave)
+from ..core.msf import (_mpc_boruvka_phase, boruvka_core, boruvka_inround,
+                        contract_edges, pointer_jump, truncated_prim,
+                        truncated_prim_capped)
 from ..core.one_vs_two import (_local_contraction_phase, _walk_and_count,
                                cycle_adjacency)
-from ..core.rounds import RoundLedger, host_read, nbytes_of
-from ..core.ternarize import ternarize
+from ..core.rounds import RoundLedger, harvest_many, host_read, nbytes_of
+from ..core.ternarize import ternarize, ternarize_batch
 from ..graph.coo import UGraph
-from .registry import problem
+from .registry import batched_impl, problem
 
 
 def _to(a: np.ndarray, device) -> torch.Tensor:
@@ -60,20 +66,35 @@ def _collect_dev(dht, ledger, values, keys=None, dedup: bool = False):
 # ==========================================================================
 def mis_ampc(g: UGraph, seed: int = 0,
              ledger: Optional[RoundLedger] = None,
-             caching: bool = True, dht=None,
+             caching: bool = True, dht=None, snapshot=None,
              device="cuda") -> Tuple[np.ndarray, dict]:
-    """Returns (in_mis bool(n,), stats)."""
+    """Returns (in_mis bool(n,), stats).
+
+    ``snapshot`` (a :class:`~repro_torch.ampc.session.GraphSnapshot`)
+    replaces shuffle 1 with a read of the session's cached graph-KV image:
+    cold it records one ``WriteGraphKV`` shuffle, warm it records none —
+    the rank permutation is still drawn per solve, so outputs equal the
+    snapshot-free path's.
+    """
     ledger = ledger if ledger is not None else RoundLedger("ampc_mis")
     n = g.n
     rng = np.random.default_rng(seed)
     rank = rng.permutation(n).astype(np.float32)
 
-    # shuffle 1: build the rank-directed graph, write to the DHT
-    # (Fig 1 step 1-2)
-    with ledger.shuffle("DirectEdges+WriteKV", nbytes_of(g.edges) * 2):
-        s, r, _, _ = g.symmetric()
-        senders, receivers = _to(s, device), _to(r, device)
+    snap_stat = None
+    if snapshot is not None:
+        entries, snap_hit = snapshot.materialize(ledger)
+        senders = entries["sym_senders"]
+        receivers = entries["sym_receivers"]
         jrank = _to(rank, device)
+        snap_stat = snapshot.stat(snap_hit)
+    else:
+        # shuffle 1: build the rank-directed graph, write to the DHT
+        # (Fig 1 step 1-2)
+        with ledger.shuffle("DirectEdges+WriteKV", nbytes_of(g.edges) * 2):
+            s, r, _, _ = g.symmetric()
+            senders, receivers = _to(s, device), _to(r, device)
+            jrank = _to(rank, device)
 
     # shuffle 2: IsInMIS search — adaptive queries against the snapshot
     with ledger.shuffle("IsInMIS", n * 4):
@@ -91,6 +112,8 @@ def mis_ampc(g: UGraph, seed: int = 0,
     stats = {"fixpoint_iters": it, "queries_nodedup": qn,
              "queries_dedup": qd,
              "cache_savings_factor": qn / max(qd, 1)}
+    if snap_stat is not None:
+        stats["snapshot"] = snap_stat
     return status == IN, stats
 
 
@@ -136,13 +159,15 @@ def _edge_ends(g: UGraph, device):
 def mm_ampc(g: UGraph, seed: int = 0,
             ledger: Optional[RoundLedger] = None,
             caching: bool = True, erank: Optional[np.ndarray] = None,
-            dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
+            dht=None, snapshot=None,
+            device="cuda") -> Tuple[np.ndarray, dict]:
     """Greedy maximal matching over the rank permutation ``erank``.
 
     ``erank`` is the rank-injection point (Corollary 4.1): when omitted it
     is a fresh random permutation drawn from ``seed``; weighted matching
-    passes decreasing-weight ranks instead.  Returns (in_mm bool(m,),
-    stats).
+    passes decreasing-weight ranks instead.  ``snapshot`` reuses a
+    session's cached graph-KV image in place of the ``SortEdges+WriteKV``
+    shuffle (see :func:`mis_ampc`).  Returns (in_mm bool(m,), stats).
     """
     ledger = ledger if ledger is not None else RoundLedger("ampc_mm")
     n, m = g.n, g.m
@@ -154,9 +179,16 @@ def mm_ampc(g: UGraph, seed: int = 0,
         if erank.shape != (m,):
             raise ValueError("erank must be one rank per edge")
 
-    with ledger.shuffle("SortEdges+WriteKV", nbytes_of(g.edges) * 2):
-        u, v = _edge_ends(g, device)
+    snap_stat = None
+    if snapshot is not None:
+        entries, snap_hit = snapshot.materialize(ledger)
+        u, v = entries["edge_u"], entries["edge_v"]
         jrank = _to(erank, device)
+        snap_stat = snapshot.stat(snap_hit)
+    else:
+        with ledger.shuffle("SortEdges+WriteKV", nbytes_of(g.edges) * 2):
+            u, v = _edge_ends(g, device)
+            jrank = _to(erank, device)
 
     with ledger.shuffle("IsInMM", m):
         estatus_dev, it, q0, q1 = matching._mm_fixpoint(
@@ -169,6 +201,8 @@ def mm_ampc(g: UGraph, seed: int = 0,
                           deduped_away=(qn - qd) if caching else 0)
     stats = {"fixpoint_iters": it, "queries_nodedup": qn,
              "queries_dedup": qd, "erank": erank}
+    if snap_stat is not None:
+        stats["snapshot"] = snap_stat
     return estatus == IN, stats
 
 
@@ -313,7 +347,8 @@ def mm_mpc_rootset(g: UGraph, seed: int = 0,
 # ==========================================================================
 def mwm_greedy_ampc(g: UGraph, seed: int = 0,
                     ledger: Optional[RoundLedger] = None,
-                    dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
+                    dht=None, snapshot=None,
+                    device="cuda") -> Tuple[np.ndarray, dict]:
     """1/2-approx maximum weight matching: greedy by decreasing weight
     (ties broken by a random permutation), via the AMPC MM fixpoint with
     weight-derived ranks injected through ``mm_ampc(erank=...)``.
@@ -327,17 +362,18 @@ def mwm_greedy_ampc(g: UGraph, seed: int = 0,
     erank = order.astype(np.float32)
     ledger = ledger if ledger is not None else RoundLedger("ampc_mwm")
     in_mm, st = mm_ampc(g, seed=seed, ledger=ledger, erank=erank, dht=dht,
-                        device=device)
+                        snapshot=snapshot, device=device)
     w = float(g.weights[in_mm].sum())
     return in_mm, {"weight": w, **st}
 
 
 def vertex_cover_2approx(g: UGraph, seed: int = 0,
                          ledger: Optional[RoundLedger] = None,
-                         dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
+                         dht=None, snapshot=None,
+                         device="cuda") -> Tuple[np.ndarray, dict]:
     """2-approx minimum vertex cover = endpoints of a maximal matching."""
     in_mm, stats = mm_ampc(g, seed=seed, ledger=ledger, dht=dht,
-                           device=device)
+                           snapshot=snapshot, device=device)
     cover = np.zeros(g.n, bool)
     cover[g.edges[in_mm, 0]] = True
     cover[g.edges[in_mm, 1]] = True
@@ -347,9 +383,18 @@ def vertex_cover_2approx(g: UGraph, seed: int = 0,
 # ==========================================================================
 # MSF (paper Section 3, Algorithm 2)
 # ==========================================================================
+def _hook_parent(hooks):
+    """The hook forest's parent array: a vertex without a hook is its own
+    root."""
+    ids = torch.arange(hooks.shape[0], dtype=torch.int32,
+                       device=hooks.device)
+    return torch.where(hooks >= 0, hooks, ids)
+
+
 def _msf_assemble(orig_eid, m, dmask, eids_h, q_h, jump_h, live_h, phases_h,
                   cases_h, budget, nt):
-    """Sparse-path output assembly: union the Prim-discovered edges (tern
+    """Sparse-path output assembly shared by the 5-shuffle, the fused
+    session and the batched paths: union the Prim-discovered edges (tern
     eids mapped back through ``orig_eid``) into the dense-phase mask, and
     build the stats."""
     total_q = int(q_h)
@@ -380,8 +425,18 @@ def _msf_assemble(orig_eid, m, dmask, eids_h, q_h, jump_h, live_h, phases_h,
 def msf_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
              ledger: Optional[RoundLedger] = None,
              skip_ternarize_if_dense: bool = True,
-             dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
-    """Compute the MSF mask over g.edges.  Returns (mask, stats)."""
+             dht=None, snapshot=None,
+             device="cuda") -> Tuple[np.ndarray, dict]:
+    """Compute the MSF mask over g.edges.  Returns (mask, stats).
+
+    ``snapshot`` switches to the fused session path: the ternarized
+    adjacency (or the dense edge image) comes from the session's cached KV
+    view — cold it is built under one ``WriteTernKV`` / ``WriteGraphKV``
+    shuffle, warm it is free — and the whole solve then runs in a single
+    ``MSF`` round (2 shuffles cold, 1 warm, vs the cold path's 5).  The
+    rank permutation is still the *first* per-solve draw from ``seed``, so
+    outputs equal the snapshot-free path's.
+    """
     ledger = ledger if ledger is not None else RoundLedger("ampc_msf")
     if g.weights is None:
         raise ValueError("msf needs a weighted graph")
@@ -391,15 +446,57 @@ def msf_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
     dense = skip_ternarize_if_dense and m >= n ** (1.0 + epsilon / 2.0)
     if dense:
         # Proposition 3.1 path: run the dense routine directly.
-        u, v = _to(g.edges[:, 0], device), _to(g.edges[:, 1], device)
-        w = _to(g.weights, device)
+        if snapshot is not None:
+            entries, snap_hit = snapshot.materialize_dense(ledger)
+            u, v, w = entries["edge_u"], entries["edge_v"], entries["edge_w"]
+            shuffle_nbytes = 0  # the write was accounted at view build
+        else:
+            u, v = _to(g.edges[:, 0], device), _to(g.edges[:, 1], device)
+            w = _to(g.weights, device)
+            shuffle_nbytes = nbytes_of(g.edges, g.weights)
         eid = torch.arange(m, dtype=torch.int32, device=device)
         valid = torch.ones(m, dtype=torch.bool, device=device)
-        with ledger.shuffle("DenseMSF", nbytes_of(g.edges, g.weights)):
+        with ledger.shuffle("DenseMSF", shuffle_nbytes):
             mask_dev, _, phases = boruvka_inround(u, v, w, eid, valid, n, m)
             col_dev = _collect_dev(dht, ledger, mask_dev.to(torch.int32))
             mask = ledger.harvest(col_dev).astype(bool)
-        return mask, {"phases": phases, "path": "dense"}
+        stats = {"phases": phases, "path": "dense"}
+        if snapshot is not None:
+            stats["snapshot"] = snapshot.stat(snap_hit)
+        return mask, stats
+
+    if snapshot is not None:
+        # fused session path: read the ternarized view from the snapshot
+        # cache, then run Prim -> jump -> contract -> Borůvka in ONE round
+        entries, snap_hit = snapshot.materialize_tern(ledger)
+        tg = entries["tg"]
+        nt = tg.g.n
+        rank = rng.permutation(nt).astype(np.float32)
+        budget = max(2, int(np.ceil(nt ** (epsilon / 2.0))))
+        with ledger.shuffle("MSF", 0):
+            out_eids, hooks, cases, queries = truncated_prim(
+                entries["nbr"], entries["nbw"], entries["nbe"],
+                _to(rank, device), budget)
+            q_sum = queries.sum()
+            ledger.record_queries_deferred(q_sum, q_sum * 36, waves=1)
+            roots, jump_iters = pointer_jump(_hook_parent(hooks))
+            ledger.record_queries_deferred(jump_iters * nt,
+                                           jump_iters * nt * 4, waves=1)
+            cu, cv, cw, ceid, cvalid, live = contract_edges(
+                entries["tu"], entries["tv"], entries["tw"],
+                entries["teid"],
+                torch.ones(tg.g.m, dtype=torch.bool, device=device), roots)
+            dmask_dev, _, phases = boruvka_inround(cu, cv, cw, ceid, cvalid,
+                                                   nt, max(m, 1))
+            col_dev = _collect_dev(dht, ledger, dmask_dev.to(torch.int32))
+            dmask, eids_h, q_h, live_h, cases_h = ledger.harvest(
+                (col_dev, out_eids, q_sum, live, cases))
+            dmask = dmask.astype(bool)
+        mask, stats = _msf_assemble(tg.orig_eid, m, dmask, eids_h, q_h,
+                                    jump_iters, live_h, phases, cases_h,
+                                    budget, nt)
+        stats["snapshot"] = snapshot.stat(snap_hit)
+        return mask, stats
 
     # --- shuffle 1: SortGraph (ternarize + build sorted adjacency, write DHT)
     with ledger.shuffle("SortGraph", nbytes_of(g.edges, g.weights)):
@@ -422,10 +519,7 @@ def msf_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
 
     # --- shuffle 3: PointerJump (contract the hook forest, Prop 3.2)
     with ledger.shuffle("PointerJump", nbytes_of(hooks)):
-        parent = torch.where(hooks >= 0, hooks,
-                             torch.arange(nt, dtype=torch.int32,
-                                          device=device))
-        roots, jump_iters = pointer_jump(parent)
+        roots, jump_iters = pointer_jump(_hook_parent(hooks))
     ledger.record_queries_deferred(jump_iters * nt, jump_iters * nt * 4,
                                    waves=1)
 
@@ -488,15 +582,69 @@ def msf_mpc_boruvka(g: UGraph, seed: int = 0,
 # ==========================================================================
 # Connectivity (paper Theorem 1)
 # ==========================================================================
+def _compose_labels(dht, ledger, dlabels, roots, first_slot):
+    """Compose the contractions: each original vertex's label, read as
+    dense label of its first tern slot's root — two genuine DHT reads of
+    the label maps (``dht_gather`` on the card) when ``dht`` is given."""
+    if dht is None:
+        return dlabels[roots.long()][first_slot.long()]
+    final_tern = dht.lookup(dlabels, roots, ledger=ledger)
+    return dht.lookup(final_tern, first_slot, ledger=ledger)
+
+
 def cc_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
             ledger: Optional[RoundLedger] = None,
-            dht=None, device="cuda") -> Tuple[np.ndarray, dict]:
-    """Connected components; returns (labels(n,) canonical, stats)."""
+            dht=None, snapshot=None,
+            device="cuda") -> Tuple[np.ndarray, dict]:
+    """Connected components; returns (labels(n,) canonical, stats).
+
+    ``snapshot`` switches to the fused session path (see :func:`msf_ampc`):
+    the unit-weight ternarization + first-slot map come from the session's
+    ``tern_cc`` KV view (one ``WriteTernKV`` shuffle, cold only) and the
+    solve runs in a single ``Connectivity`` round — 2 shuffles cold, 1
+    warm, equal labels.
+    """
     ledger = ledger if ledger is not None else RoundLedger("ampc_cc")
     n, m = g.n, g.m
     if m == 0:
-        return np.arange(n, dtype=np.int64), {"queries": 0}
+        stats = {"queries": 0}
+        if snapshot is not None:
+            # nothing to materialize; the trivial answer never hits the KV
+            stats["snapshot"] = snapshot.stat(False)
+        return np.arange(n, dtype=np.int64), stats
     rng = np.random.default_rng(seed)
+
+    if snapshot is not None:
+        entries, snap_hit = snapshot.materialize_tern(ledger, unit=True)
+        tg = entries["tg"]
+        nt = tg.g.n
+        rank = rng.permutation(nt).astype(np.float32)
+        budget = max(2, int(np.ceil(nt ** (epsilon / 2.0))))
+        with ledger.shuffle("Connectivity", 0):
+            out_eids, hooks, cases, queries = truncated_prim(
+                entries["nbr"], entries["nbw"], entries["nbe"],
+                _to(rank, device), budget)
+            q_sum = queries.sum()
+            ledger.record_queries_deferred(q_sum, q_sum * 36, waves=1)
+            roots, jump_iters = pointer_jump(_hook_parent(hooks))
+            cu, cv, cw, ceid, cvalid, live = contract_edges(
+                entries["tu"], entries["tv"], entries["tw"],
+                entries["teid"],
+                torch.ones(tg.g.m, dtype=torch.bool, device=device), roots)
+            _, dlabels, phases = boruvka_inround(cu, cv, cw, ceid, cvalid,
+                                                 nt, max(m, 1))
+            orig_dev = _compose_labels(dht, ledger, dlabels, roots,
+                                       entries["first_slot"])
+            orig_labels, q_h = ledger.harvest((orig_dev, q_sum))
+            orig_labels = orig_labels.astype(np.int64)
+        labels = _canonicalize(orig_labels)
+        return labels, {
+            "queries": int(q_h),
+            "pointer_jump_iters": jump_iters,
+            "dense_phases": phases,
+            "num_components": int(len(np.unique(labels))),
+            "snapshot": snapshot.stat(snap_hit),
+        }
 
     # unit-ish weights, distinct so ties never arise
     gw = UGraph(n, g.edges, np.arange(m, dtype=np.float32))
@@ -516,10 +664,7 @@ def cc_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
     ledger.record_queries_deferred(q_sum, q_sum * 36, waves=1)
 
     with ledger.shuffle("PointerJump", nbytes_of(hooks)):
-        parent = torch.where(hooks >= 0, hooks,
-                             torch.arange(nt, dtype=torch.int32,
-                                          device=device))
-        roots, jump_iters = pointer_jump(parent)
+        roots, jump_iters = pointer_jump(_hook_parent(hooks))
 
     tu, tv = _to(tg.g.edges[:, 0], device), _to(tg.g.edges[:, 1], device)
     tw, teid = _to(tg.g.weights, device), _to(tg.orig_eid, device)
@@ -531,14 +676,8 @@ def cc_ampc(g: UGraph, epsilon: float = 0.5, seed: int = 0,
     with ledger.shuffle("ForestConnectivity", 0):
         _, dlabels, phases = boruvka_inround(cu, cv, cw, ceid, cvalid, nt,
                                              max(m, 1))
-        # compose contractions: two genuine DHT reads of the label maps
-        keys = _to(first_slot.astype(np.int32), device)
-        if dht is not None:
-            final_tern = dht.lookup(dlabels, roots, ledger=ledger)
-            orig_dev = dht.lookup(final_tern, keys, ledger=ledger)
-        else:
-            final_tern = dlabels[roots.long()]
-            orig_dev = final_tern[keys.long()]
+        orig_dev = _compose_labels(dht, ledger, dlabels, roots,
+                                   _to(first_slot.astype(np.int32), device))
         orig_labels, q_h = ledger.harvest((orig_dev, q_sum))
         orig_labels = orig_labels.astype(np.int64)
 
@@ -579,22 +718,42 @@ def cc_mpc_hash_to_min(g: UGraph, ledger: Optional[RoundLedger] = None,
 # ==========================================================================
 # 1-vs-2-Cycle (paper Section 5.6)
 # ==========================================================================
+def _cycle_samples(rng, n: int, p: float) -> np.ndarray:
+    """The walk's sample set: each vertex with probability ``p``, and at
+    least one (paper: w.h.p. argument)."""
+    sampled = rng.random(n) < p
+    if not sampled.any():
+        sampled[rng.integers(n)] = True
+    return sampled
+
+
 def one_vs_two_ampc(g: UGraph, p: float = 1.0 / 64, seed: int = 0,
                     ledger: Optional[RoundLedger] = None,
-                    max_steps: Optional[int] = None,
+                    max_steps: Optional[int] = None, snapshot=None,
                     device="cuda") -> Tuple[int, dict]:
     """Returns (num_cycles, stats): vertices sampled with probability
-    ``p`` walk to the next sample inside one round."""
+    ``p`` walk to the next sample inside one round.
+
+    ``snapshot`` reads the cycle adjacency from the session's ``cycle_adj``
+    KV view instead of rebuilding it under the ``WriteKV`` shuffle; the
+    sample set is still drawn per solve (same rng order), so the answer is
+    the same — 2 shuffles cold, 1 warm.
+    """
     ledger = ledger if ledger is not None else RoundLedger("ampc_1v2c")
     n = g.n
     rng = np.random.default_rng(seed)
-    with ledger.shuffle("WriteKV", nbytes_of(g.edges)):
-        nbr = _to(cycle_adjacency(g), device)
-        sampled_np = rng.random(n) < p
-        # guarantee at least one sample (paper: w.h.p. argument)
-        if not sampled_np.any():
-            sampled_np[rng.integers(n)] = True
+    snap_stat = None
+    if snapshot is not None:
+        entries, snap_hit = snapshot.materialize_cycle(ledger)
+        nbr = entries["cycle_nbr"]
+        sampled_np = _cycle_samples(rng, n, p)
         sampled = _to(sampled_np, device)
+        snap_stat = snapshot.stat(snap_hit)
+    else:
+        with ledger.shuffle("WriteKV", nbytes_of(g.edges)):
+            nbr = _to(cycle_adjacency(g), device)
+            sampled_np = _cycle_samples(rng, n, p)
+            sampled = _to(sampled_np, device)
     ms = max_steps or int(min(n + 1, np.ceil(8 * np.log(max(n, 2)) / p)))
     with ledger.shuffle("SampleWalk", int(sampled_np.sum()) * 4):
         ncomp, steps, ok = ledger.harvest(_walk_and_count(nbr, sampled, ms))
@@ -604,6 +763,8 @@ def one_vs_two_ampc(g: UGraph, p: float = 1.0 / 64, seed: int = 0,
         raise RuntimeError("walk budget exceeded; increase p or max_steps")
     stats = {"samples": int(sampled_np.sum()),
              "walk_steps": total_steps, "max_steps": ms}
+    if snap_stat is not None:
+        stats["snapshot"] = snap_stat
     return ncomp, stats
 
 
@@ -761,3 +922,487 @@ def _p_1v2(ctx, g, **opts):
 def _p_1v2_mpc(ctx, g, **opts):
     return one_vs_two_mpc(g, seed=ctx.seed, ledger=ctx.ledger,
                           device=ctx.device, **opts)
+
+
+# ==========================================================================
+# Batched adapters — AmpcEngine.solve_many, one launch per bucket
+# ==========================================================================
+# Each adapter takes (bctx: engine.BatchSolveContext, batch: GraphBatch) and
+# returns one (output, stats) per graph, in batch order.  Invariants:
+#
+#   * outputs equal sequential ``solve`` on the same engine seed: each lane
+#     pads with inert edges/vertices and uses the graph's *own* (unpadded)
+#     rank permutation, so the fixpoint trajectory over the real
+#     vertices/edges is exactly the sequential one;
+#   * a bucket runs as ONE eager loop over its offset-flattened lanes (lane
+#     b owns the b-th range of vertex and edge ids); per-lane counters are
+#     reduced by lane, so each graph's stats are its sequential ones, and
+#     one host read a wave serves the whole bucket;
+#   * the bucket's solver (a closure over its shape and static budget) is
+#     memoized per (problem, backend, bucket) through ``bctx.cache``; all
+#     graphs after the first occupant of a bucket ride the same solver
+#     (stats["solver_cache"]);
+#   * per-graph ledgers mirror the reference's batched shuffle structure,
+#     with this graph's own bytes and its mask's share of the batched DHT
+#     traffic; the bucket makes one ``harvest_many`` transfer.
+
+
+def _cache_stat(key, hit: bool, slot: int) -> dict:
+    # slot 0 of a cold bucket pays the build; every later occupant is a hit
+    return {"key": key, "hit": bool(hit or slot > 0)}
+
+
+def _per_graph_ranks(batch, seed: int):
+    """Per-graph vertex rank permutations, padded to n_bucket.
+
+    Each graph draws from ``default_rng(seed)`` exactly like the sequential
+    solver; padding vertices get ranks above every real rank (they are
+    isolated, so the value never matters)."""
+    B, nb = len(batch), batch.n_bucket
+    ranks = np.zeros((B, nb), np.float32)
+    for b, g in enumerate(batch.graphs):
+        rng = np.random.default_rng(seed)
+        ranks[b, :g.n] = rng.permutation(g.n).astype(np.float32)
+        ranks[b, g.n:] = np.arange(g.n, nb, dtype=np.float32)
+    return ranks
+
+
+def _flat_ids(ids, n: int):
+    """(B, ...) lane-local ids to one flat id space: lane b's id k becomes
+    ``b * n + k``; negative ids (padding) stay -1."""
+    B = ids.shape[0]
+    off = (torch.arange(B, dtype=ids.dtype, device=ids.device) * n).view(
+        (B,) + (1,) * (ids.dim() - 1))
+    return torch.where(ids >= 0, ids + off, -1).reshape(-1)
+
+
+def _lane_keys(B: int, K: int, device):
+    """(B, K) int32 keys 0..K-1 in every row: CollectOutputs reads each
+    graph's whole output snapshot."""
+    return torch.arange(K, dtype=torch.int32, device=device).expand(B, K)
+
+
+def _build_mis_solver(n: int):
+    def solve(senders, receivers, rank, edge_ok):
+        B = rank.shape[0]
+        status, _, iters, q0, q1 = _mis_fixpoint_lanes(
+            _flat_ids(senders, n), _flat_ids(receivers, n),
+            rank.reshape(-1), n, B, edge_ok.reshape(-1))
+        return status.view(B, n), iters, q0, q1
+    return solve
+
+
+@batched_impl("mis")
+def mis_ampc_batched(bctx, batch, caching: bool = True):
+    """Batched MIS: one masked-fixpoint loop over the whole bucket."""
+    B, nb = len(batch), batch.n_bucket
+    dev = bctx.device
+    senders, receivers, edge_ok = batch.padded_symmetric()
+    ranks = _per_graph_ranks(batch, bctx.seed)
+    for b, g in enumerate(batch.graphs):
+        bctx.ledgers[b].record_shuffle("DirectEdges+WriteKV",
+                                       nbytes_of(g.edges) * 2)
+    key = bctx.solver_key(batch)
+    solver, hit = bctx.cache.get_or_build(
+        key, lambda: _build_mis_solver(nb), occupants=B)
+    t0 = time.perf_counter()
+    status_b, iters_b, q0_b, q1_b = solver(
+        _to(senders, dev), _to(receivers, dev), _to(ranks, dev),
+        _to(edge_ok, dev))
+    # CollectOutputs: one batched DHT read, per-graph queries split by mask
+    out_b = bctx.dht.lookup_many(status_b, _lane_keys(B, nb, dev),
+                                 ledgers=bctx.ledgers,
+                                 key_mask=batch.node_mask)
+    # the bucket's one transfer: outputs + every ledger's deferred counters
+    status_h, iters, q0, q1 = harvest_many(
+        bctx.ledgers, (out_b, iters_b, q0_b, q1_b))
+    dt = time.perf_counter() - t0
+    outs = []
+    for b, g in enumerate(batch.graphs):
+        led = bctx.ledgers[b]
+        led.record_shuffle("IsInMIS", g.n * 4, seconds=dt / B)
+        qn, qd, it = int(q0[b]), int(q1[b]), int(iters[b])
+        queries = qd if caching else qn
+        led.record_queries(queries, queries * 8, waves=it,
+                           deduped_away=(qn - qd) if caching else 0)
+        status = status_h[b, :g.n]
+        if (status == UNKNOWN).any():
+            raise RuntimeError("MIS fixpoint left undecided vertices")
+        outs.append((status == IN,
+                     {"fixpoint_iters": it, "queries_nodedup": qn,
+                      "queries_dedup": qd,
+                      "cache_savings_factor": qn / max(qd, 1),
+                      "solver_cache": _cache_stat(key, hit, b)}))
+    return outs
+
+
+def _build_mm_solver(n: int):
+    def solve(u, v, rank, st0):
+        B = rank.shape[0]
+        estatus, _, iters, q0, q1 = matching._mm_fixpoint_lanes(
+            _flat_ids(u, n), _flat_ids(v, n), rank.reshape(-1), n, B,
+            st0.reshape(-1))
+        return estatus.view(B, -1), iters, q0, q1
+    return solve
+
+
+def _mm_batched_launch(bctx, batch, eranks, caching: bool = True):
+    """Shared batched greedy-MM launch (matching / mwm / vertex-cover).
+
+    ``eranks`` is one unpadded rank array per graph (the Corollary-4.1
+    injection point); padding edges start OUT so they never join or block.
+    The solver is shared across every problem that rides it — the cache key
+    is scoped to ``"matching"``, not the caller's name.
+    """
+    B, nb, mb = len(batch), batch.n_bucket, batch.m_bucket
+    dev = bctx.device
+    ranks = np.full((B, mb), np.inf, np.float32)
+    for b, er in enumerate(eranks):
+        ranks[b, :er.shape[0]] = er
+    estatus0 = np.where(batch.edge_mask, np.int32(UNKNOWN),
+                        np.int32(matching.OUT)).astype(np.int32)
+    for b, g in enumerate(batch.graphs):
+        bctx.ledgers[b].record_shuffle("SortEdges+WriteKV",
+                                       nbytes_of(g.edges) * 2)
+    key = ("matching", bctx.backend_name, nb, mb)
+    solver, hit = bctx.cache.get_or_build(
+        key, lambda: _build_mm_solver(nb), occupants=B)
+    t0 = time.perf_counter()
+    estatus_b, iters_b, q0_b, q1_b = solver(
+        _to(batch.edges[:, :, 0], dev), _to(batch.edges[:, :, 1], dev),
+        _to(ranks, dev), _to(estatus0, dev))
+    out_b = bctx.dht.lookup_many(estatus_b, _lane_keys(B, mb, dev),
+                                 ledgers=bctx.ledgers,
+                                 key_mask=batch.edge_mask)
+    estatus_h, iters, q0, q1 = harvest_many(
+        bctx.ledgers, (out_b, iters_b, q0_b, q1_b))
+    dt = time.perf_counter() - t0
+    outs = []
+    for b, g in enumerate(batch.graphs):
+        led = bctx.ledgers[b]
+        led.record_shuffle("IsInMM", g.m, seconds=dt / B)
+        qn, qd, it = int(q0[b]), int(q1[b]), int(iters[b])
+        queries = qd if caching else qn
+        led.record_queries(queries, queries * 12, waves=it,
+                           deduped_away=(qn - qd) if caching else 0)
+        estatus = estatus_h[b, :g.m]
+        outs.append((estatus == IN,
+                     {"fixpoint_iters": it, "queries_nodedup": qn,
+                      "queries_dedup": qd, "erank": eranks[b],
+                      "solver_cache": _cache_stat(key, hit, b)}))
+    return outs
+
+
+@batched_impl("matching")
+def mm_ampc_batched(bctx, batch, caching: bool = True):
+    """Batched greedy maximal matching over per-graph random edge ranks."""
+    eranks = []
+    for g in batch.graphs:
+        rng = np.random.default_rng(bctx.seed)
+        eranks.append(rng.permutation(g.m).astype(np.float32))
+    return _mm_batched_launch(bctx, batch, eranks, caching=caching)
+
+
+@batched_impl("weighted-matching")
+def mwm_greedy_ampc_batched(bctx, batch, caching: bool = True):
+    """Batched 1/2-approx MWM: decreasing-weight eranks into the MM launch."""
+    eranks = []
+    for g in batch.graphs:
+        rng = np.random.default_rng(bctx.seed)
+        tie = rng.permutation(g.m).astype(np.float64) / max(g.m, 1)
+        order = np.argsort(np.lexsort((tie, -g.weights.astype(np.float64))))
+        eranks.append(order.astype(np.float32))
+    outs = _mm_batched_launch(bctx, batch, eranks, caching=caching)
+    return [(in_mm, {"weight": float(g.weights[in_mm].sum()), **st})
+            for g, (in_mm, st) in zip(batch.graphs, outs)]
+
+
+@batched_impl("vertex-cover")
+def vertex_cover_2approx_batched(bctx, batch, caching: bool = True):
+    """Batched 2-approx vertex cover: endpoints of the batched MM."""
+    outs = mm_ampc_batched(bctx, batch, caching=caching)
+    results = []
+    for g, (in_mm, st) in zip(batch.graphs, outs):
+        cover = np.zeros(g.n, bool)
+        cover[g.edges[in_mm, 0]] = True
+        cover[g.edges[in_mm, 1]] = True
+        results.append((cover, {"cover_size": int(cover.sum()), **st}))
+    return results
+
+
+def _build_msf_sparse_solver(ntb: int, mb: int, capacity: int):
+    """Sparse-MSF pipeline for one ternarized bucket shape.
+
+    ``capacity`` is the bucket-max Prim budget: every lane shares the
+    buffer size while stopping at its own ``budget`` (outputs equal per
+    ``truncated_prim_capped``).  ``mb`` is the bucket's *original* edge
+    capacity — the Borůvka mask is over original edge ids (``teid``),
+    exactly like the sequential path."""
+    def solve(nbr, nbw, nbe, rank, budget, nmask, tu, tv, tw, teid, emask):
+        B = rank.shape[0]
+        # tern edge ids in nbe are only carried to the output: they stay
+        # lane-local
+        out_eids, hooks, cases, queries = truncated_prim_capped(
+            _flat_ids(nbr, ntb).view(-1, 3), nbw.reshape(-1, 3),
+            nbe.reshape(-1, 3), rank.reshape(-1),
+            budget.repeat_interleave(ntb), capacity)
+        # padded tern vertices exhaust on their first frontier pop; mask
+        # their unit query out of the per-graph total
+        q_sum = torch.where(nmask.reshape(-1), queries, 0).view(
+            B, ntb).sum(1)
+        roots, jump_iters = pointer_jump(_hook_parent(hooks), lanes=B)
+        cu, cv, cw, ceid, cvalid, live = contract_edges(
+            _flat_ids(tu, ntb), _flat_ids(tv, ntb), tw.reshape(-1),
+            _flat_ids(teid, mb).to(torch.int32), emask.reshape(-1), roots,
+            lanes=B)
+        dmask, _, phases = boruvka_core(cu, cv, cw, ceid, cvalid, B * ntb,
+                                        B * mb, lanes=B)
+        return (dmask.view(B, mb).to(torch.int32),
+                out_eids.view(B, ntb, capacity), q_sum, jump_iters, live,
+                phases, cases.view(B, ntb))
+    return solve
+
+
+def _build_msf_dense_solver(nb: int, mb: int):
+    def solve(u, v, w, emask):
+        B = u.shape[0]
+        eid = torch.arange(B * mb, dtype=torch.int32, device=u.device)
+        dmask, _, phases = boruvka_core(
+            _flat_ids(u, nb), _flat_ids(v, nb), w.reshape(-1), eid,
+            emask.reshape(-1), B * nb, B * mb, lanes=B)
+        return dmask.view(B, mb).to(torch.int32), phases
+    return solve
+
+
+@batched_impl("msf")
+def msf_ampc_batched(bctx, batch, skip_ternarize_if_dense: bool = True):
+    """Batched MSF: lanes split by the sequential dense/sparse predicate.
+
+    Sparse lanes run one truncated-Prim -> pointer-jump -> contract ->
+    Borůvka loop over a shared :func:`ternarize_batch` bucket; dense lanes
+    (``m >= n^(1+eps/2)``) run one Borůvka loop, mirroring the sequential
+    Proposition-3.1 shortcut.  Each lane pads with isolated tern vertices /
+    invalid edges and keeps its own rank permutation and budget, so outputs
+    equal sequential ``solve``'s; per-graph ledgers mirror the sequential
+    5- (or 1-) shuffle structure, and the whole bucket still materializes
+    through exactly one ``harvest_many`` transfer.
+    """
+    B, mb = len(batch), batch.m_bucket
+    dev = bctx.device
+    eps = bctx.epsilon
+    dense_set = set(
+        b for b, g in enumerate(batch.graphs)
+        if skip_ternarize_if_dense and g.m >= g.n ** (1.0 + eps / 2.0))
+    dense_idx = sorted(dense_set)
+    sparse_idx = [b for b in range(B) if b not in dense_set]
+
+    t0 = time.perf_counter()
+    sparse_extra = dense_extra = None
+    if sparse_idx:
+        tb = ternarize_batch([batch.graphs[b] for b in sparse_idx])
+        Bs, ntb = len(tb), tb.nt_bucket
+        ranks = np.zeros((Bs, ntb), np.float32)
+        budgets = np.zeros((Bs,), np.int32)
+        for j, t in enumerate(tb.terns):
+            nt = t.g.n
+            rng = np.random.default_rng(bctx.seed)
+            ranks[j, :nt] = rng.permutation(nt).astype(np.float32)
+            ranks[j, nt:] = np.arange(nt, ntb, dtype=np.float32)
+            budgets[j] = max(2, int(np.ceil(nt ** (eps / 2.0))))
+        capacity = int(budgets.max())
+        for b in sparse_idx:
+            g = batch.graphs[b]
+            bctx.ledgers[b].record_shuffle(
+                "SortGraph", nbytes_of(g.edges, g.weights))
+        skey = bctx.solver_key(batch,
+                               ("sparse", ntb, tb.mt_bucket, capacity))
+        ssolver, shit = bctx.cache.get_or_build(
+            skey, lambda: _build_msf_sparse_solver(ntb, mb, capacity),
+            occupants=Bs)
+        (dmask_b, eids_b, q_b, jump_b, live_b, phases_b, cases_b) = ssolver(
+            *(_to(a, dev) for a in (
+                tb.nbr, tb.nbw, tb.nbe, ranks, budgets, tb.node_mask,
+                tb.edges[:, :, 0], tb.edges[:, :, 1], tb.weights,
+                tb.orig_eid, tb.edge_mask)))
+        # per-lane deferred traffic (prim, then pointer-jump) queued on
+        # each graph's ledger before the bucket's one harvest
+        for j, b in enumerate(sparse_idx):
+            nt = tb.terns[j].g.n
+            led = bctx.ledgers[b]
+            led.record_queries_deferred(q_b[j], q_b[j] * 36, waves=1)
+            led.record_queries_deferred(jump_b[j] * nt, jump_b[j] * nt * 4,
+                                        waves=1)
+        col_b = bctx.dht.lookup_many(
+            dmask_b, _lane_keys(Bs, mb, dev),
+            ledgers=[bctx.ledgers[b] for b in sparse_idx],
+            key_mask=batch.edge_mask[np.asarray(sparse_idx)])
+        sparse_extra = (col_b, eids_b, q_b, jump_b, live_b, phases_b,
+                        cases_b)
+    if dense_idx:
+        didx = np.asarray(dense_idx)
+        demask = batch.edge_mask[didx]
+        dkey = bctx.solver_key(batch, ("dense",))
+        dsolver, dhit = bctx.cache.get_or_build(
+            dkey, lambda: _build_msf_dense_solver(batch.n_bucket, mb),
+            occupants=len(dense_idx))
+        dmaskd_b, dphases_b = dsolver(
+            *(_to(a, dev) for a in (
+                batch.edges[didx, :, 0], batch.edges[didx, :, 1],
+                batch.weights[didx], demask)))
+        dcol_b = bctx.dht.lookup_many(
+            dmaskd_b, _lane_keys(len(dense_idx), mb, dev),
+            ledgers=[bctx.ledgers[b] for b in dense_idx], key_mask=demask)
+        dense_extra = (dcol_b, dphases_b)
+
+    # the bucket's one transfer: both sub-launches' outputs and every
+    # ledger's deferred counters
+    sparse_h, dense_h = harvest_many(bctx.ledgers,
+                                     (sparse_extra, dense_extra))
+    dt = time.perf_counter() - t0
+
+    outs = [None] * B
+    if sparse_idx:
+        (col_h, eids_h, q_h, jump_h, live_h, phases_h, cases_h) = sparse_h
+        for j, b in enumerate(sparse_idx):
+            g = batch.graphs[b]
+            t = tb.terns[j]
+            nt = t.g.n
+            led = bctx.ledgers[b]
+            led.record_queries(0, 0, waves=0)
+            led.record_shuffle("PrimSearch", 0)
+            led.record_shuffle("PointerJump", nt * 4)
+            led.record_shuffle("Contract", nbytes_of(t.g.edges, t.g.weights))
+            led.record_shuffle("DenseMSF", 0, seconds=dt / B)
+            mask, stats = _msf_assemble(
+                t.orig_eid, g.m, col_h[j, :g.m].astype(bool),
+                eids_h[j, :nt], q_h[j], jump_h[j], live_h[j], phases_h[j],
+                cases_h[j, :nt], int(budgets[j]), nt)
+            stats["solver_cache"] = _cache_stat(skey, shit, j)
+            outs[b] = (mask, stats)
+    if dense_idx:
+        dcol_h, dphases_h = dense_h
+        for j, b in enumerate(dense_idx):
+            g = batch.graphs[b]
+            bctx.ledgers[b].record_shuffle(
+                "DenseMSF", nbytes_of(g.edges, g.weights), seconds=dt / B)
+            outs[b] = (dcol_h[j, :g.m].astype(bool),
+                       {"phases": int(dphases_h[j]), "path": "dense",
+                        "solver_cache": _cache_stat(dkey, dhit, j)})
+    return outs
+
+
+def _build_cc_solver(n: int):
+    def solve(u, v, ok):
+        B = u.shape[0]
+        labels, iters, q0, q1 = _cc_fixpoint_masked(
+            _flat_ids(u, n), _flat_ids(v, n), ok.reshape(-1), n, B)
+        # back to lane-local labels, as each lane's own fixpoint gives them
+        off = torch.arange(B, dtype=labels.dtype, device=labels.device) * n
+        return labels.view(B, n) - off[:, None], iters, q0, q1
+    return solve
+
+
+@batched_impl("connectivity")
+def cc_ampc_batched(bctx, batch):
+    """Batched connectivity via in-round min-label doubling (2 shuffles).
+
+    The sequential solver runs the paper's 5-shuffle truncated-Prim
+    pipeline; the batched path instead resolves labels by masked
+    hash-to-min run to fixpoint against one snapshot, as the reference's
+    does.  Outputs are identical after canonicalization (component labels
+    are min-vertex-id in both paths); the ledger reflects the 2-shuffle
+    batched pipeline.
+    """
+    B, nb = len(batch), batch.n_bucket
+    dev = bctx.device
+    for b, g in enumerate(batch.graphs):
+        bctx.ledgers[b].record_shuffle("SortGraph+WriteKV",
+                                       nbytes_of(g.edges))
+    key = bctx.solver_key(batch)
+    solver, hit = bctx.cache.get_or_build(
+        key, lambda: _build_cc_solver(nb), occupants=B)
+    t0 = time.perf_counter()
+    labels_b, iters_b, q0_b, q1_b = solver(
+        _to(batch.edges[:, :, 0], dev), _to(batch.edges[:, :, 1], dev),
+        _to(batch.edge_mask, dev))
+    out_b = bctx.dht.lookup_many(labels_b, _lane_keys(B, nb, dev),
+                                 ledgers=bctx.ledgers,
+                                 key_mask=batch.node_mask)
+    labels_h, iters, q0, q1 = harvest_many(
+        bctx.ledgers, (out_b, iters_b, q0_b, q1_b))
+    dt = time.perf_counter() - t0
+    outs = []
+    for b, g in enumerate(batch.graphs):
+        led = bctx.ledgers[b]
+        led.record_shuffle("LabelFixpoint", g.n * 4, seconds=dt / B)
+        qn, qd, it = int(q0[b]), int(q1[b]), int(iters[b])
+        led.record_queries(qd, qd * 8, waves=it, deduped_away=qn - qd)
+        labels = _canonicalize(labels_h[b, :g.n].astype(np.int64))
+        outs.append((labels,
+                     {"label_prop_iters": it, "queries": qd,
+                      "queries_nodedup": qn,
+                      "num_components": int(len(np.unique(labels))),
+                      "solver_cache": _cache_stat(key, hit, b)}))
+    return outs
+
+
+def _build_1v2_solver(n: int, max_steps: int):
+    def solve(nbr, sampled):
+        B = nbr.shape[0]
+        return _walk_and_count(_flat_ids(nbr, n).view(-1, 2),
+                               sampled.reshape(-1), max_steps, lanes=B)
+    return solve
+
+
+@batched_impl("one-vs-two")
+def one_vs_two_ampc_batched(bctx, batch, p: float = 1.0 / 64,
+                            max_steps: Optional[int] = None):
+    """Batched 1-vs-2-cycle: one walk loop per bucket.
+
+    Padding vertices self-loop and are marked sampled, so each contributes
+    exactly 2 walk steps and 1 component — both subtracted per graph.  The
+    walk budget is the bucket maximum of the per-graph budgets (it only
+    bounds the in-round chase; successful walks stop at the next sample
+    regardless), and is part of the solver cache key.
+    """
+    B, nb = len(batch), batch.n_bucket
+    dev = bctx.device
+    nbrs = np.zeros((B, nb, 2), np.int32)
+    sampled = np.zeros((B, nb), bool)
+    n_samples = np.zeros(B, np.int64)
+    ms = 1
+    for b, g in enumerate(batch.graphs):
+        nbrs[b, :g.n] = cycle_adjacency(g)
+        pads = np.arange(g.n, nb, dtype=np.int32)
+        nbrs[b, g.n:, 0] = pads
+        nbrs[b, g.n:, 1] = pads
+        s = _cycle_samples(np.random.default_rng(bctx.seed), g.n, p)
+        sampled[b, :g.n] = s
+        sampled[b, g.n:] = True
+        n_samples[b] = int(s.sum())
+        ms = max(ms, max_steps or
+                 int(min(g.n + 1, np.ceil(8 * np.log(max(g.n, 2)) / p))))
+        bctx.ledgers[b].record_shuffle("WriteKV", nbytes_of(g.edges))
+    key = bctx.solver_key(batch, ("max_steps", ms))
+    solver, hit = bctx.cache.get_or_build(
+        key, lambda: _build_1v2_solver(nb, ms), occupants=B)
+    t0 = time.perf_counter()
+    ncomp, steps, ok = harvest_many(
+        bctx.ledgers, solver(_to(nbrs, dev), _to(sampled, dev)))
+    dt = time.perf_counter() - t0
+    outs = []
+    for b, g in enumerate(batch.graphs):
+        if not bool(ok[b]):
+            raise RuntimeError("walk budget exceeded; increase p or "
+                               f"max_steps (graph {batch.indices[b]})")
+        n_pad = nb - g.n
+        real_steps = int(steps[b]) - 2 * n_pad
+        led = bctx.ledgers[b]
+        led.record_shuffle("SampleWalk", int(n_samples[b]) * 4,
+                           seconds=dt / B)
+        led.record_queries(real_steps, real_steps * 12, waves=1)
+        outs.append((int(ncomp[b]) - n_pad,
+                     {"samples": int(n_samples[b]),
+                      "walk_steps": real_steps, "max_steps": ms,
+                      "solver_cache": _cache_stat(key, hit, b)}))
+    return outs

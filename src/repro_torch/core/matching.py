@@ -6,7 +6,9 @@ the minimum-rank unresolved edge at *both* endpoints, and dies when an
 endpoint is matched.  This is the port of the JAX package's
 ``repro.core.matching`` fixpoint (``_mm_wave``, ``_mm_fixpoint``): one eager
 loop whose condition is read on the host once per wave
-(``rounds.HOST_READS``).  The drivers live in ``repro_torch.ampc.solvers``.
+(``rounds.HOST_READS``), over one graph or over a ``solve_many`` bucket's
+offset-flattened lanes (``_mm_fixpoint_lanes``).  The drivers live in
+``repro_torch.ampc.solvers``.
 """
 from __future__ import annotations
 
@@ -52,25 +54,44 @@ def _mm_wave(estatus, u, v, erank, n: int, active_edge=None):
     return torch.where(die, OUT, new), matched
 
 
-def _mm_fixpoint(u, v, erank, n: int, estatus0):
-    """Run the LFMM fixpoint to completion.
+def _mm_fixpoint_lanes(u, v, erank, n: int, lanes: int, estatus0):
+    """LFMM fixpoint over ``lanes`` disjoint graphs of ``n`` vertices.
 
-    Returns (estatus (m,) int32, iters, queries_nodedup, queries_dedup):
-    ``iters`` is a host int, the query counts int64 device scalars.  The
-    loop runs only while an edge is unresolved, so every wave it counts has
-    live work, as the reference's ``it + live`` counts.  Per wave, each
+    Lane b owns vertices ``[b*n, (b+1)*n)`` and the b-th equal share of
+    the edges (a ``solve_many`` bucket, offset-flattened; one graph is
+    ``lanes=1``).  Padding edges start OUT, so they never join, block or
+    count.  One host read a wave serves every lane.
+
+    Returns (estatus (lanes*m_lane,) int32, waves, iters, queries_nodedup,
+    queries_dedup): ``waves`` is a host int, the rest (lanes,) int64
+    device tensors.  A lane counts the waves in which it had an unresolved
+    edge, as the reference's ``it + live`` counts.  Per wave, each
     unresolved edge probes both endpoint frontiers (no-dedup count); with
     caching each distinct probed vertex is fetched once."""
     dev = u.device
+    N = lanes * n
     u, v = u.long(), v.long()
     estatus = estatus0
-    iters = 0
-    q0 = torch.zeros((), dtype=torch.int64, device=dev)
-    q1 = torch.zeros((), dtype=torch.int64, device=dev)
+    waves = 0
+    iters, q0, q1 = (torch.zeros(lanes, dtype=torch.int64, device=dev)
+                     for _ in range(3))
     while host_read((estatus == UNKNOWN).any()):
         unk = estatus == UNKNOWN
-        estatus, _ = _mm_wave(estatus, u, v, erank, n)
-        q0 += 2 * unk.sum()
-        q1 += _mark(n, unk, u, v).sum()
-        iters += 1
-    return estatus, iters, q0, q1
+        estatus, _ = _mm_wave(estatus, u, v, erank, N)
+        by_lane = unk.view(lanes, -1)
+        iters += by_lane.any(1)
+        q0 += 2 * by_lane.sum(1)
+        q1 += _mark(N, unk, u, v).view(lanes, n).sum(1)
+        waves += 1
+    return estatus, waves, iters, q0, q1
+
+
+def _mm_fixpoint(u, v, erank, n: int, estatus0):
+    """Run the LFMM fixpoint on one graph to completion.
+
+    Returns (estatus (m,) int32, iters, queries_nodedup, queries_dedup):
+    ``iters`` is a host int, the query counts int64 device scalars (see
+    :func:`_mm_fixpoint_lanes`)."""
+    estatus, waves, _, q0, q1 = _mm_fixpoint_lanes(u, v, erank, n, 1,
+                                                   estatus0)
+    return estatus, waves, q0[0], q1[0]

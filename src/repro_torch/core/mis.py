@@ -5,7 +5,8 @@ vertex permutation π: a vertex joins when all lower-rank neighbours are
 OUT; a vertex is OUT when a neighbour is IN.  Every wave reads the same
 immutable snapshot, so the whole fixpoint is one AMPC round.  This is the
 port of the JAX package's ``repro.core.mis`` fixpoint: one eager loop whose
-condition is read on the host once per wave (``rounds.HOST_READS``).
+condition is read on the host once per wave (``rounds.HOST_READS``), over
+one graph or over a ``solve_many`` bucket's offset-flattened lanes.
 """
 from __future__ import annotations
 
@@ -38,41 +39,51 @@ def _mis_wave(status, s_l, r_l, lower, edge_ok, n: int):
     return status, s_unk
 
 
-def _mis_fixpoint_masked(senders, receivers, rank, n: int, edge_ok):
-    """LFMIS fixpoint with an edge-validity mask.
+def _mis_fixpoint_lanes(senders, receivers, rank, n: int, lanes: int,
+                        edge_ok):
+    """LFMIS fixpoint over ``lanes`` disjoint graphs of ``n`` vertices.
 
-    ``edge_ok`` marks the real directed edges; masked lanes never
-    contribute to blocking, joining, or query counts.
+    Lane b owns vertices ``[b*n, (b+1)*n)`` and the b-th equal share of
+    the directed edges (a ``solve_many`` bucket, offset-flattened; one
+    graph is ``lanes=1``).  ``edge_ok`` marks the real directed edges;
+    masked lanes never contribute to blocking, joining, or query counts,
+    so each lane follows the trajectory of its own sequential fixpoint,
+    and one host read a wave serves every lane.
 
-    Returns (status(n,) int32, iters, queries_nodedup, queries_dedup).
-    Query accounting per wave: every undecided vertex fetches the status of
-    each of its neighbours (no-dedup count); with caching each *distinct*
-    neighbour is fetched once per machine — the per-wave dedup is one fetch
-    per distinct queried vertex (paper Section 5.3).  ``iters`` is a host
-    int; the two query counts are int64 device scalars.
+    Returns (status (lanes*n,) int32, waves, iters, queries_nodedup,
+    queries_dedup): ``waves`` is a host int, the rest (lanes,) int64
+    device tensors.  A lane counts the waves in which it had an undecided
+    vertex.  Query accounting per wave: every undecided vertex fetches the
+    status of each of its neighbours (no-dedup count); with caching each
+    *distinct* neighbour is fetched once per machine — the per-wave dedup
+    is one fetch per distinct queried vertex (paper Section 5.3).
     """
     dev = senders.device
+    N = lanes * n
     s_l, r_l = senders.long(), receivers.long()
     lower = rank[r_l] < rank[s_l]  # the snapshot never changes
-    status = torch.zeros(n, dtype=torch.int32, device=dev)
-    iters = 0
-    q0 = torch.zeros((), dtype=torch.int64, device=dev)
-    q1 = torch.zeros((), dtype=torch.int64, device=dev)
+    status = torch.zeros(N, dtype=torch.int32, device=dev)
+    waves = 0
+    iters, q0, q1 = (torch.zeros(lanes, dtype=torch.int64, device=dev)
+                     for _ in range(3))
     while host_read((status == UNKNOWN).any()):
-        status, s_unk = _mis_wave(status, s_l, r_l, lower, edge_ok, n)
+        iters += (status.view(lanes, n) == UNKNOWN).any(1)
+        status, s_unk = _mis_wave(status, s_l, r_l, lower, edge_ok, N)
         # queries: edges scanned this wave (sender undecided)
-        q0 += s_unk.sum()
-        # dedup: distinct receivers queried this wave (slot n drops)
-        probe = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-        probe[torch.where(s_unk, r_l, n)] = 1
-        q1 += probe[:n].sum()
-        iters += 1
-    return status, iters, q0, q1
+        q0 += s_unk.view(lanes, -1).sum(1)
+        # dedup: distinct receivers queried this wave (slot N drops)
+        probe = torch.zeros(N + 1, dtype=torch.int32, device=dev)
+        probe[torch.where(s_unk, r_l, N)] = 1
+        q1 += probe[:N].view(lanes, n).sum(1)
+        waves += 1
+    return status, waves, iters, q0, q1
 
 
 def _mis_fixpoint(senders, receivers, rank, n: int):
-    """Run the LFMIS fixpoint to completion (every edge lane valid).
-    Returns (status(n,), iters, queries_nodedup, queries_dedup)."""
-    return _mis_fixpoint_masked(
-        senders, receivers, rank, n,
+    """Run the LFMIS fixpoint on one graph (every edge lane valid).
+    Returns (status(n,), iters as a host int, queries_nodedup,
+    queries_dedup as int64 device scalars)."""
+    status, waves, _, q0, q1 = _mis_fixpoint_lanes(
+        senders, receivers, rank, n, 1,
         torch.ones(senders.shape, dtype=torch.bool, device=senders.device))
+    return status, waves, q0[0], q1[0]

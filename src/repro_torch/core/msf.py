@@ -18,6 +18,12 @@ is what ``vmap`` of a ``while_loop`` computes.  Each wave reads its loop
 condition on the host once (counted in ``rounds.HOST_READS``).  Ties break as
 in the reference: ``argmin`` takes the first minimum and the lexicographic
 sort is stable.
+
+A ``solve_many`` bucket runs through the same loops on its offset-flattened
+lanes (lane b owns an equal range of vertices and edges): the waves of
+disjoint graphs do not interact, and ``lanes=`` makes the per-lane
+counters (doublings, phases, live vertices) equal their sequential
+values.
 """
 from __future__ import annotations
 
@@ -32,10 +38,13 @@ INT32_MAX = 2**31 - 1
 # --------------------------------------------------------------------------
 # Algorithm 1: truncated Prim
 # --------------------------------------------------------------------------
-def truncated_prim_capped(nbr, nbw, nbe, rank, budget: int, capacity: int):
+def truncated_prim_capped(nbr, nbw, nbe, rank, budget, capacity: int):
     """``truncated_prim`` with the buffer *capacity* decoupled from the
     stopping *budget* (``budget <= capacity``); extra slots stay at their
-    -1/inf fill, so outputs equal ``truncated_prim``'s.
+    -1/inf fill, so outputs equal ``truncated_prim``'s.  ``budget`` is an
+    int, or an (n,) tensor of per-vertex budgets: a ``solve_many`` bucket
+    gives each lane's vertices their own graph's budget under the bucket's
+    shared capacity.
 
     The per-lane state (visited set, output slots, frontier) lives in
     (n, capacity) and (n, D * capacity) tensors updated in place; each wave
@@ -104,9 +113,10 @@ def truncated_prim_capped(nbr, nbw, nbe, rank, budget: int, capacity: int):
         vcount[A] = vc + is_add
         fsize[A] = pos + D * is_add
 
+        bud = budget[A] if isinstance(budget, torch.Tensor) else budget
         new_case = torch.where(
             exhausted, 2, torch.where(
-                is_hook, 3, torch.where(is_add & (vc + 1 >= budget), 1, 0)))
+                is_hook, 3, torch.where(is_add & (vc + 1 >= bud), 1, 0)))
         case[A] = new_case.to(torch.int32)
         A = A[active_lanes(new_case == 0)]
         wave += 1
@@ -128,26 +138,35 @@ def truncated_prim(nbr, nbw, nbe, rank, budget: int):
 # --------------------------------------------------------------------------
 # Proposition 3.2: forest contraction by pointer jumping (in-round)
 # --------------------------------------------------------------------------
-def pointer_jump(parent: torch.Tensor):
-    """Iterated doubling to the root; returns (roots, num_doublings)."""
+def pointer_jump(parent: torch.Tensor, lanes=None):
+    """Iterated doubling to the root; returns (roots, num_doublings).
+
+    With ``lanes`` the forest is a ``solve_many`` bucket of that many
+    equal vertex ranges, and ``num_doublings`` is an (lanes,) int64 tensor:
+    each lane counts the doublings that moved one of its pointers, which
+    is its own sequential count."""
     p = parent
-    iters = 0
+    iters = 0 if lanes is None else torch.zeros(
+        lanes, dtype=torch.int64, device=parent.device)
     while True:
         nxt = p[p.long()]
-        if not host_read((nxt != p).any()):
+        moved = nxt != p
+        if not host_read(moved.any()):
             return p, iters
         p = nxt
-        iters += 1
+        iters = iters + (1 if lanes is None
+                         else moved.view(lanes, -1).any(1))
 
 
 # --------------------------------------------------------------------------
 # Contraction: relabel edges, drop self-loops, dedup (min weight per pair)
 # --------------------------------------------------------------------------
-def contract_edges(u, v, w, eid, valid, labels):
+def contract_edges(u, v, w, eid, valid, labels, lanes=None):
     """Relabel endpoints by ``labels``; self-loops invalidated; duplicate
     (cu, cv) pairs keep only the minimum-weight edge. Shapes are static; a
     boolean ``valid`` mask tracks liveness.  Returns (cu, cv, w, eid, valid,
-    n_live_vertices)."""
+    n_live_vertices); with ``lanes`` (a ``solve_many`` bucket of equal
+    label ranges) ``n_live_vertices`` is counted per lane."""
     cu = labels[u.long()]
     cv = labels[v.long()]
     lo = torch.minimum(cu, cv)
@@ -170,7 +189,8 @@ def contract_edges(u, v, w, eid, valid, labels):
     k32 = keep.to(torch.int32)
     live.scatter_reduce_(0, torch.where(keep, lo, 0).long(), k32, "amax")
     live.scatter_reduce_(0, torch.where(keep, hi, 0).long(), k32, "amax")
-    return cu, cv, w, eid, keep, live.sum()
+    n_live = live.sum() if lanes is None else live.view(lanes, -1).sum(1)
+    return cu, cv, w, eid, keep, n_live
 
 
 # --------------------------------------------------------------------------
@@ -209,10 +229,15 @@ def _component_min_edge(lu, lv, w, eid, valid, n):
     return min_eid, partner, has
 
 
-def boruvka_core(u, v, w, eid, valid, n_labels: int, max_eid: int):
+def boruvka_core(u, v, w, eid, valid, n_labels: int, max_eid: int,
+                 lanes=None):
     """Borůvka run to completion inside one round.
 
-    Returns (msf_mask over [0, max_eid), labels, phases)."""
+    Returns (msf_mask over [0, max_eid), labels, phases).  With ``lanes``
+    the graph is a ``solve_many`` bucket of that many equal label ranges,
+    and ``phases`` is an (lanes,) int64 tensor: a lane counts the phases
+    up to and including its first phase without a hook, its sequential
+    count (a lane without hooks keeps its labels from then on)."""
     n = n_labels
     dev = u.device
     labels0 = torch.arange(n, dtype=torch.int32, device=dev)
@@ -220,6 +245,9 @@ def boruvka_core(u, v, w, eid, valid, n_labels: int, max_eid: int):
     mask = torch.zeros(max_eid, dtype=torch.bool, device=dev)
     u_l, v_l = u.long(), v.long()
     phases = 0
+    if lanes is not None:
+        lane_phases = torch.zeros(lanes, dtype=torch.int64, device=dev)
+        done = torch.zeros(lanes, dtype=torch.bool, device=dev)
     while True:
         lu, lv = labels[u_l], labels[v_l]
         min_eid, partner, has = _component_min_edge(lu, lv, w, eid, valid, n)
@@ -236,8 +264,11 @@ def boruvka_core(u, v, w, eid, valid, n_labels: int, max_eid: int):
         mask |= selected[:max_eid]
         labels = roots[labels.long()]
         phases += 1
+        if lanes is not None:
+            lane_phases += ~done
+            done = ~has.view(lanes, -1).any(1)
         if not host_read(has.any()):
-            return mask, labels, phases
+            return mask, labels, (phases if lanes is None else lane_phases)
 
 
 boruvka_inround = boruvka_core

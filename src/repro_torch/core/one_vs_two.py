@@ -12,9 +12,9 @@ The port of the JAX package's ``repro.core.one_vs_two``.  The reference
 walks all n lanes and masks the unsampled ones out of every output; the
 port walks the sampled lanes alone, as one eager loop over the lanes still
 walking, with one host read a wave (``rounds.HOST_READS``).  Each lane
-stops at the step the reference's does.  The reference wraps its walk and
-count in ``runtime.retry.resilient_call``; the retry layer is not ported
-yet (ROADMAP queue 1, item 8), so the port calls them directly.
+stops at the step the reference's does.  As in the reference, the walk and
+the count go through ``runtime.retry.resilient_call``.  A ``solve_many``
+bucket walks its offset-flattened graphs in one loop (``lanes=``).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..graph.coo import UGraph
+from ..runtime.retry import resilient_call
 from .msf import boruvka_core
 from .rounds import active_lanes
 
@@ -73,11 +74,12 @@ def _walk(nbr, sampled, max_steps: int):
     return lanes, succ.view(2, k), steps.view(2, k), done.view(2, k)
 
 
-def _count_components(succ0, succ1, sampled, n: int):
+def _count_components(succ0, succ1, sampled, n: int, lanes=None):
     """Components of the contracted graph: arcs (v, succ[v]) per direction
     for the samples, resolved by in-round hook-and-contract; the count of
-    distinct labels among the samples (int64 device scalar).  ``succ0`` and
-    ``succ1`` are (n,), -1 where no walk arrived."""
+    distinct labels among the samples (int64 device scalar; per lane, an
+    (lanes,) tensor, when ``lanes`` equal vertex ranges share the call).
+    ``succ0`` and ``succ1`` are (n,), -1 where no walk arrived."""
     dev = sampled.device
     ids = torch.arange(n, dtype=torch.int32, device=dev)
     u_c = torch.cat([ids, ids])
@@ -89,19 +91,29 @@ def _count_components(succ0, succ1, sampled, n: int):
     _, labels, _ = boruvka_core(u_c, v_c, w_c, eid_c, valid, n, 2 * n)
     seen = torch.zeros(n + 1, dtype=torch.int32, device=dev)
     seen[torch.where(sampled, labels, n).long()] = 1
-    return seen[:n].sum()
+    return seen[:n].sum() if lanes is None else seen[:n].view(
+        lanes, -1).sum(1)
 
 
-def _walk_and_count(nbr, sampled, max_steps: int):
+def _walk_and_count(nbr, sampled, max_steps: int, lanes=None):
     """Walk from the samples, then count components.  Returns (ncomp,
-    total_steps, ok) as device scalars."""
+    total_steps, ok) as device scalars; with ``lanes`` (a ``solve_many``
+    bucket of that many offset-flattened graphs of equal vertex ranges) as
+    (lanes,) tensors, one entry a graph."""
     n = nbr.shape[0]
-    lanes, succ, steps, done = _walk(nbr, sampled, max_steps)
+    ids, succ, steps, done = resilient_call(_walk, nbr, sampled, max_steps)
     full = torch.full((2, n), -1, dtype=torch.int32, device=nbr.device)
-    full[:, lanes] = succ
-    ok = done.all()
-    ncomp = _count_components(full[0], full[1], sampled, n)
-    return ncomp, steps.sum(), ok
+    full[:, ids] = succ
+    ncomp = resilient_call(_count_components, full[0], full[1], sampled, n,
+                           lanes)
+    if lanes is None:
+        return ncomp, steps.sum(), done.all()
+    lane = ids // (n // lanes)
+    total = torch.zeros(lanes, dtype=torch.int64, device=nbr.device)
+    total.index_add_(0, lane, steps.sum(0))
+    missed = torch.zeros(lanes, dtype=torch.int64, device=nbr.device)
+    missed.index_add_(0, lane, (~done).sum(0))
+    return ncomp, total, missed == 0
 
 
 def _local_contraction_phase(a, b, parent, alive, rank):

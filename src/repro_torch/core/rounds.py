@@ -8,8 +8,10 @@ and a ``metrics`` registry (``repro_torch.obs``).
 Deferred accounting: a ledger queues DHT traffic records whose scalars may
 still be device tensors, and :meth:`RoundLedger.harvest` brings every
 pending record, together with the solver's output tensors, to the host in
-**one** device-to-host copy per solve.  Scalar counters are int64 on the device, so the byte counters the
-reference computes as int32 products cannot wrap here.
+**one** device-to-host copy per solve (:func:`harvest_many`: one per
+``solve_many`` bucket, for all its ledgers).  Scalar counters are int64 on
+the device, so the byte counters the reference computes as int32 products
+cannot wrap here.
 
 The reference runs its fixpoints as single device programs; the port's
 eager loops read their loop condition on the host once per wave instead.
@@ -21,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -133,6 +135,21 @@ class RoundLedger:
             yield
         self._count_shuffle(name, nbytes, time.perf_counter() - t0)
 
+    def record_shuffle(self, name: str, nbytes: int = 0,
+                       seconds: float = 0.0):
+        """Record one materialized round without timing a ``with`` block.
+
+        Used by batched (``solve_many``) launches, where one physical launch
+        serves many per-graph ledgers: each ledger records its own shuffle
+        entry with its share of the bytes and wall time.  With a tracer the
+        share becomes a retroactive span under the current open span.
+        """
+        tracer = self.tracer
+        if tracer is not None and tracer.enabled:
+            tracer.record_span(f"shuffle:{name}", dur_s=seconds,
+                               algorithm=self.algorithm, nbytes=int(nbytes))
+        self._count_shuffle(name, nbytes, seconds)
+
     def _count_shuffle(self, name: str, nbytes: int, seconds: float):
         self.shuffles += 1
         self.bytes_shuffled += int(nbytes)
@@ -242,6 +259,46 @@ class RoundLedger:
             "phase_times": {k: round(v, 4)
                             for k, v in self.phase_times.items()},
         }
+
+
+def _flatten(tree, leaves):
+    """Append ``tree``'s leaves (tuples and lists nest) to ``leaves``;
+    returns a function that rebuilds the tree from an iterator."""
+    if isinstance(tree, (tuple, list)):
+        builds = [_flatten(x, leaves) for x in tree]
+        kind = type(tree)
+        return lambda it: kind(b(it) for b in builds)
+    leaves.append(tree)
+    return lambda it: next(it)
+
+
+def harvest_many(ledgers: Sequence[Optional[RoundLedger]], extra=None):
+    """Harvest several ledgers in one device-to-host transfer.
+
+    The ``solve_many`` counterpart of :meth:`RoundLedger.harvest`: one
+    bucket launch queues records on every per-graph ledger, and the
+    engine drains them all, plus the batched outputs in ``extra`` (a
+    tensor, or tuples/lists of tensors, host values and ``None``), with a
+    single copy.  :data:`HARVEST_HOOK` fires once, with the ledger list.
+    Returns ``extra``'s host copy, numpy arrays in place of tensors.
+    """
+    ledgers = [led for led in ledgers if led is not None]
+    pending = [led.device.drain() for led in ledgers]
+    if not any(pending) and extra is None:
+        return None
+    if HARVEST_HOOK is not None:
+        HARVEST_HOOK(ledgers)
+    flat = [x for records in pending for rec, _ in records for x in rec]
+    leaves: List = []
+    rebuild = _flatten(extra, leaves)
+    host_all = _to_host(flat + leaves)
+    k = 0
+    for led, records in zip(ledgers, pending):
+        for _, span in records:
+            led._apply_queries(*(int(x) for x in host_all[k:k + 5]),
+                               span=span)
+            k += 5
+    return rebuild(iter(host_all[len(flat):]))
 
 
 def nbytes_of(*arrays) -> int:

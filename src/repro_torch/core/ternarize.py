@@ -8,13 +8,20 @@ removed from the output (their edge id is -1).
 
 Host-side numpy, array-equal to the JAX package's ``repro.core.ternarize``;
 the per-edge and per-vertex Python loops of the reference are vectorized.
+
+``ternarize_batch`` is the bucketable variant the ``solve_many`` adapters
+use: it ternarizes every graph of a shape bucket and pads the results to
+shared pow-2 ``(nt_bucket, mt_bucket)`` shapes with masked lanes, following
+``repro_torch.graph.batching``'s padding conventions.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Sequence
 
 import numpy as np
 
+from ..graph.batching import next_pow2
 from ..graph.coo import UGraph
 
 
@@ -79,3 +86,77 @@ def ternarize(g: UGraph) -> TernGraph:
     node_of = np.repeat(np.arange(n, dtype=np.int32), n_slots)
     tg = UGraph(n_tern, edges, weights)
     return TernGraph(tg, orig, node_of, n, m)
+
+
+@dataclasses.dataclass
+class TernBatch:
+    """One shape bucket of ternarized graphs, padded and stacked.
+
+    Padding conventions (mirroring ``repro_torch.graph.batching``):
+
+      * ``nbr``/``nbe`` pad with ``-1`` and ``nbw`` with ``+inf`` — a padded
+        tern vertex looks exhausted to truncated Prim on its first frontier
+        pop (1 query, case 2), which the adapters mask out of ``q_sum``;
+      * ``edges`` pad with ``(0, 0)`` and ``edge_mask`` False, so the
+        contraction invalidates them before they can join a component;
+      * ``orig_eid`` pads with ``-1`` (indistinguishable from dummy cycle
+        edges, which are filtered the same way);
+      * real tern vertices / edges occupy the prefix of every row, so
+        per-lane slices ``[:n_tern[b]]`` / ``[:m_tern[b]]`` recover the
+        sequential arrays exactly.
+    """
+
+    terns: List[TernGraph]   # per-graph host ternarizations (orig_eid maps)
+    nt_bucket: int
+    mt_bucket: int
+    n_tern: np.ndarray       # (B,) int64 real tern vertex counts
+    m_tern: np.ndarray       # (B,) int64 real tern edge counts
+    nbr: np.ndarray          # (B, nt_bucket, 3) int32, -1 pad
+    nbw: np.ndarray          # (B, nt_bucket, 3) f32, +inf pad
+    nbe: np.ndarray          # (B, nt_bucket, 3) int32, -1 pad
+    edges: np.ndarray        # (B, mt_bucket, 2) int32, (0, 0) pad
+    weights: np.ndarray      # (B, mt_bucket) f32, +inf pad
+    orig_eid: np.ndarray     # (B, mt_bucket) int32, -1 pad
+    edge_mask: np.ndarray    # (B, mt_bucket) bool
+    node_mask: np.ndarray    # (B, nt_bucket) bool
+
+    def __len__(self) -> int:
+        return len(self.terns)
+
+
+def ternarize_batch(graphs: Sequence[UGraph]) -> TernBatch:
+    """Ternarize a bucket of graphs into one padded :class:`TernBatch`.
+
+    The bucket shape is the next power of two over the largest ternarized
+    vertex/edge count in the batch, so one cached bucket solver serves
+    every occupant (and recurs across fleets whose ternarizations land in
+    the same bucket)."""
+    terns = [ternarize(g) for g in graphs]
+    B = len(terns)
+    nts = np.array([t.g.n for t in terns], np.int64)
+    mts = np.array([t.g.m for t in terns], np.int64)
+    ntb = next_pow2(int(nts.max()) if B else 1)
+    mtb = next_pow2(int(mts.max()) if B else 1)
+    nbr = np.full((B, ntb, 3), -1, np.int32)
+    nbw = np.full((B, ntb, 3), np.inf, np.float32)
+    nbe = np.full((B, ntb, 3), -1, np.int32)
+    edges = np.zeros((B, mtb, 2), np.int32)
+    weights = np.full((B, mtb), np.inf, np.float32)
+    orig_eid = np.full((B, mtb), -1, np.int32)
+    edge_mask = np.zeros((B, mtb), bool)
+    node_mask = np.zeros((B, ntb), bool)
+    for b, t in enumerate(terns):
+        nt, mt = t.g.n, t.g.m
+        bn, bw, be = t.g.padded_adj(3)
+        nbr[b, :nt] = bn
+        nbw[b, :nt] = bw
+        nbe[b, :nt] = be
+        edges[b, :mt] = t.g.edges
+        weights[b, :mt] = t.g.weights
+        orig_eid[b, :mt] = t.orig_eid
+        edge_mask[b, :mt] = True
+        node_mask[b, :nt] = True
+    return TernBatch(terns=terns, nt_bucket=ntb, mt_bucket=mtb,
+                     n_tern=nts, m_tern=mts, nbr=nbr, nbw=nbw, nbe=nbe,
+                     edges=edges, weights=weights, orig_eid=orig_eid,
+                     edge_mask=edge_mask, node_mask=node_mask)

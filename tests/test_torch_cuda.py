@@ -126,6 +126,51 @@ def test_cuda_solve_equals_cpu_solve(card, problem):
             assert got.ledger[key] == want.ledger[key], key
 
 
+def _ledger_counts(ledger):
+    return {k: v for k, v in ledger.items()
+            if k not in ("wall_time_s", "phase_times")}
+
+
+@pytest.mark.parametrize("problem", [
+    "mis", "matching", "weighted-matching", "vertex-cover", "msf",
+    "connectivity", "one-vs-two"])
+def test_cuda_serving_layers_equal_cpu(card, problem):
+    """``solve_many`` (no kernel launch), a cold and a warm session solve
+    (2 launches each for connectivity) and a submitted solve on the card,
+    each equal to the same call on the CPU."""
+    spec = registry.get(problem)
+    opts = {"p": 1 / 8} if problem == "one-vs-two" else {}
+    if spec.needs_cycles:
+        fleet = [gen.two_cycles(k) for k in (60, 90, 100, 300)]
+    else:
+        fleet = [gen.erdos_renyi(n, 4.0 if i % 2 else 40.0, seed=i)
+                 for i, n in enumerate((200, 240, 500, 700))]
+    if spec.needs_weights:
+        fleet = [g.with_random_weights(i) for i, g in enumerate(fleet)]
+    cpu = AmpcEngine(seed=0, device="cpu")
+    with AmpcEngine(seed=0, max_workers=2) as eng:
+        before = ops.dht_gather.launches
+        got = eng.solve_many(fleet, problem, **opts)
+        assert ops.dht_gather.launches == before
+        for g, w in zip(got, cpu.solve_many(fleet, problem, **opts)):
+            np.testing.assert_array_equal(g.output, w.output)
+            assert _field_eq(g.stats, w.stats)
+            assert _ledger_counts(g.ledger) == _ledger_counts(w.ledger)
+        sess, csess = eng.session(fleet[2]), cpu.session(fleet[2])
+        for _ in ("cold", "warm"):
+            before = ops.dht_gather.launches
+            got, want = sess.solve(problem, **opts), csess.solve(problem,
+                                                                 **opts)
+            assert ops.dht_gather.launches - before == \
+                (2 if problem == "connectivity" else 0)
+            np.testing.assert_array_equal(got.output, want.output)
+            assert _ledger_counts(got.ledger) == _ledger_counts(want.ledger)
+        fut = eng.submit(fleet[3], problem, **opts)
+        np.testing.assert_array_equal(
+            fut.result(timeout=300).output,
+            cpu.solve(fleet[3], problem, **opts).output)
+
+
 # ------------------------------------------------------------ flash attention
 # kernel against its plain version on the same inputs, element by element:
 # |got - want| <= atol + rtol |want|.  Both sum in f32 (the kernel by online

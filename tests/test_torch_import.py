@@ -46,7 +46,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.gnn.gin, repro_torch.data.graphs, "
             "repro_torch.configs.shapes, "
             "repro_torch.kernels.embedding_bag.ops, "
-            "repro_torch.models.sasrec, repro_torch.data.recsys; "
+            "repro_torch.models.sasrec, repro_torch.data.recsys, "
+            "repro_torch.ampc.async_engine, repro_torch.ampc.cache, "
+            "repro_torch.ampc.session, repro_torch.graph.batching, "
+            "repro_torch.runtime.retry; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "assert not bad, bad; print('ok')")
