@@ -69,6 +69,31 @@ CUDA toolkit.  It:
      still equal; a ``GraphSession.submit`` warm hit at rmat16; 2 launches
      a connectivity solve; ``engine_async_inflight`` back to 0 after
      shutdown;
+   * ``routed``: the routed DHT backend.  ``ShardedDHT(mesh=make_mesh(P))``
+     at 1 and 8 shards on the first connectivity solve's root-label read
+     (8,629,672 keys) and on SASRec's history read (65,536 step-0
+     histories of 50 into a seeded 1M x 50 f32 table), and at 8 shards
+     with a quarter of the exact capacity on that solve's first-slot read:
+     answered rows bit-equal to the local lookup's, the rest 0, the
+     distinct keys and overflows equal to a host count from the keys (the
+     starved read must overflow), each timed beside the local lookup.  Then,
+     with the launch counts set to 0 just before and read just after,
+     ``AmpcEngine(dht_backend=RoutedDht(make_mesh(8)))`` on mis, matching,
+     weighted-matching, vertex-cover, msf and connectivity at rmat20 and
+     one-vs-two on both cycle graphs (each output equal to the engine
+     phase's, the same shuffles, no overflow, at least its queries), the
+     default mesh (one shard a card) on connectivity (every counter equal
+     to the local solve's), a routed ``solve_many`` of the plain fleet, a
+     routed session's cold and warm connectivity solve and a routed
+     ``submit``, each equal to its local counterpart: no ``dht_gather``
+     launch, since the router answers by indexing.  Each solve's wall and
+     peak memory;
+   * ``eager``: ``deferred_accounting=False`` for mis (in turns with
+     deferred solves) and connectivity at rmat20: outputs and every counter
+     equal to the deferred solves', 2 launches a connectivity solve (an
+     eager local lookup still takes the kernel first); each solve's wall,
+     host reads, transfers (``rounds.TRANSFERS``) and harvests beside the
+     deferred ones;
 5. holds the flash-attention forward kernels against their plain version
    on the card, element by element (bf16 within 2^-7 of each output plus
    1e-3, f32 within 1e-5: the kernel sums in another order) at the LM
@@ -177,7 +202,8 @@ CUDA toolkit.  It:
    one bag to the next);
 13. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
-   (the engine's solves, the serving phases, the SASRec cells); the
+   (the engine's solves, the serving phases, the routed phase's 0, the
+   eager phase's 2, the SASRec cells); the
    flash forward: the first layer's own q, k, v, its kernel route and the
    SIMT kernel's time there; dq and dk/dv: the
    training path's shape, their route and the SIMT kernels' time there;
@@ -241,6 +267,11 @@ MANY_SOLVES = (("mis", "plain", {}), ("matching", "plain", {}),
                ("weighted-matching", "weighted", {}),
                ("msf", "weighted", {}), ("one-vs-two", "cycles", {}))
 ASYNC_GRAPHS = 8
+# the routed phase: the Table-3 problems at rmat20 (one-vs-two on the
+# cycles) over 8 shards, the reference test's virtual device count
+ROUTED_SHARDS = 8
+ROUTED_RMAT = ("mis", "matching", "weighted-matching", "vertex-cover", "msf",
+               "connectivity")
 # dense peaks of the H100 SXM data sheet: bf16 tensor cores, f32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # kernel vs plain version, element by element: |out - ref| <= atol + rtol
@@ -552,7 +583,10 @@ def engine_phase(g, gw, cycles):
     first; check each answer, the Table-3 counts and that each MPC
     baseline takes more shuffles than its AMPC problem.  Returns the main
     path's kernel launches, the kernel's rows on the connectivity solves'
-    own label maps, and each (graph, problem)'s first output."""
+    own label maps, each (graph, problem)'s first output, each solve's
+    ledger, wall, host reads and transfers by (graph, problem), and the
+    first connectivity solve's two reads (values and keys of its
+    root-label read, then of its first-slot read)."""
     import numpy as np
     import torch
     from repro_torch.ampc import AmpcEngine
@@ -578,11 +612,13 @@ def engine_phase(g, gw, cycles):
 
     eng.dht.lookup = recorded_lookup
     main_launches, solve_rows, shuffles, outputs = 0, [], {}, {}
+    solves, cc_reads = {}, []
     ops.dht_gather.launches = 0
 
     def solve(graph_name, graph, problem, rep, **opts):
         nonlocal main_launches
         launches0, reads0 = ops.dht_gather.launches, rounds.HOST_READS
+        transfers0 = rounds.TRANSFERS
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -600,9 +636,14 @@ def engine_phase(g, gw, cycles):
         check(launches == expect,
               f"{problem}: dht_gather launched {launches} times, "
               f"expected {expect}")
+        solves.setdefault((graph_name, problem), []).append({
+            "ledger": res.ledger, "wall_s": wall,
+            "host_reads": rounds.HOST_READS - reads0,
+            "transfers": rounds.TRANSFERS - transfers0})
         emit({"phase": "engine", "graph": graph_name, "problem": problem,
               "rep": rep, "wall_s": wall,
               "host_reads": rounds.HOST_READS - reads0,
+              "transfers": rounds.TRANSFERS - transfers0,
               "dht_gather_launches": launches,
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
               "ledger": res.ledger, "stats": jsonable(res.stats)})
@@ -616,6 +657,8 @@ def engine_phase(g, gw, cycles):
                                   table, keys, timed=rep == 0)
             emit({"phase": "kernel", "name": "dht_gather", **row})
             solve_rows.append(row)
+        if problem == "connectivity" and not cc_reads:
+            cc_reads.extend(reads)
         reads.clear()
         outputs.setdefault((graph_name, problem), res.output)
         return res.output
@@ -656,7 +699,7 @@ def engine_phase(g, gw, cycles):
     check(len(more) == 6, f"AMPC/MPC shuffle pairs: {sorted(more)}")
     emit({"phase": "engine_shuffles", "pairs": more})
     eng.dht.lookup = local_lookup
-    return main_launches, solve_rows, outputs
+    return main_launches, solve_rows, outputs, solves, cc_reads
 
 
 # --------------------------------------------------------------------------
@@ -890,6 +933,280 @@ def async_phase(fleet, g16):
           f"async phase: {launches} dht_gather launches for {cc_solves} "
           "connectivity solves")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase: the routed DHT backend (the all-to-all router over shards)
+# --------------------------------------------------------------------------
+def host_router(keys, n_rows, P, cap):
+    """What the router must give for ``keys`` (a host array) into
+    ``n_rows`` rows over ``P`` shards with ``cap`` slots an owner, counted
+    on the host: the rows and keys padded to the shard grid, each shard's
+    distinct keys, each key's slot in its owner's bucket.  Returns (the
+    shards' distinct keys summed, the overflows, which keys are answered)."""
+    import numpy as np
+    q = keys.shape[0]
+    q_local = -(-q // P)
+    size = -(-n_rows // P)
+    padded = np.full(q_local * P, -1, np.int64)
+    padded[:q] = keys
+    cap = cap or q_local
+    distinct = overflow = 0
+    answered = np.zeros(q_local * P, bool)
+    for p in range(P):
+        row = padded[p * q_local:(p + 1) * q_local]
+        uniq = np.unique(row[row >= 0])
+        own = uniq // size
+        slot = np.arange(uniq.shape[0]) - np.searchsorted(own, own)
+        distinct += uniq.shape[0]
+        overflow += int((slot >= cap).sum())
+        mine = answered[p * q_local:(p + 1) * q_local]
+        mine[:] = (np.isin(row, uniq[slot < cap]) if (slot >= cap).any()
+                   else row >= 0)
+    return distinct, overflow, answered[:q]
+
+
+def routed_case(name, values, keys, P, cap, local_out):
+    """``ShardedDHT(mesh=make_mesh(P), capacity=cap)`` on one read: its
+    answered rows bit-equal to the local lookup's, the rest 0; its
+    distinct count and overflows equal to the host's; timed."""
+    import torch
+    from repro_torch.core.dht import ShardedDHT, make_mesh
+    from repro_torch.core.rounds import RoundLedger
+
+    keys_h = keys.cpu().numpy()
+    distinct, overflow, answered = host_router(keys_h, values.shape[0], P,
+                                               cap)
+    led = RoundLedger(name, deferred=True)
+    torch.cuda.reset_peak_memory_stats()
+    out = ShardedDHT(values, ledger=led, mesh=make_mesh(P),
+                     capacity=cap).lookup(keys)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    led.harvest()
+    check(led.dht_queries == distinct,
+          f"{name} P {P}: {led.dht_queries} distinct keys, the host counts "
+          f"{distinct}")
+    check(led.dht_overflows == overflow,
+          f"{name} P {P}: {led.dht_overflows} overflows, the host counts "
+          f"{overflow}")
+    check(cap is not None or overflow == 0, f"{name} P {P} overflowed")
+    ans = torch.from_numpy(answered & (keys_h >= 0)).to(keys.device)
+    check(torch.equal(out[ans], local_out[ans]),
+          f"{name} P {P}: answered rows differ from the local lookup's")
+    check(not bool(out[~ans].any()),
+          f"{name} P {P}: an unanswered row is not 0")
+    del out, ans
+    timed = ShardedDHT(values, mesh=make_mesh(P), capacity=cap)
+    return {"read": name, "P": P, "capacity": cap, "Q": int(keys.shape[0]),
+            "rows": int(values.shape[0]),
+            "row_bytes": values[0].numel() * values.element_size(),
+            "n_unique": distinct, "overflow": overflow,
+            "answered": int(answered.sum()), "peak_mem_gib": peak,
+            "ms": time_ms(lambda: timed.lookup(keys), reps=5, warmup=1)}
+
+
+def routed_dht_level(cc_reads):
+    """``routed_lookup`` (through ``ShardedDHT``) at 1 and 8 shards on the
+    first cc solve's root-label read and on SASRec's history read (65,536
+    step-0 histories of 50 into a seeded 1M x 50 f32 table), and at 8
+    shards with a quarter of the exact capacity on the cc solve's
+    first-slot read (each shard's keys ascend, so most go to one owner and
+    overflow there); each beside the local lookup's time, on a
+    ``routed_dht`` line."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.dht import ShardedDHT
+    from repro_torch.data.recsys import RecStreamConfig, batch_at_step
+
+    dev = torch.device("cuda")
+    cfg = registry.get(REC_ARCH).config
+    gen = torch.Generator(dev).manual_seed(REC_PARAM_SEED)
+    table = torch.randn(cfg.n_items, cfg.embed_dim, device=dev,
+                        generator=gen) * 0.02
+    B = registry.get(REC_ARCH).shapes["train_batch"].global_batch
+    hist = torch.from_numpy(batch_at_step(RecStreamConfig(
+        cfg.n_items, cfg.seq_len, B, seed=REC_DATA_SEED),
+        0)[0].reshape(-1)).to(dev)
+    starved = -(-cc_reads[1][1].shape[0] // ROUTED_SHARDS) // 4
+    for name, (values, keys), caps in (
+            ("cc_roots", cc_reads[0], ((1, None), (ROUTED_SHARDS, None))),
+            ("cc_first_slot", cc_reads[1], ((ROUTED_SHARDS, starved),)),
+            ("sasrec_history", (table, hist),
+             ((1, None), (ROUTED_SHARDS, None)))):
+        keys = keys.to(torch.int32)
+        local = ShardedDHT(values)
+        local_out = local.lookup(keys)
+        local_ms = time_ms(lambda: local.lookup(keys), reps=5, warmup=1)
+        for P, cap in caps:
+            row = routed_case(name, values, keys, P, cap, local_out)
+            check(cap is None or row["overflow"] > 0,
+                  f"{name}: capacity {cap} starved no owner")
+            row["local_ms"] = local_ms
+            emit({"phase": "routed_dht", **row})
+        del local_out
+    del table, hist
+    torch.cuda.empty_cache()
+
+
+def routed_phase(g, gw, cycles, outputs, solves, fleet):
+    """The routed backend on the card.  ``AmpcEngine(dht_backend=
+    RoutedDht(make_mesh(8)))`` on the seven Table-3 problems (rmat20, the
+    2^24 cycles): each output equal to the engine phase's, the same
+    shuffles, no overflow, at least the local solve's queries.  The default
+    mesh (one shard a card) on connectivity: every counter equal to the
+    local solve's.  A routed ``solve_many`` of the plain fleet, a routed
+    session's cold and warm connectivity solve and a routed ``submit``, each
+    equal to its local counterpart.  The launch counts are set to 0 before
+    the routed solves and read after them: the router launches no
+    ``dht_gather``.  Returns that count."""
+    import numpy as np
+    import torch
+    from repro_torch.ampc import AmpcEngine, RoutedDht
+    from repro_torch.core.dht import make_mesh
+    from repro_torch.kernels.dht_gather import ops
+
+    def counts(ledger):
+        return {k: v for k, v in ledger.items()
+                if k not in ("wall_time_s", "phase_times")}
+
+    # the local counterparts of the serving checks, before the counts
+    local = AmpcEngine(dht_backend="local", seed=0)
+    many_want = [r.output for r in local.solve_many(fleet, "connectivity")]
+    submit_want = local.solve(fleet[0], "connectivity").output
+
+    eng = AmpcEngine(dht_backend=RoutedDht(make_mesh(ROUTED_SHARDS)), seed=0)
+    runs = [("rmat20", gw if p in ("msf", "weighted-matching") else g, p)
+            for p in ROUTED_RMAT] + [(name, graph, "one-vs-two")
+                                     for name, graph, _ in cycles]
+    ops.dht_gather.launches = 0
+    for graph_name, graph, problem in runs:
+        res, wall, reads, launches, peak = timed_call(
+            lambda: eng.solve(graph, problem))
+        want = solves[(graph_name, problem)][0]["ledger"]
+        emit({"phase": "routed", "graph": graph_name, "problem": problem,
+              "shards": ROUTED_SHARDS, "wall_s": wall,
+              "local_wall_s": [r["wall_s"]
+                               for r in solves[(graph_name, problem)]],
+              "host_reads": reads, "dht_gather_launches": launches,
+              "peak_mem_gib": peak, "ledger": res.ledger})
+        check(np.array_equal(res.output, outputs[(graph_name, problem)]),
+              f"routed {problem} on {graph_name} differs from the local "
+              "solve")
+        check(res.shuffles == want["shuffles"],
+              f"routed {problem}: {res.shuffles} shuffles, local "
+              f"{want['shuffles']}")
+        check(res.ledger["dht_overflows"] == 0,
+              f"routed {problem}: {res.ledger['dht_overflows']} overflows")
+        check(res.ledger["dht_queries"] >= want["dht_queries"],
+              f"routed {problem}: {res.ledger['dht_queries']} queries, "
+              f"fewer than the local solve's {want['dht_queries']}")
+
+    default = AmpcEngine(dht_backend="routed", seed=0)
+    res, wall, reads, launches, peak = timed_call(
+        lambda: default.solve(g, "connectivity"))
+    want = solves[("rmat20", "connectivity")][0]["ledger"]
+    emit({"phase": "routed", "graph": "rmat20", "problem": "connectivity",
+          "shards": torch.cuda.device_count(), "backend": repr(default.dht),
+          "wall_s": wall, "host_reads": reads,
+          "dht_gather_launches": launches, "peak_mem_gib": peak,
+          "ledger": res.ledger})
+    check(np.array_equal(res.output, outputs[("rmat20", "connectivity")]),
+          "routed connectivity on the default mesh differs")
+    check(counts(res.ledger) == counts(want),
+          f"routed connectivity on the default mesh: ledger {res.ledger}, "
+          f"local {want}")
+
+    many, wall, reads, launches, peak = timed_call(
+        lambda: eng.solve_many(fleet, "connectivity"))
+    check(all(np.array_equal(r.output, w) for r, w in zip(many, many_want)),
+          "routed solve_many differs from the local solve_many")
+    check(all(r.ledger["dht_overflows"] == 0 for r in many),
+          "routed solve_many overflowed")
+    row = {"phase": "routed_serving", "solve_many_graphs": len(fleet),
+           "solve_many_s": wall, "solve_many_peak_mem_gib": peak}
+    sess = eng.session(g)
+    for call, hit, n_shuffles in (("cold", False, 2), ("warm", True, 1)):
+        res, wall, reads, launches, peak = timed_call(
+            lambda: sess.solve("connectivity"))
+        check(np.array_equal(res.output,
+                             outputs[("rmat20", "connectivity")]),
+              f"routed session connectivity ({call}) differs")
+        check(res.stats["snapshot"]["hit"] is hit
+              and res.shuffles == n_shuffles,
+              f"routed session ({call}): snapshot {res.stats['snapshot']}, "
+              f"{res.shuffles} shuffles")
+        row.update({f"session_{call}_s": wall,
+                    f"session_{call}_peak_mem_gib": peak})
+    sess.invalidate()
+    with AmpcEngine(dht_backend=RoutedDht(make_mesh(ROUTED_SHARDS)), seed=0,
+                    max_workers=1) as pool:
+        res, wall, _, _, _ = timed_call(
+            lambda: pool.submit(fleet[0], "connectivity").result(
+                timeout=600))
+    check(np.array_equal(res.output, submit_want),
+          "the routed submit differs from the local solve")
+    row["submit_s"] = wall
+    launches = ops.dht_gather.launches
+    row["dht_gather_launches"] = launches
+    emit(row)
+    check(launches == 0,
+          f"the routed phase launched dht_gather {launches} times")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase: eager accounting (the deferred ledger's baseline)
+# --------------------------------------------------------------------------
+def eager_phase(g, outputs, solves):
+    """``deferred_accounting=False`` for mis and connectivity at rmat20:
+    outputs and every counter equal to the deferred solves'.  mis runs
+    deferred, eager, eager, deferred; connectivity once eager, beside the
+    engine phase's second (warm) deferred solve.  Each line has the wall,
+    the host reads, the transfers (``rounds.TRANSFERS``) and the harvests.
+    Returns the phase's ``dht_gather`` launches: 2 a connectivity solve,
+    since an eager local lookup still takes the kernel first."""
+    import numpy as np
+    from repro_torch.ampc import AmpcEngine
+    from repro_torch.core import rounds
+    from repro_torch.kernels.dht_gather import ops
+
+    engines = {"deferred": AmpcEngine(seed=0),
+               "eager": AmpcEngine(seed=0, deferred_accounting=False)}
+    ops.dht_gather.launches = 0
+    for problem, modes in (("mis", ("deferred", "eager", "eager",
+                                    "deferred")),
+                           ("connectivity", ("eager",))):
+        want = solves[("rmat20", problem)][-1]
+        rows = [{"mode": "deferred (engine phase)", "wall_s": want["wall_s"],
+                 "host_reads": want["host_reads"],
+                 "transfers": want["transfers"]}]
+        for mode in modes:
+            harvests = []
+            transfers0 = rounds.TRANSFERS
+            rounds.HARVEST_HOOK = harvests.append
+            try:
+                res, wall, reads, launches, peak = timed_call(
+                    lambda: engines[mode].solve(g, problem))
+            finally:
+                rounds.HARVEST_HOOK = None
+            check(np.array_equal(res.output, outputs[("rmat20", problem)]),
+                  f"{mode} {problem} differs from the engine phase's")
+            ledger = {k: v for k, v in res.ledger.items()
+                      if k not in ("wall_time_s", "phase_times")}
+            check(ledger == {k: want["ledger"][k] for k in ledger},
+                  f"{mode} {problem}: ledger {res.ledger}, deferred "
+                  f"{want['ledger']}")
+            expect = CC_LAUNCHES_PER_SOLVE if problem == "connectivity" \
+                else 0
+            check(launches == expect,
+                  f"{mode} {problem}: dht_gather launched {launches} times")
+            rows.append({"mode": mode, "wall_s": wall, "host_reads": reads,
+                         "transfers": rounds.TRANSFERS - transfers0,
+                         "harvests": len(harvests), "peak_mem_gib": peak})
+        emit({"phase": "eager", "graph": "rmat20", "problem": problem,
+              "solves": rows})
+    return ops.dht_gather.launches
 
 
 # --------------------------------------------------------------------------
@@ -2395,11 +2712,11 @@ def main() -> int:
     k = 2 ** (CYCLE_LOG2 - 1)
     cycles = [(f"two_cycles_2^{CYCLE_LOG2 - 1}", gen.two_cycles(k), 2),
               (f"one_cycle_2^{CYCLE_LOG2}", gen.one_cycle(2 * k), 1)]
-    launches, solve_rows, outputs = engine_phase(g, gw, cycles)
+    launches, solve_rows, outputs, solves, cc_reads = engine_phase(
+        g, gw, cycles)
     check(launches > 0, "the main path launched no dht_gather kernel")
     rows = solve_rows + rows
     serving_launches = {"sessions": sessions_phase(gw, cycles, outputs)}
-    del cycles, outputs
     t0 = time.perf_counter()
     fleets = serving_fleets()
     emit({"phase": "fleets", "seconds": time.perf_counter() - t0,
@@ -2408,11 +2725,24 @@ def main() -> int:
     serving_launches["solve_many_sequential"] = solve_many_phase(fleets)
     serving_launches["async"] = async_phase(
         fleets["plain"], gen.rmat(16, RMAT_DEG, seed=RMAT_SEED))
-    del fleets
     check(serving_launches["sessions"] > 0
           and serving_launches["async"] > 0,
           f"a serving phase launched no dht_gather kernel: "
           f"{serving_launches}")
+    t0 = time.perf_counter()
+    routed_dht_level(cc_reads)
+    del cc_reads
+    t1 = time.perf_counter()
+    serving_launches["routed"] = routed_phase(g, gw, cycles, outputs, solves,
+                                              fleets["plain"])
+    t2 = time.perf_counter()
+    serving_launches["eager"] = eager_phase(g, outputs, solves)
+    emit({"phase": "routed_and_eager_seconds", "routed_dht": t1 - t0,
+          "routed": t2 - t1, "eager": time.perf_counter() - t2})
+    check(serving_launches["eager"] == CC_LAUNCHES_PER_SOLVE,
+          f"the eager phase launched dht_gather "
+          f"{serving_launches['eager']} times")
+    del fleets, cycles, outputs, solves
 
     flash_rows = flash_phase()
     for row in flash_rows:

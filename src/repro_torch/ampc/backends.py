@@ -2,15 +2,17 @@
 
 The paper's AMPC model has one shared primitive: an immutable distributed
 hash table written by the previous round and queried adaptively inside the
-current one.  A backend binds a value tensor and a ledger into a
+current one.  ``core.dht`` runs it on two schedules, a local gather
+(``LocalDht``) and an explicit all-to-all router over shards
+(``RoutedDht``); both sit behind one ``DhtBackend`` protocol, so a solver
+issues lookups without knowing which schedule runs, and the ledger's
+counters (queries, bytes, dedup savings, waves, overflows) are kept the
+same way on both.  A backend binds a value tensor and a ledger into a
 ``core.dht.ShardedDHT`` snapshot, and every query goes through
 ``ShardedDHT.lookup`` — the single accounting choke point.
 ``lookup_many`` is the batched (``solve_many``) variant: one exchange
 serves a whole shape bucket, with per-graph query counts split by the
 padding mask.
-
-Only the ``local`` backend is ported; ``routed`` (the all-to-all router)
-waits for ROADMAP queue 1, item 9.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from typing import Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from ..core.dht import ShardedDHT
+from ..core.dht import ShardedDHT, make_mesh
 from ..core.rounds import RoundLedger
 from ..obs import trace as obs_trace
 
@@ -107,8 +109,8 @@ class _BackendBase:
             flat_keys = torch.where(mask, flat_keys, -1)
         # scratch ledger: captures the exchange's overflow count without
         # recording the query totals twice; they are re-attributed per
-        # graph below.  Its records stay device values.
-        scratch = RoundLedger("lookup_many")
+        # graph below.  Deferred, so its records stay device values.
+        scratch = RoundLedger("lookup_many", deferred=True)
         snap = self.snapshot(flat_vals, ledger=scratch,
                              value_bytes=value_bytes)
         out = snap.lookup(flat_keys.reshape(-1), dedup=dedup)
@@ -145,17 +147,55 @@ class LocalDht(_BackendBase):
         return "LocalDht()"
 
 
-def resolve_backend(spec) -> DhtBackend:
-    """Map ``"local" | DhtBackend-instance`` to a backend object."""
+class RoutedDht(_BackendBase):
+    """Explicit router DHT: dedup -> bucket by owner -> all-to-all ->
+    answer (``core.dht.routed_lookup``), the collective schedule an RDMA KV
+    store replaces (paper Section 5).
+
+    ``mesh`` (a ``core.dht.DhtMesh``) names the shards on ``axis_name``.
+    Without one, a snapshot takes one shard per device of its values' kind:
+    ``torch.cuda.device_count()`` for CUDA values, 1 for host values.
+    ``capacity`` is the slots a shard has for each owner (default: exact).
+    """
+
+    name = "routed"
+
+    def __init__(self, mesh=None, axis_name: Optional[str] = None,
+                 capacity: Optional[int] = None):
+        self.mesh = mesh
+        self.axis_name = axis_name or (mesh.axis_names[0] if mesh is not None
+                                       else "dht")
+        self.capacity = capacity
+
+    def _mesh_for(self, values: torch.Tensor):
+        if self.mesh is not None:
+            return self.mesh
+        return make_mesh(torch.cuda.device_count() if values.is_cuda else 1,
+                         self.axis_name)
+
+    def snapshot(self, values, ledger=None,
+                 value_bytes: Optional[int] = None) -> ShardedDHT:
+        values = torch.as_tensor(values)
+        return ShardedDHT(values, ledger=ledger, value_bytes=value_bytes,
+                          mesh=self._mesh_for(values),
+                          axis_name=self.axis_name, capacity=self.capacity)
+
+    def __repr__(self):
+        shards = (self.mesh.shape[self.axis_name] if self.mesh is not None
+                  else "per device")
+        return f"RoutedDht(axis={self.axis_name!r}, shards={shards!r})"
+
+
+def resolve_backend(spec, mesh=None) -> DhtBackend:
+    """Map ``"local" | "routed" | DhtBackend-instance`` to a backend object;
+    ``mesh`` goes to the routed one."""
     if isinstance(spec, str):
         if spec == "local":
             return LocalDht()
         if spec == "routed":
-            raise NotImplementedError(
-                "dht_backend='routed' is not ported to repro_torch yet "
-                "(ROADMAP.md queue 1, item 9)")
+            return RoutedDht(mesh=mesh)
         raise ValueError(
-            f"unknown dht_backend {spec!r}; expected 'local' or a "
+            f"unknown dht_backend {spec!r}; expected 'local', 'routed', or a "
             "DhtBackend instance")
     if isinstance(spec, DhtBackend):
         return spec

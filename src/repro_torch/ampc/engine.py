@@ -8,8 +8,10 @@
     res.stats                   # algorithm-specific stats, stable key names
 
 The port of the JAX package's ``repro.ampc.engine``: the engine owns the
-``RoundLedger`` (one per solve, summarized on the result), the DHT backend
-and the seed/epsilon defaults, and resolves problems through
+``RoundLedger`` (one per solve, summarized on the result; deferred, with
+one harvest a solve, unless ``deferred_accounting=False``), the DHT backend
+(the local gather or the all-to-all router, with the same accounting) and
+the seed/epsilon defaults, and resolves problems through
 :mod:`repro_torch.ampc.registry`.  It runs on ``"cuda"`` unless the caller
 passes another ``device`` (the tests pass ``device="cpu"``).
 
@@ -26,8 +28,6 @@ The serving layers come with it, as in the reference:
   * ``submit`` / ``submit_many`` / ``shutdown``
     (:mod:`repro_torch.ampc.async_engine`) serve solves from a bounded
     worker pool, with device work serialized by one launch lock.
-
-Not ported yet: the routed backend (ROADMAP queue 1, item 9).
 """
 from __future__ import annotations
 
@@ -115,6 +115,7 @@ class SolveContext:
     seed: int
     epsilon: float
     device: torch.device
+    mesh: Any = None
 
 
 @dataclasses.dataclass
@@ -135,6 +136,7 @@ class BatchSolveContext:
     device: torch.device
     problem: str = ""
     backend_name: str = ""
+    mesh: Any = None
 
     def solver_key(self, batch, *extra):
         """Cache key for this bucket's solver.  ``extra`` captures options
@@ -148,7 +150,10 @@ class AmpcEngine(AsyncEngineMixin):
 
     Parameters
     ----------
-    dht_backend:  ``"local"`` or a ``DhtBackend`` instance.
+    mesh:         a ``repro_torch.core.dht.DhtMesh`` handed to the routed
+                  backend (one shard a device of the values' kind when
+                  omitted).
+    dht_backend:  ``"local"`` | ``"routed"`` | a ``DhtBackend`` instance.
     epsilon:      the paper's space exponent (per-machine space n^ε).
     seed:         default randomness for rank permutations.
     trace:        ``True`` → record every solve as a span tree on a fresh
@@ -168,17 +173,26 @@ class AmpcEngine(AsyncEngineMixin):
     serialize_launches: hold one engine-wide lock around every solve's and
                   bucket's device work, so concurrent async solves overlap
                   host-side phases but never race on the device.
+    deferred_accounting: ``True`` (default) → per-solve ledgers queue DHT
+                  counters on the device and a solve makes one
+                  device-to-host harvest (one a ``solve_many`` bucket);
+                  ``False`` → eager ledgers: every lookup copies its counts
+                  to the host at once, and a harvest copies leaf by leaf.
+                  Outputs and counters are the same either way.
     """
 
-    def __init__(self, dht_backend="local", epsilon: float = 0.5,
+    def __init__(self, mesh=None, dht_backend="local", epsilon: float = 0.5,
                  seed: int = 0, *, trace=None, metrics=None,
                  record_events: Optional[bool] = None, device=None,
                  max_workers: int = 4, queue_depth: Optional[int] = None,
-                 serialize_launches: bool = True):
+                 serialize_launches: bool = True,
+                 deferred_accounting: bool = True):
         self.device = resolve_device(device, "AmpcEngine")
-        self.dht = resolve_backend(dht_backend)
+        self.mesh = mesh
+        self.dht = resolve_backend(dht_backend, mesh=mesh)
         self.epsilon = float(epsilon)
         self.seed = int(seed)
+        self.deferred_accounting = bool(deferred_accounting)
         self.tracer = obs_trace.as_tracer(trace)
         self.metrics = obs_metrics.as_registry(metrics)
         self.record_events = record_events
@@ -196,7 +210,8 @@ class AmpcEngine(AsyncEngineMixin):
         return RoundLedger(
             f"{spec.model}_{spec.name}",
             tracer=tracer if tracer.enabled else None,
-            metrics=self.metrics, record_events=record_events)
+            metrics=self.metrics, record_events=record_events,
+            deferred=self.deferred_accounting)
 
     def _observe_solve(self, spec, wall: float, mode: str) -> None:
         m = self.metrics
@@ -240,7 +255,7 @@ class AmpcEngine(AsyncEngineMixin):
             ledger=ledger, dht=self.dht,
             seed=self.seed if seed is None else int(seed),
             epsilon=self.epsilon if epsilon is None else float(epsilon),
-            device=self.device)
+            device=self.device, mesh=self.mesh)
         tracer = self.tracer
         span = None
         t0 = time.perf_counter()
@@ -315,14 +330,15 @@ class AmpcEngine(AsyncEngineMixin):
         # B copies of every shuffle span — the per-graph share is attached
         # afterwards, from each ledger's phase_times.
         ledgers = [RoundLedger(f"{spec.model}_{spec.name}",
-                               metrics=self.metrics, record_events=rec)
+                               metrics=self.metrics, record_events=rec,
+                               deferred=self.deferred_accounting)
                    for _ in range(len(batch))]
         bctx = BatchSolveContext(
             ledgers=ledgers, dht=self.dht,
             seed=self.seed if seed is None else int(seed),
             epsilon=self.epsilon if epsilon is None else float(epsilon),
             cache=self._solver_cache, device=self.device,
-            problem=spec.name, backend_name=self.dht.name)
+            problem=spec.name, backend_name=self.dht.name, mesh=self.mesh)
         bspan = tracer.span(
             "bucket", problem=spec.name, n_bucket=batch.n_bucket,
             m_bucket=batch.m_bucket, batch_size=len(batch)) \

@@ -5,13 +5,19 @@ The same ledger model as the JAX package's ``repro.core.rounds``: a
 queries and DHT bytes but not shuffles.  A ledger may carry a ``tracer``
 and a ``metrics`` registry (``repro_torch.obs``).
 
-Deferred accounting: a ledger queues DHT traffic records whose scalars may
-still be device tensors, and :meth:`RoundLedger.harvest` brings every
-pending record, together with the solver's output tensors, to the host in
-**one** device-to-host copy per solve (:func:`harvest_many`: one per
-``solve_many`` bucket, for all its ledgers).  Scalar counters are int64 on
-the device, so the byte counters the reference computes as int32 products
-cannot wrap here.
+Two accounting modes, as in the reference.  A ledger created with
+``deferred=True`` queues DHT traffic records whose scalars may still be
+device tensors, and :meth:`RoundLedger.harvest` brings every pending
+record, together with the solver's output tensors, to the host in **one**
+device-to-host copy per solve (:func:`harvest_many`: one per
+``solve_many`` bucket, for all its ledgers); the engine builds its ledgers
+so.  A bare ``RoundLedger()`` keeps ``deferred=False``: every record is
+applied when it is made, in one copy, so its counters can be read right
+after the lookup that produced them, and a harvest copies its ``extra``
+leaf by leaf (the eager baseline).  The
+copies both modes make are counted in :data:`TRANSFERS`.  Scalar counters
+are int64 on the device, so the byte counters the reference computes as
+int32 products cannot wrap here.
 
 The reference runs its fixpoints as single device programs; the port's
 eager loops read their loop condition on the host once per wave instead.
@@ -35,6 +41,11 @@ HARVEST_HOOK: Any = None
 # Host reads made by the eager fixpoint loops to decide whether to run
 # another wave (see :func:`host_read` / :func:`active_lanes`).
 HOST_READS = 0
+
+# Device-to-host copies made for the accounting: a harvest's one copy
+# (eager: one a leaf), an eager record's one copy, and the two reads of an
+# eager local lookup (``core.dht``).  See :func:`to_host`.
+TRANSFERS = 0
 
 
 def host_read(x: torch.Tensor):
@@ -78,17 +89,20 @@ class DeviceCounters:
         return f"DeviceCounters(pending={len(self.records)})"
 
 
-def _to_host(leaves):
-    """Copy a list of leaves to the host in one transfer.
+def to_host(leaves):
+    """Copy a list of leaves to the host in one transfer (counted in
+    :data:`TRANSFERS`).
 
     Tensor leaves (all on one device) are packed as raw bytes into one
     buffer and copied with a single ``.cpu()``; other leaves pass through.
     Returns numpy arrays (0-d for scalars) in leaf order.
     """
+    global TRANSFERS
     out = list(leaves)
     idx = [i for i, x in enumerate(leaves) if isinstance(x, torch.Tensor)]
     if not idx:
         return out
+    TRANSFERS += 1
     tensors = [leaves[i].detach().contiguous() for i in idx]
     host = torch.cat([t.reshape(-1).view(torch.uint8)
                       for t in tensors]).cpu().numpy()
@@ -118,7 +132,8 @@ class RoundLedger:
     tracer: Any = dataclasses.field(repr=False, compare=False, default=None)
     metrics: Any = dataclasses.field(repr=False, compare=False, default=None)
     record_events: bool = dataclasses.field(compare=False, default=True)
-    # pending DHT records (device scalars), harvested once per solve
+    # deferred accounting: queue device scalars, harvest once per solve
+    deferred: bool = dataclasses.field(compare=False, default=False)
     device: DeviceCounters = dataclasses.field(
         repr=False, compare=False, default_factory=DeviceCounters)
 
@@ -176,10 +191,15 @@ class RoundLedger:
                                 deduped_away=0, overflow=0):
         """Record DHT traffic without leaving the device.
 
-        Arguments may be device tensors; they are queued untouched and
-        materialized by :meth:`harvest`.
+        Arguments may be device tensors.  On a ``deferred=True`` ledger
+        they are queued untouched and materialized by :meth:`harvest`.  On
+        an eager ledger the record is applied now, in one transfer, so the
+        counters can be read right after the lookup that produced them.
         """
         record = (n_queries, nbytes, waves, deduped_away, overflow)
+        if not self.deferred:
+            self._apply_queries(*(int(x) for x in to_host(list(record))))
+            return
         span = None
         tracer = self.tracer
         if tracer is not None and tracer.enabled:
@@ -193,8 +213,12 @@ class RoundLedger:
         caller wants on the host (solver outputs, counters); its host copy
         is returned with numpy arrays in place of tensors.  This is the
         *one* device-to-host copy a solve makes: :data:`HARVEST_HOOK`
-        fires once per transfer.  With nothing pending and no ``extra`` the
+        fires once per harvest.  With nothing pending and no ``extra`` the
         call is free.
+
+        On an eager (``deferred=False``) ledger the records were applied
+        when they were made, and ``extra`` is copied leaf by leaf, one
+        transfer each: the eager baseline, not a half-deferred hybrid.
         """
         records = self.device.drain()
         if not records and extra is None:
@@ -203,8 +227,11 @@ class RoundLedger:
             HARVEST_HOOK(self)
         single = extra is not None and not isinstance(extra, (tuple, list))
         leaves = [] if extra is None else ([extra] if single else list(extra))
+        if not self.deferred and extra is not None:
+            host = [to_host([leaf])[0] for leaf in leaves]
+            return host[0] if single else tuple(host)
         flat = [x for rec, _ in records for x in rec]
-        host_all = _to_host(flat + leaves)
+        host_all = to_host(flat + leaves)
         host = host_all[len(flat):]
         for k, (_, span) in enumerate(records):
             self._apply_queries(
@@ -280,7 +307,9 @@ def harvest_many(ledgers: Sequence[Optional[RoundLedger]], extra=None):
     engine drains them all, plus the batched outputs in ``extra`` (a
     tensor, or tuples/lists of tensors, host values and ``None``), with a
     single copy.  :data:`HARVEST_HOOK` fires once, with the ledger list.
-    Returns ``extra``'s host copy, numpy arrays in place of tensors.
+    Returns ``extra``'s host copy, numpy arrays in place of tensors.  A
+    bucket of eager ledgers copies ``extra`` leaf by leaf instead (see
+    :meth:`RoundLedger.harvest`).
     """
     ledgers = [led for led in ledgers if led is not None]
     pending = [led.device.drain() for led in ledgers]
@@ -288,10 +317,12 @@ def harvest_many(ledgers: Sequence[Optional[RoundLedger]], extra=None):
         return None
     if HARVEST_HOOK is not None:
         HARVEST_HOOK(ledgers)
-    flat = [x for records in pending for rec, _ in records for x in rec]
     leaves: List = []
     rebuild = _flatten(extra, leaves)
-    host_all = _to_host(flat + leaves)
+    if not any(pending) and not any(led.deferred for led in ledgers):
+        return rebuild(iter([to_host([leaf])[0] for leaf in leaves]))
+    flat = [x for records in pending for rec, _ in records for x in rec]
+    host_all = to_host(flat + leaves)
     k = 0
     for led, records in zip(ledgers, pending):
         for _, span in records:

@@ -171,6 +171,36 @@ def test_cuda_serving_layers_equal_cpu(card, problem):
             cpu.solve(fleet[3], problem, **opts).output)
 
 
+@pytest.mark.parametrize("problem", [
+    "mis", "matching", "weighted-matching", "vertex-cover", "msf",
+    "connectivity", "one-vs-two"])
+def test_cuda_routed_and_eager_solves_equal_cpu(card, problem):
+    """A routed solve over 8 shards on the card (no kernel launch: the
+    router answers by indexing) and an eager solve on the card, each equal
+    to the same solve on the CPU, counters included."""
+    from repro_torch.core.dht import make_mesh
+    spec = registry.get(problem)
+    opts = {"p": 1 / 8} if problem == "one-vs-two" else {}
+    g = gen.two_cycles(500) if spec.needs_cycles else gen.rmat(10, 8.0,
+                                                               seed=1)
+    if spec.needs_weights:
+        g = g.with_random_weights(2)
+    for kw in ({"mesh": make_mesh(8), "dht_backend": "routed"},
+               {"deferred_accounting": False}):
+        want = AmpcEngine(seed=0, device="cpu", **kw).solve(g, problem,
+                                                            **opts)
+        before = ops.dht_gather.launches
+        got = AmpcEngine(seed=0, **kw).solve(g, problem, **opts)
+        launches = ops.dht_gather.launches - before
+        routed = "mesh" in kw
+        assert launches == (2 if problem == "connectivity" and not routed
+                            else 0)
+        np.testing.assert_array_equal(got.output, want.output)
+        assert _field_eq(got.stats, want.stats)
+        assert _ledger_counts(got.ledger) == _ledger_counts(want.ledger)
+        assert got.ledger["dht_overflows"] == 0
+
+
 # ------------------------------------------------------------ flash attention
 # kernel against its plain version on the same inputs, element by element:
 # |got - want| <= atol + rtol |want|.  Both sum in f32 (the kernel by online

@@ -203,13 +203,13 @@ def test_sharded_dht_default_impl_follows_the_device():
 
 
 def test_lookups_queue_their_counts_until_one_harvest():
-    """Lookups leave their counts on the device; one harvest reads every
-    queued record and the caller's tensors, and the totals equal the JAX
-    ledger's over the same lookups."""
+    """On a deferred ledger lookups leave their counts on the device; one
+    harvest reads every queued record and the caller's tensors, and the
+    totals equal the JAX ledger's over the same lookups."""
     values = _table(300, 1, np.int32).reshape(-1)
     batches = [_keys("padding_and_oob", 300, 800),
                _keys("block_edge_runs", 300, 640, seed=2)]
-    jl, tl = JLedger("j", deferred=True), TLedger("t")
+    jl, tl = JLedger("j", deferred=True), TLedger("t", deferred=True)
     j_dht = jdht.ShardedDHT(jnp.asarray(values), ledger=jl, impl="take")
     t_dht = tdht.ShardedDHT(torch.from_numpy(values), ledger=tl, impl="cuda")
     j_outs = [j_dht.lookup(jnp.asarray(k)) for k in batches]

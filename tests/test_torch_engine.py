@@ -213,10 +213,12 @@ def test_unported_surface_names_its_roadmap_item():
     g = graph_from_arrays(3, np.array([[0, 1], [1, 2]]))
     with pytest.raises(KeyError, match="unknown problem"):
         eng.solve(g, "no-such-problem")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AmpcEngine(dht_backend="routed", device="cpu")
-    # the serving layers are ported: each gives the solve's answer
+    # the serving layers and the routed backend are ported: each gives the
+    # solve's answer
     want = eng.solve(g, "mis").output
+    routed = AmpcEngine(dht_backend="routed", device="cpu").solve(g, "mis")
+    assert routed.backend == "routed"
+    np.testing.assert_array_equal(routed.output, want)
     with AmpcEngine(device="cpu") as served:
         for res in (served.solve_many([g], "mis")[0],
                     served.session(g).solve("mis"),

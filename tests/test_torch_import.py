@@ -50,6 +50,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.ampc.async_engine, repro_torch.ampc.cache, "
             "repro_torch.ampc.session, repro_torch.graph.batching, "
             "repro_torch.runtime.retry; "
+            "from repro_torch.ampc import RoutedDht; "
+            "from repro_torch.core.dht import DhtMesh, make_mesh, "
+            "routed_lookup; "
+            "from repro_torch.core.rounds import TRANSFERS; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'repro')]; "
             "assert not bad, bad; print('ok')")
