@@ -144,7 +144,24 @@ CUDA toolkit.  It:
 9. holds every gradient of a 4-layer qwen3-4b (full widths, B 1, S 1024,
    f32, TF32 off) through the kernels against the same gradients through
    ``attention_impl="xla"`` and against ``remat="full"``;
-10. trains gin-tu at full width (5 layers, d_hidden 64, f32, d_feat 602,
+10. serves qwen3-4b at full width and depth with seeded bf16 weights
+   (``launch.serve.serve`` and ``launch.steps.lm_decode_step``, the
+   launch counts set to 0 just before each run and read just after: no
+   kernel, the reference's xla branches): ``LM_SHAPES["prefill_32k"]`` cut
+   to B 1 (a 32,768-token prompt, the chunked attention; 16 generated
+   tokens), then ``decode_32k`` cut to B 8 (that prompt's cache copied
+   into 8 rows of a zero-filled 32,768 + 16 slot cache, 36 GiB; 16 decode
+   steps, row 0 fed serve's first token and held to serve's logits within
+   ``SERVE_ROW_DRIFT``); in f32 with TF32 off on the same weights,
+   ``decode_step`` after ``prefill`` against the forward's last logits at
+   S 1024 within 1e-3 of the largest, and ``attention_xla_chunked`` with
+   and without static skipping against ``attention_xla`` on layer 0's own
+   q, k, v at S 4096 within 1e-5; then gemma3-12b (bf16) ``serve`` at a
+   4,096-token prompt (its local layers' window of 1024 in prefill and
+   decode).  Prints the prefill wall and tokens/s, decode ms a step and
+   tokens/s, and peak memory of each run (long_500k is cut: gemma3's
+   global layers need a 206 GB cache at B 1);
+11. trains gin-tu at full width (5 layers, d_hidden 64, f32, d_feat 602,
    AdamW of the reference's ``specs._opt_cfg()``) on ``minibatch_lg``
    blocks: ``rmat(18, 437)`` (2^18 vertices, 78,980,768 directed edges),
    seeded standard-normal features put on the card once, 1024 seeds and
@@ -164,7 +181,27 @@ CUDA toolkit.  It:
    plain version and ``embedding_bag`` + ``matmul``.  Prints the host sampling,
    feature gather and step times, seeds/s, peak memory, and the last
    step's device time by kind of kernel (``torch.profiler``);
-11. drives SASRec at full size (the registry's ``sasrec``: 1,000,000
+12. trains the other GNN cells of the registry (arch x ``GNN_SHAPES``) at
+   full width, f32, TF32 off: gcn-cora on molecule (``molecules(128,
+   30)``, 64 features), full_graph_sm (``cora_like()``), minibatch_lg (the
+   gin phase's 1024-seed blocks) and ogb_products (``products_like`` at
+   ogbn-products' counts: 2^22 vertices, 118,565,366 directed edges);
+   gin-tu on molecule, full_graph_sm and ogb_products; schnet and mace on
+   molecule, full_graph_sm and minibatch_lg (seeded positions in a 3-unit
+   cube and species where the builder has none; seeded labels as
+   ``specs._gnn_batch_struct`` shapes them).  Each: one
+   ``gnn_forward_step`` and 3 ``gnn_train_step``s, the launch counts set
+   to 0 just before each and read just after (5 ``segment_matmul``
+   launches for GIN, none for the others), finite outputs, losses and
+   parameters, every parameter changed, the step walls and peak memory;
+   the small cells held against the port's CPU model (forward, loss, every
+   gradient within 1e-4 of the largest element) and MACE's molecule
+   energies against a seeded rotation plus translation (2e-4).  Where the
+   f32 sum of the gradient's squares overflows (gin-tu on ogb_products)
+   the grad norm is inf, as in the reference, and the step only decays.
+   schnet and mace on ogb_products are cut (their edge tensors need 148
+   and 570 GB);
+13. drives SASRec at full size (the registry's ``sasrec``: 1,000,000
    items, d 50, 2 blocks, 1 head, seq 50; f32 parameters from seed 0) on
    the cells of ``REC_SHAPES``, every call with the launch counts set to 0
    just before and read just after: ``serve_p99`` (``rec_serve_step`` at B
@@ -184,7 +221,7 @@ CUDA toolkit.  It:
    batch's histories (3,276,800 keys into the trained table; its wrapper
    one kernel beyond the sort) and on one ``serve_bulk`` call's candidates
    (33,554,432 keys, 6.7 GB of rows), each timed alone;
-12. calls ``embedding_bag`` (the op's own entry point; no model of either
+14. calls ``embedding_bag`` (the op's own entry point; no model of either
    package reaches it) on the trained item table with step 0's 65,536
    histories as bags, the counts set to 0 just before and read just after:
    one launch.  The kernel is held against its plain version bit for bit
@@ -200,7 +237,7 @@ CUDA toolkit.  It:
    (``sector_bytes``) and the same counted bag by bag
    (``bag_sector_bytes``: what HBM serves when no row stays in L2 from
    one bag to the next);
-13. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+15. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
    (the engine's solves, the serving phases, the routed phase's 0, the
    eager phase's 2, the SASRec cells); the
@@ -208,7 +245,8 @@ CUDA toolkit.  It:
    SIMT kernel's time there; dq and dk/dv: the
    training path's shape, their route and the SIMT kernels' time there;
    segment_matmul: GIN layer 0's own inputs in the
-   forward; embedding_bag: the trained item table and step 0's histories)
+   forward, with its launches by phase (the gin phase's and the
+   ``gnn_models`` GIN cells'); embedding_bag: the trained item table and step 0's histories)
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and the last line is
@@ -313,6 +351,47 @@ GNN_STEPS = 3
 # 2 D 2^-24 of its sum of |terms|, carried through 5 layers and a sum over
 # 169,984 nodes: |a - b| <= GNN_RTOL max |b|
 GNN_RTOL = 1e-4
+# gnn_models: every GNN cell of the registry (arch x GNN_SHAPES) but gin-tu x
+# minibatch_lg (the gnn phase's), at full width; the two no card can hold
+# are cut
+GNN_MODEL_CELLS = (("gcn-cora", "molecule"), ("gin-tu", "molecule"),
+                   ("schnet", "molecule"), ("mace", "molecule"),
+                   ("gcn-cora", "full_graph_sm"), ("gin-tu", "full_graph_sm"),
+                   ("schnet", "full_graph_sm"), ("mace", "full_graph_sm"),
+                   ("gcn-cora", "minibatch_lg"), ("schnet", "minibatch_lg"),
+                   ("mace", "minibatch_lg"), ("gcn-cora", "ogb_products"),
+                   ("gin-tu", "ogb_products"))
+GNN_MODEL_CUTS = {
+    ("schnet", "ogb_products"): "123.7M directed edges: the (E, 300) f32 RBF "
+    "alone is 148 GB",
+    ("mace", "ogb_products"): "123.7M directed edges: each (E, 128, 3, 3) "
+    "f32 edge tensor is 570 GB"}
+# ogbn-products' counts; products_like rounds the vertices up to 2^22
+GNN_PRODUCTS = dict(n_nodes=2_449_029, avg_deg=29.5, d_feat=100,
+                    n_classes=47)
+GNN_MOLECULE_FEAT = 64          # specs._gnn_lowerable's molecule width
+GNN_POSITION_BOX = 3.0          # positions uniform in a cube of this side
+GNN_MODEL_SEED = 3              # labels, positions, species, rotations
+# the small cells (molecule, full_graph_sm) on the card against the port's
+# own CPU model, f32 with TF32 off: index_add_ adds in atomic order on the
+# card, so forward, loss and gradients agree to |a - b| <= GNN_RTOL max |b|;
+# MACE's energies under a rotation plus translation within the reference
+# test's 2e-4 (1 + |e|)
+MACE_INVARIANCE_TOL = 2e-4
+# lm_serve: qwen3-4b's prefill_32k cut to B 1 (32 x 4.5 GiB of cache would
+# not fit) and decode_32k cut to B 8 (36 GiB of cache), 16 tokens each;
+# gemma3-12b at a 4,096-token prompt
+SERVE_PROMPT, SERVE_GEN, SERVE_DECODE_BATCH = 32768, 16, 8
+SERVE_TOKEN_SEED = 1
+SERVE_GEMMA, SERVE_GEMMA_PROMPT = "gemma3-12b", 4096
+# decode_32k's row 0 decodes serve's first token on the same prompt: bf16
+# at B 8 against B 1, within this share of the largest logit
+SERVE_ROW_DRIFT = 0.1
+# f32, TF32 off: decode_step after prefill against the forward's last
+# logits at S 1024 (|a - b| <= 1e-3 max |logit|: one attention's summation
+# order carried through 36 layers), and the chunked attention against
+# attention_xla at S 4096 on layer 0's q, k, v (1e-5 of the largest output)
+SERVE_DECODE_RTOL, SERVE_CHUNK_SEQ, SERVE_CHUNK_RTOL = 1e-3, 4096, 1e-5
 # sasrec: the registry's config at full size (1,000,000 items, d 50, 2
 # blocks, 1 head, seq 50), f32 parameters from seed 0; histories from
 # batch_at_step's seed 0; 1024 candidates a user from seed 0, drawn in
@@ -2031,10 +2110,11 @@ def coo_logits(model, batch):
 
 
 def check_close(name, got, want):
-    """|got - want| <= GNN_RTOL max |want|; returns the difference's share
-    of that limit."""
-    got, want = got.double(), want.double()
-    limit = GNN_RTOL * float(want.abs().max())
+    """|got - want| <= GNN_RTOL max |want| (on the host); returns the
+    difference's share of that limit."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    # a loss of 0 (a saturated GIN readout) must be met exactly
+    limit = GNN_RTOL * max(float(want.abs().max()), 1e-30)
     share = float((got - want).abs().max()) / limit
     check(share <= 1.0, f"{name}: {share} times the limit {limit}")
     return share
@@ -2045,8 +2125,9 @@ def gnn_phase():
     1024-seed (15, 10) blocks of a Reddit-scale RMAT graph: one
     ``gnn_forward_step``, then ``GNN_STEPS`` ``gnn_train_step``s on fresh
     blocks, the launch counts set to 0 just before each and read just
-    after.  Returns the launches of the four runs and the kernel's rows
-    on layer 0's and layer 1's own inputs."""
+    after.  Returns the launches of the four runs, the kernel's rows on
+    layer 0's and layer 1's own inputs, and the graph, sampler and
+    feature table (for the ``gnn_models`` phase)."""
     import numpy as np
     import torch
     from repro_torch.configs import registry
@@ -2253,9 +2334,585 @@ def gnn_phase():
                  and (max(losses) > 0 or bool(p.any()))]
     check(not unchanged, f"parameters unchanged by training: {unchanged}")
     emit({"phase": "gnn_train_summary", "losses": losses, "launches": total})
-    del model, state, named, table, sampler, g
+    del model, state, named
     torch.cuda.empty_cache()
-    return total, rows
+    # the graph, its sampler and feature table serve the gnn_models phase's
+    # minibatch_lg cells
+    return total, rows, {"graph": g, "sampler": sampler, "table": table}
+
+
+# --------------------------------------------------------------------------
+# phase: the other GNN models (GCN, SchNet, MACE) on every GNN shape
+# --------------------------------------------------------------------------
+def gnn_cell_config(arch, shape):
+    """The registry's full-width config of ``arch`` for ``shape``: GCN's
+    and GIN's input width is the cell's dataset's, 64 for molecules
+    (``launch/specs.py::_gnn_lowerable``)."""
+    from repro_torch.configs import registry
+    cfg = registry.get(arch).config
+    if arch in ("gcn-cora", "gin-tu"):
+        d_feat = (shape.d_feat if shape.kind in ("gnn_full", "gnn_sampled")
+                  else GNN_MOLECULE_FEAT)
+        cfg = dataclasses.replace(cfg, d_feat=d_feat)
+    return cfg
+
+
+def with_targets(arch, cfg, batch, rng):
+    """``batch`` with the inputs and labels ``specs._gnn_batch_struct``
+    gives ``arch``: GCN (N,) class labels, GIN (n_graphs,) class labels,
+    SchNet and MACE (n_graphs,) f32 energies with positions (N, 3) and
+    species below ``n_species`` (drawn from ``rng`` where the builder has
+    none: positions uniform in a 3-unit cube, energies standard normal)."""
+    import torch
+    dev, n = batch.senders.device, batch.n_nodes
+
+    def ints(high, count):
+        return torch.from_numpy(rng.integers(0, high, count).astype(
+            "int32")).to(dev)
+
+    if arch == "gcn-cora":
+        return dataclasses.replace(batch, labels=ints(cfg.n_classes, n))
+    if arch == "gin-tu":
+        return dataclasses.replace(batch, labels=ints(cfg.n_classes,
+                                                      batch.n_graphs))
+    if batch.positions is not None:
+        return batch
+    return dataclasses.replace(
+        batch, node_feat=None,
+        positions=torch.from_numpy((GNN_POSITION_BOX * rng.random(
+            (n, 3))).astype("float32")).to(dev),
+        species=ints(cfg.n_species, n),
+        labels=torch.from_numpy(rng.standard_normal(batch.n_graphs).astype(
+            "float32")).to(dev))
+
+
+def to_cpu(batch):
+    import torch
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).cpu()
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)})
+
+
+def hold_against_cpu(model, batch):
+    """The card's forward, loss and every gradient against the port's own
+    CPU model on the same parameters and batch (f32, TF32 off), each
+    within ``GNN_RTOL`` of the largest |element| of the CPU's tensor.
+    Returns the largest share of its limit."""
+    import copy
+    from repro_torch.launch.steps import gnn_forward_step
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_batch = to_cpu(batch)
+    shares = {"forward": check_close("forward on the card against the CPU",
+                                     gnn_forward_step(model, batch),
+                                     gnn_forward_step(cpu_model, cpu_batch))}
+    loss, _ = model.loss_fn(batch)
+    cpu_loss, _ = cpu_model.loss_fn(cpu_batch)
+    shares["loss"] = check_close("loss on the card against the CPU", loss,
+                                 cpu_loss)
+    loss.backward()
+    cpu_loss.backward()
+    worst = 0.0
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        q = cpu_params[name]
+        check((p.grad is None) == (q.grad is None),
+              f"{name}: a gradient on one device only")
+        if p.grad is not None and bool(q.grad.any()):
+            worst = max(worst, check_close(f"{name}'s gradient on the card "
+                                           f"against the CPU", p.grad,
+                                           q.grad))
+        elif p.grad is not None:
+            check(not bool(p.grad.any()), f"{name}: a gradient on the card "
+                  f"where the CPU's is zero")
+        p.grad = None
+    shares["gradients"] = worst
+    return shares
+
+
+def mace_invariance(model, batch, rng):
+    """The largest |e1 - e2| / (2e-4 (1 + |e1|)) of MACE's energies under a
+    seeded rotation plus translation of every position, on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import gnn_forward_step
+    q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] = -q[:, 0]
+    R = torch.from_numpy(q.astype(np.float32)).to(batch.positions.device)
+    shift = torch.from_numpy(rng.standard_normal(3).astype(np.float32)).to(
+        R.device)
+    e1 = gnn_forward_step(model, batch).double()
+    e2 = gnn_forward_step(model, dataclasses.replace(
+        batch, positions=batch.positions @ R.T + shift)).double()
+    share = float(((e1 - e2).abs() / (MACE_INVARIANCE_TOL
+                                       * (1 + e1.abs()))).max())
+    check(share <= 1.0, f"MACE energies move {share} times the reference "
+          f"test's bound under a rotation and translation")
+    return share
+
+
+def gradient_extent(model, batch):
+    """The largest |gradient element| of one backward of the loss, whether
+    every element is finite, and whether the f32 sum of their squares (the
+    global norm's, as both packages compute it) overflows; the gradients
+    are cleared after."""
+    import torch
+    from repro_torch.optim.adamw import global_norm
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    largest = max(float(g.abs().max()) for g in grads)
+    norm = float(global_norm(grads))
+    model.zero_grad(set_to_none=True)
+    return {"grad_abs_max": largest, "grads_finite": finite,
+            "norm_overflows": not math.isfinite(norm)}
+
+
+def gnn_model_cell(arch, shape_name, cfg, next_batch, small, rng):
+    """One cell: one ``gnn_forward_step``, then ``GNN_STEPS``
+    ``gnn_train_step``s (``next_batch(i)`` gives forward 0 and step i + 1
+    its batch), the launch counts set to 0 just before each and read just
+    after: ``cfg.n_layers`` ``segment_matmul`` launches each for GIN,
+    none for the others, no other kernel's.  Finite outputs, losses and
+    parameters; a grad norm positive exactly when the loss is, or, where
+    the f32 sum of the gradient's squares overflows (GIN's sum readout on
+    ogb_products), inf with every gradient element finite: the clip then
+    zeroes the step, as the reference's AdamW does, and only weight decay
+    moves the parameters.  Every parameter changed but the zeros of a run
+    without a usable gradient; a small cell held against the CPU first
+    (MACE's molecules also for invariance).  Returns its line."""
+    import torch
+    from repro_torch.launch.steps import (GNN_MODELS, gnn_forward_step,
+                                          gnn_train_step)
+    from repro_torch.optim import adamw
+    model = GNN_MODELS[arch](cfg, seed=GNN_PARAM_SEED)
+    check(model.device.type == "cuda", f"{arch} on {model.device}")
+    opt_cfg = adamw.AdamWConfig()   # the reference's specs._opt_cfg()
+    state = adamw.init_state(model, opt_cfg)
+    named = dict(model.named_parameters())
+    before = {n: fingerprint(p) for n, p in named.items()}
+    zero = dict.fromkeys(launch_counts(), 0)
+    want = dict(zero, segment_matmul=cfg.n_layers if arch == "gin-tu" else 0)
+    total = dict(zero)
+
+    def counted(fn):
+        zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        check(launches == want, f"{arch} x {shape_name} launched {launches}, "
+              f"expected {want}")
+        for k in total:
+            total[k] += launches[k]
+        return out, wall
+
+    batch, host_s = next_batch(0)
+    line = {"phase": "gnn_models", "arch": arch, "shape": shape_name,
+            "nodes": batch.n_nodes, "edges": int(batch.edge_mask.sum()),
+            "graphs": batch.n_graphs, "d_feat": getattr(cfg, "d_feat", None),
+            "params": sum(p.numel() for p in named.values())}
+    torch.cuda.reset_peak_memory_stats()
+    out, line["forward_s"] = counted(lambda: gnn_forward_step(model, batch))
+    want_shape = ((batch.n_nodes, cfg.n_classes) if arch == "gcn-cora"
+                  else (batch.n_graphs, cfg.n_classes) if arch == "gin-tu"
+                  else (batch.n_graphs,))
+    check(tuple(out.shape) == want_shape and bool(torch.isfinite(out).all()),
+          f"{arch} x {shape_name}: output {tuple(out.shape)}, finite "
+          f"{bool(torch.isfinite(out).all())}")
+    line["forward_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del out
+    if small:
+        line["cpu_err_over_limit"] = hold_against_cpu(model, batch)
+        if arch == "mace":
+            line["invariance_err_over_limit"] = mace_invariance(model, batch,
+                                                                rng)
+    extent = gradient_extent(model, batch)
+    check(extent["grads_finite"], f"{arch} x {shape_name}: a gradient "
+          f"element is not finite ({extent})")
+    line.update(extent)
+    losses, walls, sample_s = [], [], [host_s]
+    moved = False   # some step had a usable (nonzero, clipped) gradient
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(GNN_STEPS):
+        if step:
+            batch, host_s = next_batch(step)
+            sample_s.append(host_s)
+        metrics, wall = counted(lambda: gnn_train_step(model, opt_cfg,
+                                                       state, batch))
+        m = {k: float(v) for k, v in metrics.items()}
+        where = f"{arch} x {shape_name} step {step}"
+        check(all(math.isfinite(m[k]) for k in m if k != "grad_norm"),
+              f"{where} metrics {m}")
+        if math.isfinite(m["grad_norm"]):
+            check(m["grad_norm"] > 0 if m["loss"] > 0
+                  else m["grad_norm"] == 0, f"{where}: grad norm "
+                  f"{m['grad_norm']} at loss {m['loss']}")
+            moved = moved or m["grad_norm"] > 0
+        else:
+            check(m["grad_norm"] == math.inf, f"{where} metrics {m}")
+        check(all(bool(torch.isfinite(p).all()) for p in named.values()),
+              f"{where}: a parameter is not finite")
+        losses.append(m["loss"])
+        walls.append(wall)
+        line.setdefault("grad_norms", []).append(m["grad_norm"])
+    check(int(state["step"]) == GNN_STEPS, f"AdamW step count "
+          f"{int(state['step'])}")
+    # as in the gnn phase: without a usable gradient only weight decay
+    # moves a parameter, and it leaves the zeros alone
+    unchanged = [n for n, p in named.items() if fingerprint(p) == before[n]
+                 and (moved or bool(p.any()))]
+    check(not unchanged, f"{arch} x {shape_name}: parameters unchanged by "
+          f"training: {unchanged}")
+    line.update(losses=losses, step_s=walls, host_batch_s=sample_s,
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: v for k, v in total.items() if v})
+    del model, state, named, batch
+    torch.cuda.empty_cache()
+    return line, total["segment_matmul"]
+
+
+def gnn_models_phase(blocks):
+    """Every GNN cell of the registry (arch x ``GNN_SHAPES``) but gin-tu x
+    minibatch_lg (the gnn phase's) and the cut ones, at full width, f32,
+    TF32 off.  ``blocks``: the gnn phase's graph, sampler and feature
+    table, whose 1024-seed blocks the minibatch_lg cells take.  Returns
+    the ``segment_matmul`` launches (the GIN cells')."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import GNN_SHAPES
+    from repro_torch.data import graphs
+
+    cells = set(GNN_MODEL_CELLS) | set(GNN_MODEL_CUTS) | {(GNN_ARCH,
+                                                           GNN_SHAPE)}
+    want = {(a, s) for a, e in registry.REGISTRY.items() if e.family == "gnn"
+            for s in e.shapes}
+    check(cells == want and len(GNN_MODEL_CELLS) == 13,
+          f"the GNN cells do not cover the registry's: {sorted(want ^ cells)}")
+    emit({"phase": "gnn_models_cut", "cells": [
+        {"arch": a, "shape": s, "why": why}
+        for (a, s), why in GNN_MODEL_CUTS.items()]})
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(GNN_MODEL_SEED)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches, walls = 0, {}
+    g, sampler, table = blocks["graph"], blocks["sampler"], blocks["table"]
+    # per-vertex targets of the sampled graph, gathered by each block
+    node_labels = rng.integers(0, 7, g.n).astype(np.int32)
+    positions = torch.from_numpy((GNN_POSITION_BOX * rng.random(
+        (g.n, 3))).astype(np.float32)).to(dev)
+    species = torch.from_numpy(rng.integers(0, 10, g.n).astype(
+        np.int32)).to(dev)
+    try:
+        for arch, shape_name in GNN_MODEL_CELLS:
+            if shape_name == "ogb_products":
+                continue
+            t0 = time.perf_counter()
+            shape = GNN_SHAPES[shape_name]
+            cfg = gnn_cell_config(arch, shape)
+            if shape_name == "minibatch_lg":
+                energy = arch in ("schnet", "mace")
+
+                def next_batch(step, cfg=cfg, arch=arch, energy=energy):
+                    seeds = rng.integers(0, g.n, shape.batch_nodes)
+                    t1 = time.perf_counter()
+                    sample = sampler.sample(seeds)
+                    host_s = time.perf_counter() - t1
+                    block = sampler.to_block(
+                        sample, None if energy else table,
+                        None if energy else node_labels)
+                    if energy:
+                        nodes = torch.from_numpy(sample[0]).to(dev)
+                        block = dataclasses.replace(
+                            block, positions=positions[nodes],
+                            species=species[nodes],
+                            labels=torch.from_numpy(rng.standard_normal(
+                                1).astype(np.float32)).to(dev))
+                    return block, host_s
+                small = False
+            else:
+                t1 = time.perf_counter()
+                if shape_name == "molecule":
+                    base = graphs.molecules(
+                        GNN_SHAPES["molecule"].n_graphs,
+                        GNN_SHAPES["molecule"].n_nodes, seed=GNN_GRAPH_SEED,
+                        d_feat=GNN_MOLECULE_FEAT, device=dev)
+                else:
+                    base = graphs.cora_like(seed=GNN_GRAPH_SEED, device=dev)
+                batch = with_targets(arch, cfg, base, rng)
+                build_s = time.perf_counter() - t1
+
+                def next_batch(step, batch=batch, build_s=build_s):
+                    return batch, build_s if step == 0 else 0.0
+                small = True
+            line, n = gnn_model_cell(arch, shape_name, cfg, next_batch,
+                                     small, rng)
+            launches += n
+            walls[f"{arch} x {shape_name}"] = time.perf_counter() - t0
+            emit(line)
+        del blocks["table"], blocks["sampler"], table, sampler, positions
+        torch.cuda.empty_cache()
+        # ogb_products: one products_like graph for both full-batch cells
+        t0 = time.perf_counter()
+        base = graphs.products_like(**GNN_PRODUCTS, seed=GNN_GRAPH_SEED,
+                                    device=dev)
+        torch.cuda.synchronize()
+        emit({"phase": "gnn_products_setup", "nodes": base.n_nodes,
+              "directed_edges": base.senders.shape[0],
+              "seconds": time.perf_counter() - t0})
+        walls["products_setup"] = time.perf_counter() - t0
+        for arch, shape_name in GNN_MODEL_CELLS:
+            if shape_name != "ogb_products":
+                continue
+            t0 = time.perf_counter()
+            cfg = gnn_cell_config(arch, GNN_SHAPES[shape_name])
+            batch = with_targets(arch, cfg, base, rng)
+
+            def next_batch(step, batch=batch):
+                return batch, 0.0
+            line, n = gnn_model_cell(arch, shape_name, cfg, next_batch,
+                                     False, rng)
+            launches += n
+            del batch, next_batch
+            walls[f"{arch} x {shape_name}"] = time.perf_counter() - t0
+            emit(line)
+        del base
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.empty_cache()
+    emit({"phase": "gnn_models_seconds", **walls})
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase: LM serving (prefill, ring-buffer decode, the serve launcher)
+# --------------------------------------------------------------------------
+def float_params(model):
+    """An f32 copy of a ``TransformerLM``'s parameters in ``init_params``'
+    layout, on its device."""
+    return {"embed": model.embed.detach().float(),
+            "layers": [{"attn": {k: v.detach().float()
+                                 for k, v in b.attn.items()},
+                        "mlp": {k: v.detach().float()
+                                for k, v in b.mlp.items()},
+                        "ln1": b.ln1.detach().float(),
+                        "ln2": b.ln2.detach().float()}
+                       for b in model.layers],
+            "final_norm": model.final_norm.detach().float(),
+            **({} if model.cfg.tie_embeddings
+               else {"lm_head": model.lm_head.detach().float()})}
+
+
+def serve_line(name, r, batch, prompt_len, gen, launches):
+    import torch
+    logits = r["logits"]
+    check(bool(torch.isfinite(logits).all()), f"{name}: logits not finite")
+    check(r["generated"].shape == (batch, gen), f"{name}: generated "
+          f"{r['generated'].shape}")
+    return {"phase": "lm_serve", "cell": name, "batch": batch,
+            "prompt_len": prompt_len, "gen": gen,
+            "prefill_s": r["prefill_s"], "prefill_tok_s": r["prefill_tok_s"],
+            "decode_ms_per_step": r["decode_s"] / gen * 1e3,
+            "decode_tok_s": r["decode_tok_s"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: v for k, v in launches.items() if v},
+            "generated": r["generated"][0].tolist()}
+
+
+def lm_serve_phase():
+    """qwen3-4b at full width and depth with seeded bf16 weights:
+    ``serve`` at prefill_32k cut to B 1 (32,768 prompt tokens, 16
+    generated), then decode_32k cut to B 8 (that prefill's cache copied
+    into 8 rows of a zero-filled 32,768 + 16 slot cache, 16 decode steps);
+    in f32 with TF32 off on the same weights, ``decode_step`` after
+    ``prefill`` against the forward's last logits at S 1024, and the
+    chunked attention against ``attention_xla`` on layer 0's own q, k, v
+    at S 4096, with and without static skipping.  Then gemma3-12b (bf16)
+    ``serve`` at a 4,096-token prompt.  Every run with the launch counts
+    set to 0 just before and read just after: the serving path runs no
+    kernel (the reference's prefill never reaches the flash kernel)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import grow_cache, serve
+    from repro_torch.launch.steps import lm_decode_step
+    from repro_torch.models.layers import (attention_xla,
+                                           attention_xla_chunked, attn_qkv,
+                                           make_attention_mask, rms_norm)
+    from repro_torch.models.transformer import TransformerLM
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    zero = dict.fromkeys(launch_counts(), 0)
+    walls = {}
+
+    def no_kernel(what):
+        launches = launch_counts()
+        check(launches == zero, f"{what} launched {launches}")
+        return launches
+
+    t0 = time.perf_counter()
+    cfg = registry.get(LM_ARCH).config
+    model = TransformerLM(cfg, device=dev, seed=LM_SEED,
+                          dtype=torch.bfloat16)
+    emit({"phase": "lm_serve_setup", "arch": LM_ARCH,
+          "weights_gib": torch.cuda.memory_allocated() / 2**30,
+          "seconds": time.perf_counter() - t0})
+    # prefill_32k, B 1
+    t0 = time.perf_counter()
+    prompt = SERVE_PROMPT
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    r = serve(LM_ARCH, False, 1, prompt, SERVE_GEN, seed=LM_DATA_SEED,
+              model=model)
+    emit(serve_line("prefill_32k_b1", r, 1, prompt, SERVE_GEN,
+                    no_kernel("serve at prefill_32k")))
+    walls["prefill_32k"] = time.perf_counter() - t0
+
+    # decode_32k, B 8: the prompt's cache in 8 rows of a zero-filled cache
+    t0 = time.perf_counter()
+    B = SERVE_DECODE_BATCH
+    one = r["cache"]
+    first_logits, first_token = r["logits"][1, 0].float(), \
+        int(r["generated"][0, 0])
+    del r
+    torch.cuda.reset_peak_memory_stats()
+    shape = (cfg.n_layers, B, prompt + SERVE_GEN, cfg.n_kv_heads,
+             cfg.head_dim)
+    cache = {}
+    for name in ("k", "v"):
+        cache[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        cache[name][:, :, :prompt].copy_(one[name][:, :, :prompt])
+    cache["length"] = torch.full((B,), prompt, dtype=torch.int32,
+                                 device=dev)
+    del one
+    cache_gib = 2 * cache["k"].numel() * cache["k"].element_size() / 2**30
+    rng = np.random.default_rng(SERVE_TOKEN_SEED)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, B)).to(dev)
+    tok[0] = first_token
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for step in range(SERVE_GEN):
+        logits, cache = lm_decode_step(model, cache, tok)
+        if step == 0:
+            row0 = logits[0].float()
+        tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = no_kernel("decode at decode_32k")
+    check(bool(torch.isfinite(logits).all()), "decode_32k logits")
+    check(int(cache["length"][0]) == prompt + SERVE_GEN, "decode_32k length")
+    # row 0 decodes serve's first token on the same prompt: its logits
+    # equal serve's second step's up to bf16 numerics at another batch
+    drift = float((row0 - first_logits).abs().max()
+                  / first_logits.abs().max())
+    check(drift <= SERVE_ROW_DRIFT, f"decode_32k row 0 moves {drift} of the "
+          f"largest logit from serve's B 1 step")
+    emit({"phase": "lm_serve", "cell": "decode_32k_b8", "batch": B,
+          "cache_slots": prompt + SERVE_GEN, "cache_gib": cache_gib,
+          "decode_ms_per_step": decode_s / SERVE_GEN * 1e3,
+          "decode_tok_s": B * SERVE_GEN / decode_s,
+          "row0_drift_of_max": drift,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "launches": {k: v for k, v in launches.items() if v}})
+    del cache, logits, tok, row0, first_logits
+    torch.cuda.empty_cache()
+    walls["decode_32k"] = time.perf_counter() - t0
+
+    # the f32 gates
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    model32 = TransformerLM(cfg32, float_params(model))
+    del model
+    torch.cuda.empty_cache()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(SERVE_TOKEN_SEED)
+        x = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                          (1, XLA_SEQ))).to(dev)
+        zero_launch_counts()
+        with torch.no_grad():
+            full = model32(x)[0][:, -1]
+        cache = grow_cache(model32.prefill(x[:, :-1])[1], XLA_SEQ)
+        last, cache = model32.decode_step(cache, x[:, -1])
+        no_kernel("the f32 serving check")
+        scale = float(full.abs().max())
+        decode_err = float((last - full).abs().max())
+        check(decode_err <= SERVE_DECODE_RTOL * scale,
+              f"decode_step after prefill differs from the forward by "
+              f"{decode_err} (limit {SERVE_DECODE_RTOL * scale})")
+        del cache, full, last
+        # layer 0's own q, k, v at S 4096
+        x = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                          (1, SERVE_CHUNK_SEQ))).to(dev)
+        pos = torch.arange(SERVE_CHUNK_SEQ, dtype=torch.int32,
+                           device=dev)[None]
+        layer = model32.layers[0]
+        with torch.no_grad():
+            h = rms_norm(model32.embed[x].float(), layer.ln1)
+            q, k, v = attn_qkv(layer.attn, h, cfg32.attn_spec, pos,
+                               cfg.rope_theta)
+            mask = make_attention_mask(pos, pos, 0, causal=True)
+            want = attention_xla(q, k, v, mask[:, None, None])
+            chunk = {}
+            for static in (False, True):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = attention_xla_chunked(
+                    q, k, v, pos, pos, window=0, causal=True,
+                    chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+                    static_positions=static)
+                torch.cuda.synchronize()
+                chunk[static] = (float((got - want).abs().max()),
+                                 time.perf_counter() - t1)
+        limit = SERVE_CHUNK_RTOL * float(want.abs().max())
+        for static, (err, _) in chunk.items():
+            check(err <= limit, f"chunked attention (static skip {static}) "
+                  f"differs from attention_xla by {err} (limit {limit})")
+        emit({"phase": "lm_serve_f32", "decode_vs_forward_err": decode_err,
+              "largest_logit": scale, "decode_rtol": SERVE_DECODE_RTOL,
+              "chunked_err": chunk[False][0],
+              "chunked_skip_err": chunk[True][0],
+              "chunked_limit": limit, "chunked_s": chunk[False][1],
+              "chunked_skip_s": chunk[True][1]})
+        del q, k, v, h, want, got, mask
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    del model32
+    torch.cuda.empty_cache()
+    walls["f32_checks"] = time.perf_counter() - t0
+
+    # gemma3-12b: local:global windows of 1024 in prefill and decode
+    t0 = time.perf_counter()
+    gcfg = registry.get(SERVE_GEMMA).config
+    model = TransformerLM(gcfg, device=dev, seed=LM_SEED,
+                          dtype=torch.bfloat16)
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    r = serve(SERVE_GEMMA, False, 1, SERVE_GEMMA_PROMPT, SERVE_GEN,
+              seed=LM_DATA_SEED, model=model)
+    line = serve_line("gemma3_prompt_4096_b1", r, 1, SERVE_GEMMA_PROMPT,
+                      SERVE_GEN, no_kernel("serve on gemma3-12b"))
+    emit(dict(line, arch=SERVE_GEMMA,
+              windows=sorted(set(int(w) for w in gcfg.layer_windows()))))
+    del r, model
+    torch.cuda.empty_cache()
+    walls["gemma3"] = time.perf_counter() - t0
+    emit({"phase": "lm_serve_seconds", **walls})
 
 
 # --------------------------------------------------------------------------
@@ -2761,13 +3418,22 @@ def main() -> int:
           "the training path launched no backward kernel")
     lm_train_vs_xla_phase()
     bwd_row = bwd_rows[0]   # the training path's shape
+    t0 = time.perf_counter()
+    lm_serve_phase()
+    serve_s = time.perf_counter() - t0
 
-    gnn_launches, seg_rows = gnn_phase()
+    gnn_launches, seg_rows, gnn_blocks = gnn_phase()
     for row in seg_rows:
         emit({"phase": "kernel", "name": "segment_matmul", **row})
     check(gnn_launches["segment_matmul"] > 0,
           "the GNN path launched no segment_matmul kernel")
     seg_row = seg_rows[0]   # layer 0's own inputs, the forward's call
+    t0 = time.perf_counter()
+    models_launches = gnn_models_phase(gnn_blocks)
+    del gnn_blocks
+    emit({"phase": "new_phase_seconds", "lm_serve": serve_s,
+          "gnn_models": time.perf_counter() - t0})
+    check(models_launches > 0, "the GIN cells launched no segment_matmul")
 
     rec_launches, rec_rows, item_table, bags = rec_phase()
     for row in rec_rows:
@@ -2848,7 +3514,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/segment_matmul/csrc/"
                   "segment_matmul.cu",
         "replaces": "src/repro/kernels/segment_matmul/kernel.py:22",
-        "launches": gnn_launches["segment_matmul"],
+        "launches": gnn_launches["segment_matmul"] + models_launches,
+        "launches_by_phase": {"gnn_minibatch_lg":
+                              gnn_launches["segment_matmul"],
+                              "gnn_models": models_launches},
         "max_abs_err": max(r["max_abs_err"] for r in seg_rows),
         "max_err_over_limit": max(r["err_over_limit"] for r in seg_rows),
         "ms": seg_row["ms"], "plain_ms": seg_row["plain_ms"],

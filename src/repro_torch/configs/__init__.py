@@ -1,2 +1,3 @@
 """Model configurations of the port: the five LM architectures
-(``lm_archs``), the shape sets (``shapes``) and the registry."""
+(``lm_archs``), the shape sets (``shapes``), the registry, and one module
+an arch (``CONFIG`` and ``SMOKE``, as in the JAX package)."""

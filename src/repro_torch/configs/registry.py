@@ -1,10 +1,9 @@
 """Architecture registry: an arch id resolves here.
 
-Each entry: family, full config, smoke config, the shape set it pairs
-with, and the shapes it skips.  The port registers the five LM
-architectures, gin-tu and sasrec; the other GNN entries of the JAX
-package's registry come with their slice, and ``get`` names the ROADMAP
-item for each.
+Each entry: family ("lm" | "gnn" | "recsys"), full config, smoke config,
+the shape set it pairs with, and the shapes it skips.  The JAX package's
+registry, entry for entry: the five LM architectures, the four GNN models
+and SASRec.
 """
 from __future__ import annotations
 
@@ -12,7 +11,10 @@ import dataclasses
 from typing import Any, Dict
 
 from . import lm_archs
+from ..models.gnn.gcn import GCNConfig
 from ..models.gnn.gin import GINConfig
+from ..models.gnn.mace import MACEConfig
+from ..models.gnn.schnet import SchNetConfig
 from ..models.sasrec import SASRecConfig
 from .shapes import GNN_SHAPES, LM_SHAPES, REC_SHAPES, ShapeSpec
 
@@ -27,14 +29,18 @@ class ArchEntry:
     skip_shapes: Dict[str, str] = dataclasses.field(default_factory=dict)
 
 
-REGISTRY: Dict[str, ArchEntry] = {}
+def _gnn_smoke(cfg):
+    """A GNN config cut for CPU smoke tests: d_hidden at most 16, n_rbf
+    at most 8."""
+    kw = {}
+    if hasattr(cfg, "d_hidden"):
+        kw["d_hidden"] = min(cfg.d_hidden, 16)
+    if hasattr(cfg, "n_rbf"):
+        kw["n_rbf"] = min(cfg.n_rbf, 8)
+    return dataclasses.replace(cfg, **kw)
 
-# in the JAX package's registry, not ported yet
-NOT_PORTED = {
-    "mace": "GNN models (ROADMAP queue 1, item 2)",
-    "schnet": "GNN models (ROADMAP queue 1, item 2)",
-    "gcn-cora": "GNN models (ROADMAP queue 1, item 2)",
-}
+
+REGISTRY: Dict[str, ArchEntry] = {}
 
 
 def _reg(entry: ArchEntry):
@@ -59,9 +65,13 @@ _reg(ArchEntry("llama4-scout-17b-a16e", "lm", lm_archs.LLAMA4_SCOUT,
 _reg(ArchEntry("mixtral-8x22b", "lm", lm_archs.MIXTRAL_8X22B,
                lm_archs.smoke(lm_archs.MIXTRAL_8X22B), LM_SHAPES))
 
-# the reference's _gnn_smoke caps d_hidden at 16, which GINConfig(d_hidden=16)
-# already is
-_reg(ArchEntry("gin-tu", "gnn", GINConfig(), GINConfig(d_hidden=16),
+_reg(ArchEntry("mace", "gnn", MACEConfig(),
+               _gnn_smoke(MACEConfig(d_hidden=16, n_rbf=4)), GNN_SHAPES))
+_reg(ArchEntry("gin-tu", "gnn", GINConfig(),
+               _gnn_smoke(GINConfig(d_hidden=16)), GNN_SHAPES))
+_reg(ArchEntry("schnet", "gnn", SchNetConfig(),
+               _gnn_smoke(SchNetConfig(d_hidden=16, n_rbf=8)), GNN_SHAPES))
+_reg(ArchEntry("gcn-cora", "gnn", GCNConfig(), _gnn_smoke(GCNConfig()),
                GNN_SHAPES))
 _reg(ArchEntry("sasrec", "recsys", SASRecConfig(),
                dataclasses.replace(SASRecConfig(), n_items=2048),
@@ -69,9 +79,6 @@ _reg(ArchEntry("sasrec", "recsys", SASRecConfig(),
 
 
 def get(arch_id: str) -> ArchEntry:
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"arch '{arch_id}' is not ported yet: {NOT_PORTED[arch_id]}")
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]

@@ -9,7 +9,8 @@ shares its weights: :func:`lm_params_from_reference` turns the reference's
 parameter pytree (as numpy arrays) into the port's parameter dict, and
 :func:`lm_params_to_reference` a port model's parameters back into the
 reference's layout; :func:`gnn_params_from_reference` and
-:func:`gnn_params_to_reference` do the same for GIN,
+:func:`gnn_params_to_reference` do the same for GIN, the ``gcn_``,
+``schnet_`` and ``mace_`` pairs for the other GNN models,
 :func:`rec_params_from_reference` and :func:`rec_params_to_reference` for
 SASRec, and :func:`adamw_state_from_reference` carries the optimizer state
 of any of them over, so both packages can start a training step from one
@@ -23,7 +24,10 @@ import numpy as np
 import torch
 
 from .graph.coo import UGraph
+from .models.gnn.gcn import GCNConfig
 from .models.gnn.gin import GINConfig
+from .models.gnn.mace import MACEConfig
+from .models.gnn.schnet import SchNetConfig
 from .models.sasrec import SASRecConfig
 
 
@@ -158,6 +162,93 @@ def gnn_params_to_reference(model) -> Dict:
             "readout": lin(model.readout)}
 
 
+def _tree_from_reference(tree):
+    """A pytree of dicts and lists of array-likes as the same tree of CPU
+    tensors."""
+    if isinstance(tree, dict):
+        return {k: _tree_from_reference(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_reference(v) for v in tree]
+    return _tensor(tree)
+
+
+def _tree_to_reference(tree):
+    """A ``ParamTree`` (or a dict/list tree of tensors) as the same tree
+    of numpy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return _array(tree)
+    if isinstance(tree, (list, tuple, torch.nn.ModuleList)):
+        return [_tree_to_reference(v) for v in tree]
+    return {k: _tree_to_reference(tree[k]) for k in tree.keys()}
+
+
+def named_graph_params(params: Dict, prefix: str = ""
+                       ) -> Dict[str, torch.Tensor]:
+    """A GCN, SchNet or MACE ``init_params``-layout dict flattened to the
+    names of the model's ``named_parameters()``: the tree's paths joined
+    by dots ("layers.0.w", "interactions.0.filter.l1.w", "layers.1.w_b",
+    "energy_head.l2.b")."""
+    if isinstance(params, torch.Tensor):
+        return {prefix[:-1]: params}
+    items = (params.items() if isinstance(params, dict)
+             else enumerate(params))
+    out = {}
+    for k, v in items:
+        out.update(named_graph_params(v, f"{prefix}{k}."))
+    return out
+
+
+def _gnn_tree_from_reference(cfg, params, key: str, depth: int) -> Dict:
+    if len(params[key]) != depth:
+        raise ValueError(f"reference params have {len(params[key])} {key}, "
+                         f"config {cfg.name} has {depth}")
+    return _tree_from_reference(params)
+
+
+def gcn_params_from_reference(cfg: GCNConfig, params) -> Dict:
+    """The port's GCN parameters (``models.gnn.gcn.init_params`` layout,
+    CPU tensors) from the JAX package's ``gcn.init_params`` pytree
+    ({"layers": [{"w", "b"}]}) of array-likes."""
+    return _gnn_tree_from_reference(cfg, params, "layers", cfg.n_layers)
+
+
+def schnet_params_from_reference(cfg: SchNetConfig, params) -> Dict:
+    """The port's SchNet parameters from the JAX package's
+    ``schnet.init_params`` pytree ({"embed", "interactions": [{"filter",
+    "in_lin", "out"}], "energy_head"}) of array-likes."""
+    return _gnn_tree_from_reference(cfg, params, "interactions",
+                                    cfg.n_interactions)
+
+
+def mace_params_from_reference(cfg: MACEConfig, params) -> Dict:
+    """The port's MACE parameters from the JAX package's
+    ``mace.init_params`` pytree ({"embed", "layers": [{"R0", "R1", "R2",
+    "mix_in", "w_b", "update", "mix_v", "mix_t"}], "energy_head"}) of
+    array-likes."""
+    return _gnn_tree_from_reference(cfg, params, "layers", cfg.n_layers)
+
+
+def graph_params_to_reference(model) -> Dict:
+    """A port ``GCN``'s, ``SchNet``'s or ``MACE``'s parameters as numpy in
+    the reference's layout."""
+    return _tree_to_reference(model)
+
+
+gcn_params_to_reference = schnet_params_to_reference = \
+    mace_params_to_reference = graph_params_to_reference
+named_gcn_params = named_schnet_params = named_mace_params = \
+    named_graph_params
+
+
+# config type -> (params from the reference, flattener), for the optimizer
+# state of each GNN model
+_GNN_CONVERTERS = {
+    GCNConfig: (gcn_params_from_reference, named_gcn_params),
+    SchNetConfig: (schnet_params_from_reference, named_schnet_params),
+    MACEConfig: (mace_params_from_reference, named_mace_params),
+}
+
+
 def rec_params_from_reference(cfg: SASRecConfig, params) -> Dict:
     """The port's SASRec parameters (``models.sasrec.init_params`` layout,
     CPU tensors) from the JAX package's ``sasrec.init_params`` pytree
@@ -198,9 +289,14 @@ def adamw_state_from_reference(cfg, opt_state) -> Dict:
     name, CPU tensors) from the JAX package's ``adamw.init_state`` /
     ``apply_updates`` state, whose "m" and "v" are pytrees like the
     parameters (f32 or bf16 arrays) and "step" a scalar.  ``cfg`` is the
-    model's config: a ``GINConfig``, a ``SASRecConfig`` or an LM's
-    ``TransformerConfig``."""
-    if isinstance(cfg, GINConfig):
+    model's config: one of the four GNN configs, a ``SASRecConfig`` or an
+    LM's ``TransformerConfig``."""
+    if type(cfg) in _GNN_CONVERTERS:
+        from_ref, flatten = _GNN_CONVERTERS[type(cfg)]
+
+        def named(tree):
+            return flatten(from_ref(cfg, tree))
+    elif isinstance(cfg, GINConfig):
         def named(tree):
             return named_gnn_params(gnn_params_from_reference(cfg, tree))
     elif isinstance(cfg, SASRecConfig):

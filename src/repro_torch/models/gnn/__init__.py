@@ -1,2 +1,3 @@
-"""GNN models of the port: GIN (``gin``) over the shared substrate
+"""GNN models of the port: GCN (``gcn``), GIN (``gin``), SchNet
+(``schnet``) and MACE (``mace``) over the shared substrate
 (``common``)."""

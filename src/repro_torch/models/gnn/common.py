@@ -17,6 +17,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from ...devices import resolve_device
 
 
 @dataclasses.dataclass
@@ -157,3 +160,73 @@ def init_mlp2(generator: torch.Generator, d_in, d_hidden, d_out,
 
 def mlp2(p, x, act=F.silu):
     return linear(p["l2"], act(linear(p["l1"], x)))
+
+
+class ParamTree(nn.Module):
+    """A nested parameter dict (dicts, lists and tensors, as the
+    reference's pytrees are laid out) as a module: each tensor becomes an
+    ``nn.Parameter`` without a copy, each dict a ``ParamTree``, each list
+    an ``nn.ModuleList``, so ``named_parameters()`` gives the tree's paths
+    joined by dots ("layers.0.R0.l1.w").  ``tree[key]`` and ``key in
+    tree`` read it as the dict it came from, so :func:`linear` and
+    :func:`mlp2` take it as they take a dict."""
+
+    def __init__(self, params):
+        super().__init__()
+        self._keys = tuple(params)
+        for key, value in params.items():
+            if isinstance(value, torch.Tensor):
+                self.register_parameter(key, nn.Parameter(value))
+            elif isinstance(value, dict):
+                self.add_module(key, ParamTree(value))
+            else:
+                self.add_module(key, nn.ModuleList(ParamTree(v)
+                                                   for v in value))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def __contains__(self, key):
+        return key in self._keys
+
+    def keys(self):
+        return self._keys
+
+
+class GraphModel(ParamTree):
+    """Base of the port's GCN, SchNet and MACE: a :class:`ParamTree` of
+    the reference's parameter layout on one device.
+
+    ``params`` is laid out as the model module's ``init_params`` returns
+    it (or as ``repro_torch.convert`` carries it over from the JAX
+    package); without it the parameters are drawn from a
+    ``torch.Generator`` seeded with ``seed`` on the device.  The module
+    takes the given tensors as its parameters without a copy (on their
+    device), so training updates them in place.  It runs on CUDA unless
+    ``device`` asks for the CPU, and raises where CUDA is missing.
+    Subclasses set ``init`` (their ``init_params``) and ``depth``: the
+    params key of the list of blocks and the config field it matches.
+    """
+    init = None
+    depth = ("layers", "n_layers")
+
+    def __init__(self, cfg, params=None, *, device=None, seed: int = 0):
+        dev = resolve_device(device, type(self).__name__)
+        if params is None:
+            params = type(self).init(
+                cfg, torch.Generator(device=dev).manual_seed(seed))
+        key, field = self.depth
+        if len(params[key]) != getattr(cfg, field):
+            raise ValueError(f"{len(params[key])} {key} of parameters for a "
+                             f"config of {getattr(cfg, field)}")
+        super().__init__(params)
+        self.cfg = cfg
+        self.to(dev)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _check_device(self, t: torch.Tensor) -> None:
+        if t.device != self.device:
+            raise ValueError(f"batch on {t.device}, model on {self.device}")

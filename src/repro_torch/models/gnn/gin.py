@@ -16,7 +16,11 @@ A batch that carries ``nbr`` (a sampled block) is read through it alone.
 An edge-list batch gets a table no wider than ``K_CAP``; the in-edges of a
 row past its first ``K_CAP`` (a hub's) are summed apart, by ``index_add_``
 of their senders' rows into an f32 sum for the hub rows only, multiplied
-by W1 and added into those rows: W1 distributes over that sum too.  Which
+by W1 and added into those rows: W1 distributes over that sum too.  That
+sum gathers the rows a chunk of edges at a time and keeps only the edge
+list for its backward (:class:`_HubSum`): on ogb_products' RMAT stand-in
+78% of the 118.5M edges land past the cap, whose gathered rows, kept by
+autograd, would take 35 GiB a layer.  Which
 layout a batch takes follows from its shape, never from a failed build or
 launch.
 """
@@ -41,6 +45,40 @@ from .common import (GraphBatch, graph_readout, init_linear, init_mlp2,
 # 24.3), so most rows fit whole and segment_matmul reads their edges; only
 # the tails of hubs go to the edge list.
 K_CAP = 32
+
+
+# edges a chunk of the hub sum gathers at once: their rows stay within this
+# many elements (1 GiB of f32)
+HUB_CHUNK_ELEMENTS = 1 << 28
+
+
+class _HubSum(torch.autograd.Function):
+    """(n_hubs, D) f32: row j the sum of ``x[senders[e]]`` over the edges
+    e with ``hub_of[e] == j``, added by ``index_add_`` in edge order a
+    chunk at a time; the backward scatters the gradient's rows back to
+    the senders the same way.  Only the edge list is kept for it."""
+
+    @staticmethod
+    def forward(ctx, x, senders, hub_of, n_hubs: int):
+        out = torch.zeros((n_hubs, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        step = max(1, HUB_CHUNK_ELEMENTS // max(x.shape[1], 1))
+        for c in range(0, senders.numel(), step):
+            out.index_add_(0, hub_of[c:c + step],
+                           x[senders[c:c + step]].float())
+        ctx.save_for_backward(senders, hub_of)
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        senders, hub_of = ctx.saved_tensors
+        gx = torch.zeros(ctx.x_shape, dtype=torch.float32,
+                         device=grad.device)
+        step = max(1, HUB_CHUNK_ELEMENTS // max(grad.shape[1], 1))
+        for c in range(0, senders.numel(), step):
+            gx.index_add_(0, senders[c:c + step], grad[hub_of[c:c + step]])
+        return gx.to(ctx.x_dtype), None, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +175,7 @@ class GIN(nn.Module):
             h = ((1.0 + layer.eps.to(x.dtype)) * (x @ w1)
                  + segment_matmul(x, nbr, w1) + l1["b"].to(x.dtype))
             if hubs is not None:
-                agg = torch.zeros((hubs.shape[0], x.shape[1]),
-                                  dtype=torch.float32, device=x.device)
-                agg.index_add_(0, hub_of, x[over_s].float())
+                agg = _HubSum.apply(x, over_s, hub_of, hubs.shape[0])
                 h = h.index_add(0, hubs, (agg @ w1.float()).to(h.dtype))
             x = linear(layer.mlp["l2"], torch.relu(h))
         pooled = graph_readout(x, batch.graph_ids, batch.n_graphs,

@@ -1,14 +1,14 @@
 """Shared transformer building blocks, as plain functions on tensors
 (parameters are dicts of tensors).
 
-The JAX package's ``models/layers.py`` for the dense LM forward:
+The JAX package's ``models/layers.py`` for the dense LM:
   * RMSNorm scaled by (1 + scale), computed in f32
   * RoPE on split halves (not interleaved)
-  * GQA attention with f32 logits and softmax (``attention_xla``)
+  * GQA attention with f32 logits and softmax (``attention_xla``), and its
+    chunked form with an online softmax over KV chunks
+    (``attention_xla_chunked``), O(S chunk) memory instead of O(S^2)
   * q/k/v projection with optional bias and qk-norm, SwiGLU MLP
-Parameters are cast to the activation's type at use.  The chunked XLA
-attention (``attention_xla_chunked``) is not ported yet (ROADMAP queue 1,
-LM serving).
+Parameters are cast to the activation's type at use.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -76,6 +77,170 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(B, Q, H, D).to(q.dtype)
+
+
+# q chunks that one KV step of the chunked attention takes at once: as many
+# as keep its (B, n, Hkv, G, cq, ck) f32 logits within this many elements
+# (1 GiB)
+Q_GROUP_ELEMENTS = 1 << 28
+
+
+def _chunks(S: int, K: int, chunk_q: int, chunk_kv: int):
+    cq, ck = min(chunk_q, S), min(chunk_kv, K)
+    if S % cq or K % ck:
+        raise ValueError(f"chunked attention needs S {S} and K {K} to be "
+                         f"multiples of their chunks {cq} and {ck}")
+    return cq, ck
+
+
+def _online_softmax_step(carry, logits, vc, p_bf16: bool):
+    """One KV chunk of the online softmax: ``logits`` (..., cq, ck) f32,
+    already masked; ``vc`` (B, ck, Hkv, D); ``carry`` (m, l, acc) with acc
+    (..., cq, D), all f32.  The reference's arithmetic in its order."""
+    m, l, acc = carry
+    m_new = torch.maximum(m, logits.amax(-1))
+    p = torch.exp(logits - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + p.sum(-1)
+    # p's leading dims: B, [q chunks,] Hkv, G; vc's: B, ck, Hkv
+    eq = ("bnhgqk,bkhd->bnhgqd" if p.dim() == 6 else "bhgqk,bkhd->bhgqd")
+    if p_bf16:
+        pv = torch.einsum(eq, p.to(torch.bfloat16),
+                          vc.to(torch.bfloat16)).float()
+    else:
+        pv = torch.einsum(eq, p, vc.float())
+    return m_new, l_new, acc * corr[..., None] + pv
+
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` under activation checkpointing where autograd records
+    (the reference's ``jax.checkpoint`` of each KV step): the step's
+    (..., cq, ck) logits are recomputed in the backward instead of kept."""
+    if torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def attention_xla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          q_pos: torch.Tensor, k_pos: torch.Tensor,
+                          window: Optional[int] = None, causal: bool = True,
+                          chunk_q: int = 512, chunk_kv: int = 512,
+                          softmax_scale: Optional[float] = None,
+                          p_bf16: bool = False,
+                          static_positions: bool = False,
+                          static_window: Optional[int] = None):
+    """Flash-style chunked attention in plain torch: an online softmax
+    over KV chunks, in f32 as ``attention_xla`` computes, O(S chunk)
+    memory.  q: (B, S, H, D); k/v: (B, K, Hkv, D); q_pos (B, S), k_pos
+    (B, K).  ``window`` <= 0 or None is unbounded.  S and K must be
+    multiples of their chunks (``min(chunk, S)``, ``min(chunk, K)``).
+
+    Each q chunk scans every KV chunk, as the reference's ``lax.map`` over
+    q chunks does; the port takes up to ``Q_GROUP_ELEMENTS``' worth of q
+    chunks in one KV step, which changes no q chunk's arithmetic.  Each KV
+    step runs under activation checkpointing when autograd records.
+
+    ``static_positions=True`` asserts q_pos/k_pos are standard aranges (q
+    aligned to the end of k), enabling static causal chunk skipping: each
+    q chunk scans only the KV chunks that meet its causal prefix, and with
+    a uniform ``static_window`` not the leading out-of-window ones."""
+    if static_positions and causal:
+        return _attention_chunked_skipping(
+            q, k, v, window, chunk_q, chunk_kv, softmax_scale, p_bf16,
+            static_window)
+    B, S, H, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    cq, ck = _chunks(S, K, chunk_q, chunk_kv)
+    nq, nk = S // cq, K // ck
+    qr = q.reshape(B, nq, cq, Hkv, G, D)
+    qp = q_pos.reshape(B, nq, cq)
+    group = max(1, min(nq, Q_GROUP_ELEMENTS // (B * H * cq * ck)))
+
+    def kv_step(qf, qpc, m, l, acc, kc, vc, kpc):
+        logits = torch.einsum("bnqhgd,bkhd->bnhgqk", qf, kc.float()) * scale
+        diff = qpc - kpc[:, None, None, None, None, :]
+        mask = torch.ones(diff.shape, dtype=torch.bool, device=diff.device)
+        if causal:
+            mask &= diff >= 0
+        if window is not None and window > 0:
+            mask &= diff < window
+        logits = torch.where(mask, logits, NEG_INF)
+        return _online_softmax_step((m, l, acc), logits, vc, p_bf16)
+
+    outs = []
+    for q0 in range(0, nq, group):
+        n = min(group, nq - q0)
+        qf = qr[:, q0:q0 + n].float()                  # (B, n, cq, Hkv, G, D)
+        qpc = qp[:, q0:q0 + n, None, None, :, None]    # (B, n, 1, 1, cq, 1)
+        m = torch.full((B, n, Hkv, G, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, n, Hkv, G, cq, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(nk):
+            part = slice(j * ck, (j + 1) * ck)
+            m, l, acc = _checkpointed(kv_step, qf, qpc, m, l, acc,
+                                      k[:, part], v[:, part],
+                                      k_pos[:, part])
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        # (B, n, Hkv, G, cq, D) -> (B, n, cq, Hkv, G, D)
+        outs.append(out.permute(0, 1, 4, 2, 3, 5).reshape(B, n * cq, H, D)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _attention_chunked_skipping(q, k, v, window, chunk_q: int, chunk_kv: int,
+                                softmax_scale, p_bf16: bool,
+                                static_window: Optional[int]):
+    """Causal chunked attention with static KV-range skipping: each q
+    chunk (unrolled) scans only KV chunks [lo, hi), hi the causal bound
+    and lo the window bound when the window is a static uniform int.
+    ``window`` still masks inside the diagonal blocks (gemma3's mixed
+    local:global layers).  Queries sit at the end of the keys
+    (q_offset = K - S)."""
+    B, S, H, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
+    cq, ck = _chunks(S, K, chunk_q, chunk_kv)
+    nq, nk = S // cq, K // ck
+    q_offset = K - S
+    qr = q.reshape(B, nq, cq, Hkv, G, D)
+    rows = torch.arange(cq, dtype=torch.int32, device=q.device)[:, None]
+    cols = torch.arange(ck, dtype=torch.int32, device=q.device)[None, :]
+
+    def kv_step(qf, q_start, m, l, acc, kc, vc, k_start):
+        logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc.float()) * scale
+        diff = (q_start + rows) - (k_start + cols)
+        mask = diff >= 0
+        if window is not None and window > 0:
+            mask &= diff < window
+        logits = torch.where(mask, logits, NEG_INF)
+        return _online_softmax_step((m, l, acc), logits, vc, p_bf16)
+
+    outs = []
+    for qi in range(nq):
+        q_start = qi * cq + q_offset
+        hi = min(nk, (q_start + cq - 1) // ck + 1)          # causal bound
+        lo = 0
+        if static_window and static_window > 0:
+            lo = max(0, (q_start - static_window + 1) // ck)
+        qf = qr[:, qi].float()                           # (B, cq, Hkv, G, D)
+        m = torch.full((B, Hkv, G, cq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Hkv, G, cq, D), dtype=torch.float32,
+                          device=q.device)
+        for j in range(lo, hi):
+            part = slice(j * ck, (j + 1) * ck)
+            m, l, acc = _checkpointed(kv_step, qf, q_start, m, l, acc,
+                                      k[:, part], v[:, part], j * ck)
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, cq, H, D)
+                    .to(q.dtype))
+    return torch.cat(outs, dim=1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,8 @@
 """The decoder-only LM of the JAX package's ``models/transformer.py``, for
-the dense architectures: its forward (logits and loss of one batch) and,
-through autograd, its gradients (``launch/steps.py::lm_train_step``).
+the dense architectures: its forward (logits and loss of one batch), its
+gradients through autograd (``launch/steps.py::lm_train_step``), and its
+serving path: ``prefill`` (the KV cache and the last position's logits)
+and ``decode_step`` (one token against a ring-buffer KV cache).
 
 One config-driven module:
   * dense SwiGLU FFN
@@ -16,17 +18,18 @@ One config-driven module:
 
 ``attention_impl="pallas"`` sends every layer's attention to
 ``kernels.flash_attention`` (the CUDA kernel on the card, its plain version
-on the CPU); ``"xla"`` runs ``layers.attention_xla``.  The reference's
-``pallas`` path sees its window as a traced scan value and drops it
+on the CPU); ``"xla"`` runs ``layers.attention_xla`` below
+``CHUNKED_ATTN_THRESHOLD`` and ``layers.attention_xla_chunked`` (tuned by
+``attn_chunk_q``, ``attn_chunk_kv``, ``attn_p_bf16`` and
+``attn_static_skip``) from it on.  The reference's ``pallas`` path sees
+its window as a traced scan value and drops it
 (``kernels/flash_attention/ops.py:17``); the port keeps it, so for windowed
 configs the port's ``pallas`` path equals the reference's ``xla`` path.
+``prefill`` takes the ``xla`` branches whatever ``attention_impl`` is, as
+the reference's does.
 
-Not in this slice (each raises, naming its ROADMAP queue 1 item): MoE
-configs, the chunked XLA attention at
-S >= ``CHUNKED_ATTN_THRESHOLD`` and a non-default value of its settings
-(``attn_chunk_q``, ``attn_chunk_kv``, ``attn_p_bf16``,
-``attn_static_skip``) or of ``moe_local_dispatch``, ``prefill`` and
-``decode_step``.
+MoE configs, and ``moe_local_dispatch``, raise: the MoE LM is ROADMAP queue
+1, item 4.
 """
 from __future__ import annotations
 
@@ -42,13 +45,13 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ..devices import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
-from .layers import (AttnParamsSpec, attention_xla, attn_qkv, init_attn,
-                     init_mlp, make_attention_mask, mlp_swiglu, rms_norm)
+from .layers import (AttnParamsSpec, attention_xla, attention_xla_chunked,
+                     attn_qkv, init_attn, init_mlp, make_attention_mask,
+                     mlp_swiglu, rms_norm)
 
 # sequences >= this use the chunked (flash-style) XLA attention path
 CHUNKED_ATTN_THRESHOLD = 2048
 
-_SERVING = "LM serving (ROADMAP queue 1, item 3)"
 _MOE = "MoE LM (ROADMAP queue 1, item 4)"
 
 
@@ -83,6 +86,13 @@ class TransformerConfig:
     attn_static_skip: bool = False     # static causal chunk skipping
     moe_local_dispatch: bool = False   # per-dp-shard MoE dispatch
     n_microbatches: int = 1            # gradient accumulation inside the step
+
+    @property
+    def static_window(self):
+        """The window when every layer has the same one, else None."""
+        return (self.sliding_window
+                if self.sliding_window > 0 and self.local_global_ratio == 0
+                else None)
 
     @property
     def is_moe(self) -> bool:
@@ -146,12 +156,7 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 # settings that tune code not ported yet; the port reads none of them, so a
 # value other than the default raises rather than being ignored
-_UNREAD_SETTINGS = {"attn_chunk_q": ("the chunked XLA attention", _SERVING),
-                    "attn_chunk_kv": ("the chunked XLA attention", _SERVING),
-                    "attn_p_bf16": ("the chunked XLA attention", _SERVING),
-                    "attn_static_skip": ("the chunked XLA attention",
-                                         _SERVING),
-                    "moe_local_dispatch": ("the MoE dispatch", _MOE)}
+_UNREAD_SETTINGS = {"moe_local_dispatch": ("the MoE dispatch", _MOE)}
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
@@ -257,61 +262,140 @@ class TransformerLM(nn.Module):
     def _attention(self, q, k, v, window: int, positions):
         if self.cfg.attention_impl == "pallas":
             return flash_attention(q, k, v, causal=True, window=window)
+        return self._xla_attention(q, k, v, window, positions)
+
+    def _xla_attention(self, q, k, v, window: int, positions):
+        """The reference's xla branches: chunked from
+        ``CHUNKED_ATTN_THRESHOLD`` on, masked below."""
+        cfg = self.cfg
+        if q.shape[1] >= CHUNKED_ATTN_THRESHOLD:
+            return attention_xla_chunked(
+                q, k, v, positions, positions, window=window, causal=True,
+                chunk_q=cfg.attn_chunk_q, chunk_kv=cfg.attn_chunk_kv,
+                p_bf16=cfg.attn_p_bf16,
+                static_positions=cfg.attn_static_skip,
+                static_window=cfg.static_window)
         mask = make_attention_mask(positions, positions, window, causal=True)
         return attention_xla(q, k, v, mask[:, None, None, :, :])
 
-    def _layer(self, layer: Block, window: int, x, positions):
-        """One decoder layer: x (B, S, d) -> x (B, S, d)."""
+    def _layer(self, layer: Block, window: int, x, positions,
+               attention=None):
+        """One decoder layer: x (B, S, d) -> (x (B, S, d), k, v), k and v
+        (B, S, Hkv, hd) the layer's rotated keys and values."""
         B, S, _ = x.shape
         h = rms_norm(x, layer.ln1)
         q, k, v = attn_qkv(layer.attn, h, self.cfg.attn_spec, positions,
                            self.cfg.rope_theta)
-        attn_out = self._attention(q, k, v, window, positions)
+        attn_out = (attention or self._attention)(q, k, v, window, positions)
         x = x + attn_out.reshape(B, S, -1) @ layer.attn["wo"].to(x.dtype)
         h2 = rms_norm(x, layer.ln2)
-        return x + mlp_swiglu(layer.mlp, h2)
+        return x + mlp_swiglu(layer.mlp, h2), k, v
+
+    def _block(self, layer: Block, window: int, x, positions):
+        return self._layer(layer, window, x, positions)[0]
+
+    def _embed(self, tokens):
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=self.device).expand(B, S)
+        return self.embed[tokens].to(self.cfg.dtype), positions
+
+    def _logits(self, x):
+        x = rms_norm(x, self.final_norm)
+        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        return x @ head.to(self.cfg.dtype)
 
     def forward(self, tokens):
         """tokens: (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux_loss)."""
         cfg = self.cfg
-        tokens = torch.as_tensor(tokens, device=self.device).long()
-        B, S = tokens.shape
-        if cfg.attention_impl == "xla" and S >= CHUNKED_ATTN_THRESHOLD:
-            raise NotImplementedError(
-                f"attention_impl='xla' at S {S} >= {CHUNKED_ATTN_THRESHOLD} "
-                f"takes the chunked XLA attention, not ported yet: "
-                f"{_SERVING}")
-        x = self.embed[tokens].to(cfg.dtype)
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=self.device).expand(B, S)
+        x, positions = self._embed(tokens)
         for layer, window in zip(self.layers, self.windows):
             if cfg.remat == "none":
-                x = self._layer(layer, window, x, positions)
+                x = self._block(layer, window, x, positions)
             elif cfg.remat == "full":
-                x = checkpoint(self._layer, layer, window, x, positions,
+                x = checkpoint(self._block, layer, window, x, positions,
                                use_reentrant=False)
             else:
-                x = checkpoint(self._layer, layer, window, x, positions,
+                x = checkpoint(self._block, layer, window, x, positions,
                                use_reentrant=False,
                                context_fn=functools.partial(
                                    create_selective_checkpoint_contexts,
                                    _dots_policy))
-        x = rms_norm(x, self.final_norm)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        logits = x @ head.to(cfg.dtype)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=self.device)
+        return self._logits(x), torch.zeros((), dtype=torch.float32,
+                                            device=self.device)
 
     def loss_fn(self, tokens, labels, aux_weight: float = 0.01):
         """(loss, {"nll", "aux"}) of next-token prediction on one batch."""
         logits, aux = self(tokens)
         return lm_loss(logits, aux, labels, aux_weight)
 
+    @torch.no_grad()
     def prefill(self, tokens):
-        raise NotImplementedError(f"prefill belongs to {_SERVING}")
+        """tokens: (B, S) -> (last logits (B, V) in ``cfg.dtype``, cache
+        {"k", "v": (L, B, S, Hkv, hd) in ``cfg.dtype``, "length": (B,)
+        int32, all S}).  Attention takes the reference's xla branches
+        (chunked at S >= ``CHUNKED_ATTN_THRESHOLD``, masked below) whatever
+        ``attention_impl`` is."""
+        cfg = self.cfg
+        x, positions = self._embed(tokens)
+        B, S = positions.shape
+        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+        ks = torch.empty(shape, dtype=cfg.dtype, device=self.device)
+        vs = torch.empty_like(ks)
+        for i, (layer, window) in enumerate(zip(self.layers, self.windows)):
+            x, k, v = self._layer(layer, window, x, positions,
+                                  attention=self._xla_attention)
+            ks[i].copy_(k)
+            vs[i].copy_(v)
+            del k, v
+        logits = self._logits(x[:, -1])
+        return logits, {"k": ks, "v": vs,
+                        "length": torch.full((B,), S, dtype=torch.int32,
+                                             device=self.device)}
 
+    @torch.no_grad()
     def decode_step(self, cache, token):
-        raise NotImplementedError(f"decode_step belongs to {_SERVING}")
+        """One decode step: token (B,) against ``cache`` (k/v (L, B, S,
+        Hkv, hd), S the allocated length, and ``length`` (B,) int32, the
+        tokens so far) -> (logits (B, V) in ``cfg.dtype``, {"k", "v",
+        "length": length + 1}).
+
+        The cache is a ring buffer: the new key and value go to slot
+        ``length[0] % S`` (every row decodes in step), written in place
+        into ``cache``'s own k and v (the counterpart of the reference's
+        donated buffer, with no host read of the slot), and slot i holds
+        absolute position ``cur - cur % S + i`` up to the slot just
+        written, ``cur - cur % S - S + i`` past it.  A slot is attended
+        when its position lies in [0, cur] and, for a windowed layer,
+        within the window."""
+        cfg = self.cfg
+        kc, vc, length = cache["k"], cache["v"], cache["length"]
+        L, B, S = kc.shape[:3]
+        token = torch.as_tensor(token, device=self.device).long()
+        x = self.embed[token].to(cfg.dtype)[:, None, :]            # (B, 1, d)
+        pos = length[:, None]                                      # (B, 1)
+        cur = length[0]
+        base = cur - cur % S
+        slot = (cur % S).long().reshape(1)
+        k_pos = torch.arange(S, dtype=length.dtype, device=self.device)
+        abs_pos = torch.where(k_pos <= cur % S, base + k_pos,
+                              base - S + k_pos).expand(B, S)
+        valid = ((abs_pos >= 0) & (abs_pos <= cur))[:, None, :]     # (B, 1, S)
+        diff = pos[:, :, None] - abs_pos[:, None, :]
+        for i, (layer, window) in enumerate(zip(self.layers, self.windows)):
+            h = rms_norm(x, layer.ln1)
+            q, k_new, v_new = attn_qkv(layer.attn, h, cfg.attn_spec, pos,
+                                       cfg.rope_theta)
+            kc[i].index_copy_(1, slot, k_new.to(kc.dtype))
+            vc[i].index_copy_(1, slot, v_new.to(vc.dtype))
+            mask = valid & (diff < window) if window > 0 else valid
+            attn_out = attention_xla(q, kc[i], vc[i],
+                                     mask[:, None, None, :, :])
+            x = x + attn_out.reshape(B, 1, -1) @ layer.attn["wo"].to(x.dtype)
+            x = x + mlp_swiglu(layer.mlp, rms_norm(x, layer.ln2))
+        return self._logits(x[:, 0]), {"k": kc, "v": vc,
+                                       "length": length + 1}
 
 
 # rows of logits taken to f32 at once by the loss (2^26 elements, 256 MiB)

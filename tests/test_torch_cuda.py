@@ -1111,6 +1111,92 @@ def test_cuda_gin_on_an_edge_list_with_a_hub(card, monkeypatch):
                                atol=1e-4 * scale)
 
 
+
+# ------------------------------------------------ GCN, SchNet, MACE; serving
+@pytest.mark.parametrize("arch", ["gcn-cora", "schnet", "mace"])
+def test_cuda_gnn_models_train_step_equals_cpu_step(card, monkeypatch, arch):
+    """One f32 ``gnn_train_step`` of a smoke config on molecules, on the
+    card and on the CPU, TF32 off: the output within
+    1e-4 of the CPU's largest |element| (``index_add_`` adds in atomic
+    order on the card), loss and grad norm within 1e-4 relative, every
+    parameter within 2 lr."""
+    import copy
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.data import graphs
+    from repro_torch.launch.steps import (GNN_MODELS, GNN_MODULES,
+                                          gnn_forward_step, gnn_train_step)
+    from repro_torch.optim import adamw
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = registry.get(arch).smoke_config
+    if arch == "gcn-cora":
+        cfg = dataclasses.replace(cfg, d_feat=16)
+    params = GNN_MODULES[arch].init_params(cfg,
+                                           torch.Generator().manual_seed(0))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    out = {}
+    for dev in ("cpu", card):
+        batch = graphs.molecules(n_graphs=8, n_atoms=12, seed=3, d_feat=16,
+                                 device=dev)
+        if arch == "gcn-cora":
+            batch = dataclasses.replace(batch, labels=batch.species % 7)
+        model = GNN_MODELS[arch](cfg, copy.deepcopy(params), device=dev)
+        state = adamw.init_state(model, opt_cfg)
+        y = gnn_forward_step(model, batch).cpu()
+        metrics = gnn_train_step(model, opt_cfg, state, batch)
+        out[str(dev)] = (model, metrics, y)
+    cpu, gpu = out["cpu"], out[str(card)]
+    scale = float(cpu[2].abs().max())
+    print(f"{arch}: max |card - cpu| / max |cpu| = "
+          f"{float((gpu[2] - cpu[2]).abs().max()) / scale}")
+    torch.testing.assert_close(gpu[2], cpu[2], rtol=0, atol=1e-4 * scale)
+    for key in ("loss", "grad_norm"):
+        a, b = float(gpu[1][key]), float(cpu[1][key])
+        assert abs(a - b) <= 1e-4 * abs(b), (key, a, b)
+    lr = float(cpu[1]["lr"])
+    for (name, p), (_, q) in zip(gpu[0].named_parameters(),
+                                 cpu[0].named_parameters()):
+        assert float((p.detach().cpu() - q.detach()).abs().max()) <= 2 * lr, \
+            name
+
+
+def test_cuda_prefill_and_decode_equal_cpu(card, monkeypatch):
+    """qwen3-4b's smoke config in f32, TF32 off: ``prefill`` at S 2048 (the
+    chunked attention) and at S 24, then 4 ``decode_step``s on a grown
+    cache, on the card and on the CPU: logits within 1e-4 of the CPU's
+    largest, the cache within 1e-4 of its largest, lengths equal."""
+    import dataclasses
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models.transformer import TransformerLM, init_params
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = dataclasses.replace(registry.get("qwen3-4b").smoke_config,
+                              dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    for S in (24, 2048):
+        tokens = rng.integers(0, cfg.vocab, (2, S))
+        feed = rng.integers(0, cfg.vocab, (4, 2))
+        runs = {}
+        for dev in ("cpu", card):
+            model = TransformerLM(cfg, params, device=dev)
+            logits, cache = model.prefill(tokens)
+            seen = [logits.cpu()]
+            cache = grow_cache(cache, S + 4)
+            for tok in feed:
+                logits, cache = model.decode_step(cache, torch.from_numpy(
+                    tok).to(dev))
+                seen.append(logits.cpu())
+            runs[str(dev)] = (seen, cache["k"].cpu(),
+                              cache["length"].cpu())
+        cpu, gpu = runs["cpu"], runs[str(card)]
+        for a, b in zip(gpu[0], cpu[0]):
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=1e-4 * float(b.abs().max()))
+        torch.testing.assert_close(gpu[1], cpu[1], rtol=0,
+                                   atol=1e-4 * float(cpu[1].abs().max()))
+        assert torch.equal(gpu[2], cpu[2])
+
 if __name__ == "__main__":
     import json
     print(json.dumps(flash_fwd_digests()))

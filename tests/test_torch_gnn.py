@@ -414,13 +414,26 @@ def test_params_round_trip_through_the_reference_layout():
 
 
 def test_registry_resolves_gin_and_names_the_rest():
+    """Every GNN arch resolves, and equals the reference's entry: family,
+    shapes, skips, and the configs and smoke configs field by field (the
+    dtype aside, f32 in both)."""
+    from repro.configs import registry as jax_registry
     entry = registry.get("gin-tu")
     assert entry.family == "gnn" and entry.config == gin.GINConfig()
     assert entry.smoke_config.d_hidden == 16
     assert "minibatch_lg" in entry.shapes
-    for arch in ("gcn-cora", "schnet", "mace"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            registry.get(arch)
+    for arch in ("gin-tu", "gcn-cora", "schnet", "mace"):
+        e, je = registry.get(arch), jax_registry.get(arch)
+        assert (e.family, e.skip_shapes) == (je.family, je.skip_shapes)
+        assert list(e.shapes) == list(je.shapes)
+        for cfg, jcfg in ((e.config, je.config),
+                          (e.smoke_config, je.smoke_config)):
+            fields, jfields = (dataclasses.asdict(cfg),
+                               dataclasses.asdict(jcfg))
+            assert fields.pop("dtype") == torch.float32
+            assert jfields.pop("dtype") == jnp.float32
+            assert fields == jfields
+    assert registry.get("schnet").smoke_config.n_rbf == 8
     assert registry.get("sasrec").family == "recsys"   # ported since
 
 
@@ -439,3 +452,23 @@ def test_gnn_entry_points_need_cuda_unless_asked_for_the_cpu(monkeypatch):
     batch = graphs.molecules(n_graphs=2, n_atoms=5, d_feat=64, device="meta")
     with pytest.raises(ValueError, match="on meta"):
         model(batch)
+
+
+def test_hub_sum_chunks_equal_one_index_add(monkeypatch):
+    """The hub sum of an edge-list batch, a chunk of edges at a time,
+    equals one ``index_add_`` of the gathered rows, and so do its
+    gradients to the rows (autograd through the gather and the add)."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((50, 7)).astype(np.float32))
+    senders = torch.from_numpy(rng.integers(0, 50, 301))
+    hub_of = torch.from_numpy(rng.integers(0, 9, 301))
+    cot = torch.from_numpy(rng.standard_normal((9, 7)).astype(np.float32))
+    monkeypatch.setattr(gin, "HUB_CHUNK_ELEMENTS", 20)   # 2 edges a chunk
+    leaf = x.clone().requires_grad_(True)
+    got = gin._HubSum.apply(leaf, senders, hub_of, 9)
+    (got * cot).sum().backward()
+    ref = x.clone().requires_grad_(True)
+    want = torch.zeros(9, 7).index_add_(0, hub_of, ref[senders])
+    (want * cot).sum().backward()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(leaf.grad, ref.grad, rtol=0, atol=0)

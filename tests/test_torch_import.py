@@ -49,7 +49,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.sasrec, repro_torch.data.recsys, "
             "repro_torch.ampc.async_engine, repro_torch.ampc.cache, "
             "repro_torch.ampc.session, repro_torch.graph.batching, "
-            "repro_torch.runtime.retry; "
+            "repro_torch.runtime.retry, repro_torch.launch.serve, "
+            "repro_torch.models.gnn.gcn, repro_torch.models.gnn.schnet, "
+            "repro_torch.models.gnn.mace, repro_torch.configs.qwen3_4b, "
+            "repro_torch.configs.gcn_cora, repro_torch.configs.sasrec_cfg; "
             "from repro_torch.ampc import RoutedDht; "
             "from repro_torch.core.dht import DhtMesh, make_mesh, "
             "routed_lookup; "
