@@ -161,7 +161,42 @@ CUDA toolkit.  It:
    decode).  Prints the prefill wall and tokens/s, decode ms a step and
    tokens/s, and peak memory of each run (long_500k is cut: gemma3's
    global layers need a 206 GB cache at B 1);
-11. trains gin-tu at full width (5 layers, d_hidden 64, f32, d_feat 602,
+11. runs the MoE LMs, llama4-scout then mixtral, at full width cut to 8
+   layers (215.5 and 281.3 GB of bf16 weights at full depth; 39.4 and
+   40.9 GB cut), seeded bf16 weights on the card, one model at a time:
+   two forwards on ``LM_SHAPES["train_4k"]`` cut to B 2 (S 4096), the
+   launch counts set to 0 just before each and read just after: 8 flash
+   launches a forward, all on the wgmma route (40 and 48 query heads over
+   8 kv heads: groups of 5 and 6), finite logits, a loss near ln(vocab),
+   every layer's load-balancing loss in (0, E] and summing to the
+   forward's aux, each layer's dropped share of its T·K slots printed.
+   Layer 0's MoE on its own input (T 8,192) in f32 with TF32 off is held
+   against a float64 host computation written with numpy alone (softmax
+   routes with ties to the lower expert, the stable capacity order, the
+   drops, SwiGLU per expert on 64 seeded tokens, llama4's shared expert):
+   routes equal but at near ties (host margin under 1e-5), drops equal,
+   outputs within 1e-3 of the largest.  ``launch.serve.serve`` on
+   prefill_32k cut to B 1 (a 32,768-token prompt, the reference's chunked
+   xla prefill; 16 tokens), then decode_32k cut to B 8 (that prompt's
+   cache in 8 rows, 16 steps): no kernel launch; row 0 within
+   ``SERVE_ROW_DRIFT`` of serve's B 1 logits unless one of its routes
+   differs at a bf16 near tie, its routes printed beside B 1's.  Then the
+   flash forward on layers 0 and 7's own q, k, v and the backward kernels
+   on layer 0's (B 1), against their plain versions and timed.  Then
+   mixtral at full width and 1 layer trains for three ``lm_train_step``s
+   (f32 parameters, remat "full", B 2 in 2 microbatches at S 4096): 4
+   forward, 2 dq and 2 dk/dv launches a step, all wgmma, finite losses
+   near ln(vocab) at step 0, every parameter changed, AdamW's count 3,
+   the last step profiled by kind (the dispatch's sorts and index kernels
+   apart); ``compress_tree`` on that step's gradients on the card equals
+   the same call on their CPU copies bit for bit, and decompress plus
+   feedback gives the corrected gradient within 1e-6.  Last,
+   ``TrainRunner`` on llama4's smoke config on the card stops at a
+   simulated preemption before step 4 of 8 and resumes from its
+   checkpoint (under ``build/``, removed after): its parameters equal an
+   uninterrupted run's within 1e-6 of each leaf's largest (bit-equality
+   printed);
+12. trains gin-tu at full width (5 layers, d_hidden 64, f32, d_feat 602,
    AdamW of the reference's ``specs._opt_cfg()``) on ``minibatch_lg``
    blocks: ``rmat(18, 437)`` (2^18 vertices, 78,980,768 directed edges),
    seeded standard-normal features put on the card once, 1024 seeds and
@@ -181,7 +216,7 @@ CUDA toolkit.  It:
    plain version and ``embedding_bag`` + ``matmul``.  Prints the host sampling,
    feature gather and step times, seeds/s, peak memory, and the last
    step's device time by kind of kernel (``torch.profiler``);
-12. trains the other GNN cells of the registry (arch x ``GNN_SHAPES``) at
+13. trains the other GNN cells of the registry (arch x ``GNN_SHAPES``) at
    full width, f32, TF32 off: gcn-cora on molecule (``molecules(128,
    30)``, 64 features), full_graph_sm (``cora_like()``), minibatch_lg (the
    gin phase's 1024-seed blocks) and ogb_products (``products_like`` at
@@ -201,7 +236,7 @@ CUDA toolkit.  It:
    the grad norm is inf, as in the reference, and the step only decays.
    schnet and mace on ogb_products are cut (their edge tensors need 148
    and 570 GB);
-13. drives SASRec at full size (the registry's ``sasrec``: 1,000,000
+14. drives SASRec at full size (the registry's ``sasrec``: 1,000,000
    items, d 50, 2 blocks, 1 head, seq 50; f32 parameters from seed 0) on
    the cells of ``REC_SHAPES``, every call with the launch counts set to 0
    just before and read just after: ``serve_p99`` (``rec_serve_step`` at B
@@ -221,7 +256,7 @@ CUDA toolkit.  It:
    batch's histories (3,276,800 keys into the trained table; its wrapper
    one kernel beyond the sort) and on one ``serve_bulk`` call's candidates
    (33,554,432 keys, 6.7 GB of rows), each timed alone;
-14. calls ``embedding_bag`` (the op's own entry point; no model of either
+15. calls ``embedding_bag`` (the op's own entry point; no model of either
    package reaches it) on the trained item table with step 0's 65,536
    histories as bags, the counts set to 0 just before and read just after:
    one launch.  The kernel is held against its plain version bit for bit
@@ -237,13 +272,15 @@ CUDA toolkit.  It:
    (``sector_bytes``) and the same counted bag by bag
    (``bag_sector_bytes``: what HBM serves when no row stays in L2 from
    one bag to the next);
-15. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+16. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
    (the engine's solves, the serving phases, the routed phase's 0, the
    eager phase's 2, the SASRec cells); the
    flash forward: the first layer's own q, k, v, its kernel route and the
-   SIMT kernel's time there; dq and dk/dv: the
-   training path's shape, their route and the SIMT kernels' time there;
+   SIMT kernel's time there, with its launches by phase (the qwen3-4b
+   forward and step, the MoE forwards and mixtral's steps); dq and dk/dv:
+   the training path's shape, their route and the SIMT kernels' time
+   there, with their launches by phase;
    segment_matmul: GIN layer 0's own inputs in the
    forward, with its launches by phase (the gin phase's and the
    ``gnn_models`` GIN cells'); embedding_bag: the trained item table and step 0's histories)
@@ -392,6 +429,34 @@ SERVE_ROW_DRIFT = 0.1
 # order carried through 36 layers), and the chunked attention against
 # attention_xla at S 4096 on layer 0's q, k, v (1e-5 of the largest output)
 SERVE_DECODE_RTOL, SERVE_CHUNK_SEQ, SERVE_CHUNK_RTOL = 1e-3, 4096, 1e-5
+# moe_lm: llama4-scout and mixtral at full width, cut to MOE_LAYERS layers
+# (at full depth 215.5 and 281.3 GB of bf16 weights), one after the other;
+# train_4k cut to B 2, prefill_32k to B 1, decode_32k to B 8 (16 tokens)
+MOE_ARCHS = ("llama4-scout-17b-a16e", "mixtral-8x22b")
+MOE_LAYERS, MOE_BATCH = 8, 2
+# layer 0's MoE in f32 (TF32 off) on the card against a float64 host
+# computation on its own input: a route may differ only where the host's
+# probabilities of the two experts lie within MOE_ROUTE_MARGIN; the
+# experts' outputs on MOE_HOST_SAMPLE seeded tokens within MOE_OUT_RTOL of
+# the largest element (f32 products over d 5120-6144 and f 8192-16384)
+MOE_ROUTE_MARGIN, MOE_HOST_SAMPLE, MOE_OUT_RTOL, MOE_SAMPLE_SEED = \
+    1e-5, 64, 1e-3, 4
+# decode_32k's row 0 against serve's B 1 step: a route of row 0 that
+# differs between the two batches must be a bf16 near tie (the B 1 run's
+# probabilities of the two experts within this much); only then may the
+# row move past SERVE_ROW_DRIFT
+MOE_NEAR_TIE = 2e-2
+# mixtral training at 1 layer: 2.91B f32 parameters with gradients and
+# AdamW's m and v are 46.5 GB (2 layers: 86 GB; llama4's 202,048-row
+# embedding and head take even its 1 layer to 68 GB)
+MOE_TRAIN_ARCH, MOE_TRAIN_LAYERS = "mixtral-8x22b", 1
+# compress_tree's feedback identity: decompress(q, s) + feedback equals
+# the corrected gradient within this (absolute; two f32 roundings)
+MOE_COMPRESS_ATOL = 1e-6
+# TrainRunner on llama4's smoke config: a crash before step 4 of 8, a
+# resume, and an uninterrupted run, each leaf within 1e-6 of its largest
+MOE_RUNNER_ARCH, MOE_RUNNER_STEPS, MOE_RUNNER_CRASH, MOE_RUNNER_RTOL = \
+    "llama4-scout-17b-a16e", 8, 4, 1e-6
 # sasrec: the registry's config at full size (1,000,000 items, d 50, 2
 # blocks, 1 head, seq 50), f32 parameters from seed 0; histories from
 # batch_at_step's seed 0; 1024 candidates a user from seed 0, drawn in
@@ -2728,6 +2793,60 @@ def serve_line(name, r, batch, prompt_len, gen, launches):
             "generated": r["generated"][0].tolist()}
 
 
+def decode_rows(model, one, first_token, prompt):
+    """decode_32k cut to B 8: ``one``, a B 1 prompt's cache from
+    ``serve``, copied into SERVE_DECODE_BATCH rows of a zero-filled cache
+    of prompt + SERVE_GEN slots; SERVE_GEN decode steps, row 0 fed
+    ``first_token`` and the other rows seeded tokens, the launch counts
+    set to 0 just before.  Returns {"row0": row 0's f32 logits at the
+    first step, "decode_s", "cache_gib", "launches", "peak_mem_gib"}."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import lm_decode_step
+    cfg, B = model.cfg, SERVE_DECODE_BATCH
+    torch.cuda.reset_peak_memory_stats()
+    shape = (cfg.n_layers, B, prompt + SERVE_GEN, cfg.n_kv_heads,
+             cfg.head_dim)
+    cache = {}
+    for name in ("k", "v"):
+        cache[name] = torch.zeros(shape, dtype=cfg.dtype, device=model.device)
+        cache[name][:, :, :prompt].copy_(one[name][:, :, :prompt])
+    cache["length"] = torch.full((B,), prompt, dtype=torch.int32,
+                                 device=model.device)
+    del one
+    rng = np.random.default_rng(SERVE_TOKEN_SEED)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, B)).to(model.device)
+    tok[0] = first_token
+    zero_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(SERVE_GEN):
+        logits, cache = lm_decode_step(model, cache, tok)
+        if step == 0:
+            row0 = logits[0].float()
+        tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = launch_counts()
+    check(bool(torch.isfinite(logits).all()), "decode_32k logits")
+    check(int(cache["length"][0]) == prompt + SERVE_GEN, "decode_32k length")
+    return {"row0": row0, "decode_s": decode_s, "launches": launches,
+            "cache_gib": 2 * cache["k"].numel() * cache["k"].element_size()
+            / 2**30,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def decode_line(phase, cell, d, drift):
+    B = SERVE_DECODE_BATCH
+    return {"phase": phase, "cell": cell, "batch": B,
+            "cache_slots": SERVE_PROMPT + SERVE_GEN,
+            "cache_gib": d["cache_gib"],
+            "decode_ms_per_step": d["decode_s"] / SERVE_GEN * 1e3,
+            "decode_tok_s": B * SERVE_GEN / d["decode_s"],
+            "row0_drift_of_max": drift, "peak_mem_gib": d["peak_mem_gib"],
+            "launches": {k: v for k, v in d["launches"].items() if v}}
+
+
 def lm_serve_phase():
     """qwen3-4b at full width and depth with seeded bf16 weights:
     ``serve`` at prefill_32k cut to B 1 (32,768 prompt tokens, 16
@@ -2744,7 +2863,6 @@ def lm_serve_phase():
     import torch
     from repro_torch.configs import registry
     from repro_torch.launch.serve import grow_cache, serve
-    from repro_torch.launch.steps import lm_decode_step
     from repro_torch.models.layers import (attention_xla,
                                            attention_xla_chunked, attn_qkv,
                                            make_attention_mask, rms_norm)
@@ -2780,52 +2898,19 @@ def lm_serve_phase():
 
     # decode_32k, B 8: the prompt's cache in 8 rows of a zero-filled cache
     t0 = time.perf_counter()
-    B = SERVE_DECODE_BATCH
-    one = r["cache"]
-    first_logits, first_token = r["logits"][1, 0].float(), \
-        int(r["generated"][0, 0])
+    first_logits = r["logits"][1, 0].float()
+    d = decode_rows(model, r.pop("cache"), int(r["generated"][0, 0]),
+                    prompt)
     del r
-    torch.cuda.reset_peak_memory_stats()
-    shape = (cfg.n_layers, B, prompt + SERVE_GEN, cfg.n_kv_heads,
-             cfg.head_dim)
-    cache = {}
-    for name in ("k", "v"):
-        cache[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
-        cache[name][:, :, :prompt].copy_(one[name][:, :, :prompt])
-    cache["length"] = torch.full((B,), prompt, dtype=torch.int32,
-                                 device=dev)
-    del one
-    cache_gib = 2 * cache["k"].numel() * cache["k"].element_size() / 2**30
-    rng = np.random.default_rng(SERVE_TOKEN_SEED)
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab, B)).to(dev)
-    tok[0] = first_token
-    zero_launch_counts()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for step in range(SERVE_GEN):
-        logits, cache = lm_decode_step(model, cache, tok)
-        if step == 0:
-            row0 = logits[0].float()
-        tok = torch.argmax(logits, dim=-1)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t1
-    launches = no_kernel("decode at decode_32k")
-    check(bool(torch.isfinite(logits).all()), "decode_32k logits")
-    check(int(cache["length"][0]) == prompt + SERVE_GEN, "decode_32k length")
+    no_kernel("decode at decode_32k")
     # row 0 decodes serve's first token on the same prompt: its logits
     # equal serve's second step's up to bf16 numerics at another batch
-    drift = float((row0 - first_logits).abs().max()
+    drift = float((d["row0"] - first_logits).abs().max()
                   / first_logits.abs().max())
     check(drift <= SERVE_ROW_DRIFT, f"decode_32k row 0 moves {drift} of the "
           f"largest logit from serve's B 1 step")
-    emit({"phase": "lm_serve", "cell": "decode_32k_b8", "batch": B,
-          "cache_slots": prompt + SERVE_GEN, "cache_gib": cache_gib,
-          "decode_ms_per_step": decode_s / SERVE_GEN * 1e3,
-          "decode_tok_s": B * SERVE_GEN / decode_s,
-          "row0_drift_of_max": drift,
-          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-          "launches": {k: v for k, v in launches.items() if v}})
-    del cache, logits, tok, row0, first_logits
+    emit(decode_line("lm_serve", "decode_32k_b8", d, drift))
+    del d, first_logits
     torch.cuda.empty_cache()
     walls["decode_32k"] = time.perf_counter() - t0
 
@@ -2913,6 +2998,591 @@ def lm_serve_phase():
     torch.cuda.empty_cache()
     walls["gemma3"] = time.perf_counter() - t0
     emit({"phase": "lm_serve_seconds", **walls})
+
+
+# --------------------------------------------------------------------------
+# phase: the MoE LM (llama4-scout, mixtral), its training and the runtime
+# --------------------------------------------------------------------------
+# kernel names of an MoE step's parts, as the profiler reports them: the
+# dispatch is the sorts (routes, capacity order) and the index kernels
+# (gather into the buffer, the combine's index_add, their backward)
+MOE_KERNEL_KINDS = KERNEL_KINDS[:3] + (
+    ("dispatch_sort", ("radixsort", "sort")),
+    ("dispatch_index", ("index", "scatter", "gather")),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass")))
+
+
+@contextlib.contextmanager
+def recorded_routes():
+    """Every ``moe.route`` call's ``Routing`` and input, in call order,
+    while the block runs (the model's own calls are unchanged)."""
+    from repro_torch.models import moe
+    real, calls = moe.route, []
+
+    def route(router, xt, spec):
+        r = real(router, xt, spec)
+        calls.append((r, xt, router))
+        return r
+
+    moe.route = route
+    try:
+        yield calls
+    finally:
+        moe.route = real
+
+
+def host_moe_check(tag, spec, p32, weights, xt):
+    """Layer 0's MoE on its own (T, d) input in f32 on the card (TF32 off;
+    ``p32`` its parameters cast to f32) against a float64 host computation
+    written here with numpy alone from ``weights``, the same parameters in
+    the model's bf16: softmax routes (ties to the lower expert), the
+    stable capacity order and its drops, SwiGLU per expert on a seeded
+    sample of tokens, and the shared expert."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    T, d = xt.shape
+    E, K = spec.n_experts, spec.top_k
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            r = moe.route(p32["router"], xt, spec)
+            out, aux = moe.moe_apply(p32, xt[None], spec)
+            torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    card_idx = r.gate_idx.cpu().numpy()
+    card_keep = r.kept_by_token().cpu().numpy()
+    out = out[0]
+    x = xt.cpu().double().numpy()
+    logits = x @ weights["router"].cpu().double().numpy()
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob /= prob.sum(1, keepdims=True)
+    host_idx = np.argsort(-prob, axis=1, kind="stable")[:, :K]
+    hs, cs = np.sort(host_idx, 1), np.sort(card_idx, 1)
+    flips = np.where((hs != cs).any(1))[0]
+    margins = [float(prob[t, hs[t]].min()
+                     - prob[t, np.setdiff1d(cs[t], hs[t])].max())
+               for t in flips]
+    check(all(m < MOE_ROUTE_MARGIN for m in margins),
+          f"{tag}: routes differ from the host's past a near tie: {margins}")
+    # the host resolves each near tie the card's way, then everything
+    # downstream must agree exactly
+    routes = host_idx.copy()
+    routes[flips] = card_idx[flips]
+    gates = np.take_along_axis(prob, routes, 1)
+    gates /= np.maximum(gates.sum(1, keepdims=True), 1e-9)
+    A = T * K
+    C = int(math.ceil(A / E * spec.capacity_factor))
+    se = routes.reshape(-1)
+    order = np.argsort(se, kind="stable")
+    start = np.searchsorted(se[order], np.arange(E))
+    keep = np.empty(A, bool)
+    keep[order] = np.arange(A) - start[se[order]] < C
+    keep = keep.reshape(T, K)
+    kept_host = np.zeros((T, E), bool)
+    kept_card = np.zeros((T, E), bool)
+    rows = np.arange(T)[:, None]
+    kept_host[np.broadcast_to(rows, routes.shape)[keep], routes[keep]] = True
+    kept_card[np.broadcast_to(rows, card_idx.shape)[card_keep],
+              card_idx[card_keep]] = True
+    drop_diff = int((kept_host != kept_card).any(1).sum())
+    check(drop_diff == 0, f"{tag}: {drop_diff} tokens' drops differ from "
+          f"the host's")
+    gate_te = np.zeros((T, E))
+    np.put_along_axis(gate_te, routes, gates, 1)
+
+    def swiglu(xs, wg, wu, wd):
+        h = xs @ wg
+        return (h / (1 + np.exp(-h)) * (xs @ wu)) @ wd
+
+    def host(w):
+        return w.cpu().double().numpy()
+
+    sample = np.sort(np.random.default_rng(MOE_SAMPLE_SEED).choice(
+        T, MOE_HOST_SAMPLE, replace=False))
+    want = np.zeros((len(sample), d))
+    for e in range(E):
+        sel = np.where(kept_host[sample, e])[0]
+        if len(sel):
+            y = swiglu(x[sample[sel]], host(weights["w_gate"][e]),
+                       host(weights["w_up"][e]), host(weights["w_down"][e]))
+            want[sel] += gate_te[sample[sel], e][:, None] * y
+    if spec.shared_expert:
+        sh = weights["shared"]
+        want += swiglu(x[sample], host(sh["w_gate"]), host(sh["w_up"]),
+                       host(sh["w_down"]))
+    got = out[torch.from_numpy(sample).to(out.device)].cpu().double().numpy()
+    err = float(np.abs(got - want).max())
+    limit = MOE_OUT_RTOL * float(np.abs(want).max())
+    check(err <= limit, f"{tag}: layer 0's MoE differs from the host's by "
+          f"{err} (limit {limit})")
+    line = {"phase": "moe_layer_vs_host", "arch": tag, "tokens": T,
+            "capacity": C, "route_flips": len(flips), "flip_margins": margins,
+            "dropped_slots": int((~keep).sum()), "slots": A,
+            "dropped_share": float((~keep).mean()),
+            "sample_tokens": MOE_HOST_SAMPLE, "max_abs_err": err,
+            "limit": limit, "aux": float(aux)}
+    emit(line)
+    return line
+
+
+def moe_serve(tag, cfg, model, calls):
+    """``serve`` at prefill_32k cut to B 1 (16 tokens), then decode_32k cut
+    to B 8 (the prompt's cache in 8 rows, 16 steps); row 0 against serve's
+    B 1 step, its routes at each layer beside the B 1 run's.  No kernel
+    launches.  Returns the two lines."""
+    import torch
+    from repro_torch.launch.serve import serve
+    zero = dict.fromkeys(launch_counts(), 0)
+    prompt, gen = SERVE_PROMPT, SERVE_GEN
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    calls.clear()
+    r = serve(cfg.name, False, 1, prompt, gen, seed=LM_DATA_SEED,
+              model=model)
+    launches = launch_counts()
+    check(launches == zero, f"{tag} serve launched {launches}")
+    prefill_line = dict(serve_line(f"{tag}_prefill_32k_b1", r, 1, prompt,
+                                   gen, launches), phase="moe_serve")
+    # serve's first decode step: the calls after the prefill's L
+    L = cfg.n_layers
+    b1 = [(c[0].gate_idx[0].cpu(), row0_probs(c)) for c in calls[L:2 * L]]
+    first_logits = r["logits"][1, 0].float()
+    calls.clear()
+    d = decode_rows(model, r.pop("cache"), int(r["generated"][0, 0]),
+                    prompt)
+    del r
+    check(d["launches"] == zero, f"{tag} decode launched {d['launches']}")
+    b8 = [(c[0].gate_idx[0].cpu(), row0_probs(c)) for c in calls[:L]]
+    flips = []
+    for layer, ((i1, p1), (i8, _)) in enumerate(zip(b1, b8)):
+        a, b = set(i1.tolist()), set(i8.tolist())
+        if a != b:
+            gap = float(min(p1[e] for e in a) - max(p1[e] for e in b - a))
+            flips.append({"layer": layer, "b1": sorted(a), "b8": sorted(b),
+                          "gap": gap})
+    drift = float((d["row0"] - first_logits).abs().max()
+                  / first_logits.abs().max())
+    check(all(f["gap"] <= MOE_NEAR_TIE for f in flips),
+          f"{tag}: row 0's routes differ between B 1 and B 8 past a near "
+          f"tie: {flips}")
+    check(drift <= SERVE_ROW_DRIFT or flips,
+          f"{tag}: decode_32k row 0 moves {drift} of the largest logit "
+          f"from serve's B 1 step, with every route equal")
+    line = dict(decode_line("moe_serve", f"{tag}_decode_32k_b8", d, drift),
+                row0_routes_b1=[sorted(i.tolist()) for i, _ in b1],
+                row0_route_flips=flips)
+    return prefill_line, line
+
+
+def row0_probs(call):
+    """Row 0's router probabilities of one recorded ``route`` call."""
+    import torch
+    _, xt, router = call
+    return torch.softmax((xt[:1] @ router.to(xt.dtype)).float(),
+                         -1)[0].cpu().tolist()
+
+
+def moe_model_run(arch):
+    """One MoE arch cut to MOE_LAYERS layers with seeded bf16 weights: two
+    forwards at train_4k cut to B 2 (8 flash launches each, all wgmma),
+    layer 0's MoE against the host, serving, then the flash kernels on
+    layers 0 and 7's own q, k, v and the backward kernels on layer 0's.
+    Returns (forward launches, flash rows, backward rows)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import transformer
+    from repro_torch.models.transformer import (TransformerLM, init_params,
+                                                lm_loss)
+
+    dev = torch.device("cuda")
+    full = registry.get(arch).config
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS,
+                              attention_impl="pallas")
+    tag = arch.split("-")[0]
+    shape = LM_SHAPES[LM_SHAPE]
+    walls = {}
+    t0 = time.perf_counter()
+    model = TransformerLM(cfg, init_params(cfg, torch.Generator(
+        device=dev).manual_seed(LM_SEED), dtype=cfg.dtype))
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(),
+          f"{arch}: {n_params} parameters, param_count() "
+          f"{cfg.param_count()}")
+    tokens, labels = batch_at_step(TokenStreamConfig(
+        cfg.vocab, shape.seq_len, MOE_BATCH, seed=LM_DATA_SEED), 0)
+    tokens = torch.from_numpy(tokens).to(dev)
+    labels = torch.from_numpy(labels).to(dev)
+    torch.cuda.synchronize()
+    emit({"phase": "moe_setup", "arch": arch, "n_layers": cfg.n_layers,
+          "full_layers": full.n_layers, "param_count": cfg.param_count(),
+          "params": n_params, "full_param_count": full.param_count(),
+          "weights_gib": torch.cuda.memory_allocated() / 2**30,
+          "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+          "group": cfg.n_heads // cfg.n_kv_heads,
+          "experts": cfg.moe_experts, "top_k": cfg.moe_top_k,
+          "window": cfg.sliding_window, "batch": MOE_BATCH,
+          "seq": shape.seq_len, "seconds": time.perf_counter() - t0})
+
+    recorded = {}
+    kernel_call = flash_ops.flash_attention
+    check(transformer.flash_attention is kernel_call,
+          "the model does not call ops.flash_attention")
+
+    def recording(q, k, v, causal=True, window=0):
+        n = recording.calls
+        recording.calls += 1
+        if n % cfg.n_layers in (0, cfg.n_layers - 1):
+            recorded.setdefault(n % cfg.n_layers, (q, k, v, window))
+        return kernel_call(q, k, v, causal=causal, window=window)
+
+    recording.calls = 0
+    transformer.flash_attention = recording
+    main_launches = 0
+    L, E = cfg.n_layers, cfg.moe_experts
+    t_start = time.perf_counter()
+    try:
+        with recorded_routes() as calls:
+            for rep in range(2):
+                calls.clear()
+                zero_launch_counts()
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    logits, aux = model(tokens)
+                    torch.cuda.synchronize()
+                    fwd = time.perf_counter() - t0
+                    loss, metrics = lm_loss(logits, aux, labels)
+                torch.cuda.synchronize()
+                launches = launch_counts()
+                by_route = {"wgmma": launches["fwd_wgmma"],
+                            "simt": launches["fwd_simt"]}
+                main_launches += launches["fwd"]
+                check(launches["fwd"] == L and by_route == {"wgmma": L,
+                                                            "simt": 0},
+                      f"{arch} forward launched {launches}, expected {L} "
+                      f"flash launches on the wgmma route")
+                check(sum(launches.values()) == 2 * L,
+                      f"{arch} forward launched another kernel: {launches}")
+                check(bool(torch.isfinite(logits).all()),
+                      f"{arch} logits not finite")
+                nll = float(metrics["nll"])
+                check(abs(nll / math.log(cfg.vocab) - 1) < 0.35,
+                      f"{arch} untrained nll {nll} far from ln(V)")
+                check(len(calls) == L, f"{len(calls)} MoE calls for {L} "
+                      f"layers")
+                auxs = [float(c[0].aux) for c in calls]
+                check(all(math.isfinite(a) and 0 < a <= E for a in auxs),
+                      f"{arch} layer aux losses {auxs}")
+                check(abs(sum(auxs) - float(aux)) <= 1e-4 * max(auxs),
+                      f"{arch} forward's aux {float(aux)} is not the sum "
+                      f"of its layers' {auxs}")
+                dropped = [float((~c[0].keep).float().mean()) for c in calls]
+                if rep == 0:
+                    xt0 = calls[0][1].float()
+                emit({"phase": "moe_forward", "arch": arch, "rep": rep,
+                      "forward_s": fwd,
+                      "tokens_per_s": MOE_BATCH * shape.seq_len / fwd,
+                      "flash_launches": launches["fwd"],
+                      "flash_launches_by_route": by_route,
+                      "loss": float(loss), "nll": nll,
+                      "ln_vocab": math.log(cfg.vocab),
+                      "aux_by_layer": auxs, "dropped_share_by_layer": dropped,
+                      "capacity": calls[0][0].capacity,
+                      "peak_mem_gib":
+                      torch.cuda.max_memory_allocated() / 2**30})
+                del logits, loss, metrics
+            walls["forwards"] = time.perf_counter() - t_start
+
+            t0 = time.perf_counter()
+            moe0 = model.layers[0].moe
+            p16 = {k: ({n: w.detach() for n, w in moe0[k].items()}
+                       if k == "shared" else moe0[k].detach())
+                   for k in moe0.keys()}
+            p32 = {k: ({n: w.float() for n, w in v.items()}
+                       if k == "shared" else v.float())
+                   for k, v in p16.items()}
+            host_moe_check(tag, cfg.moe_spec, p32, p16, xt0)
+            del p16, p32, xt0
+            torch.cuda.empty_cache()
+            walls["layer_vs_host"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            for line in moe_serve(tag, cfg, model, calls):
+                emit(dict(line, arch=arch))
+            walls["serve"] = time.perf_counter() - t0
+    finally:
+        transformer.flash_attention = kernel_call
+    del model
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    check(sorted(recorded) == [0, L - 1], f"recorded layers "
+          f"{sorted(recorded)}")
+    rows = []
+    for layer in sorted(recorded):
+        q, k, v, window = recorded[layer]
+        check(tuple(q.shape) == (MOE_BATCH, shape.seq_len, cfg.n_heads,
+                                 cfg.head_dim), f"{arch} layer {layer} q")
+        # at S 4096 mixtral's window of 4096 masks no causal pair, so SDPA
+        # computes the same function
+        rows.append(flash_case(f"{tag}_layer{layer}", q, k, v, window,
+                               timed=layer == 0, library=layer == 0))
+    q, k, v, window = recorded[0]
+    g = torch.Generator(device=dev).manual_seed(LM_SEED)
+    do = torch.randn(q[:1].shape, generator=g, device=dev).to(q.dtype)
+    bwd_row = bwd_case(f"{tag}_layer0_b1", q[:1], k[:1], v[:1], do, window,
+                       timed=True, library=False)
+    del recorded, q, k, v, do
+    torch.cuda.empty_cache()
+    walls["kernels"] = time.perf_counter() - t0
+    emit({"phase": "moe_seconds", "arch": arch, **walls})
+    return main_launches, rows, [bwd_row]
+
+
+def moe_train_run():
+    """Three ``lm_train_step``s of mixtral at full width and 1 layer (f32
+    parameters, bf16 compute, remat "full", B 2 in 2 microbatches at S
+    4096), the counts set to 0 just before each step and read just after;
+    the last step under the profiler.  Then ``compress_tree`` on the last
+    step's gradients, on the card and on their CPU copies.  Returns the
+    launches of the three steps."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.shapes import LM_SHAPES
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import TransformerLM, init_params
+    from repro_torch.optim import adamw, grad_compression
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(registry.get(MOE_TRAIN_ARCH).config,
+                              n_layers=MOE_TRAIN_LAYERS,
+                              attention_impl="pallas", remat="full",
+                              n_microbatches=TRAIN_MICRO)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+    shape = LM_SHAPES[LM_SHAPE]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg, init_params(
+        cfg, torch.Generator(device=dev).manual_seed(LM_SEED)))
+    state = adamw.init_state(model, opt_cfg)
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    before = {n: fingerprint(p) for n, p in named.items()}
+    torch.cuda.synchronize()
+    emit({"phase": "moe_train_setup", "arch": MOE_TRAIN_ARCH,
+          "n_layers": cfg.n_layers, "params": n_params,
+          "param_count": cfg.param_count(),
+          "params_grads_m_v_gib": 16 * n_params / 2**30,
+          "allocated_gib": torch.cuda.memory_allocated() / 2**30,
+          "global_batch": TRAIN_BATCH, "microbatches": TRAIN_MICRO,
+          "seq": shape.seq_len, "remat": cfg.remat,
+          "seconds": time.perf_counter() - t0})
+    stream = TokenStreamConfig(cfg.vocab, shape.seq_len, TRAIN_BATCH,
+                               seed=LM_DATA_SEED)
+    L = cfg.n_layers
+    want = dict.fromkeys(launch_counts(), 0)
+    want.update(fwd=2 * TRAIN_MICRO * L, fwd_wgmma=2 * TRAIN_MICRO * L,
+                dq=TRAIN_MICRO * L, dq_wgmma=TRAIN_MICRO * L,
+                dkv=TRAIN_MICRO * L, dkv_wgmma=TRAIN_MICRO * L)
+    total = dict.fromkeys(want, 0)
+    # keep the last step's gradients, as the step hands them to AdamW
+    real_apply, kept = steps.adamw.apply_updates, {}
+
+    def keeping_apply(cfg_, params, grads, st):
+        if profiled:
+            kept.update(grads)
+        return real_apply(cfg_, params, grads, st)
+
+    steps.adamw.apply_updates = keeping_apply
+    losses = []
+    try:
+        for step in range(TRAIN_STEPS):
+            tokens, labels = batch_at_step(stream, step)
+            tokens = torch.from_numpy(tokens).to(dev)
+            labels = torch.from_numpy(labels).to(dev)
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            profiled = step == TRAIN_STEPS - 1
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU,
+                                torch.profiler.ProfilerActivity.CUDA],
+                    record_shapes=False) if profiled \
+                    else contextlib.nullcontext() as prof:
+                t0 = time.perf_counter()
+                metrics = steps.lm_train_step(model, opt_cfg, state, tokens,
+                                              labels)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = launch_counts()
+            check(launches == want, f"moe train step {step} launched "
+                  f"{launches}, expected {want}")
+            for key in total:
+                total[key] += launches[key]
+            m = {k: float(v) for k, v in metrics.items()}
+            losses.append(m["loss"])
+            check(all(math.isfinite(x) for x in m.values()),
+                  f"moe train step {step} metrics not finite: {m}")
+            check(m["grad_norm"] > 0 and m["aux"] > 0,
+                  f"moe train step {step}: {m}")
+            if step == 0:
+                check(abs(m["nll"] / math.log(cfg.vocab) - 1) < 0.35,
+                      f"untrained nll {m['nll']} far from ln(V)")
+            emit({"phase": "moe_train", "arch": MOE_TRAIN_ARCH, "step": step,
+                  "step_s": wall,
+                  "tokens_per_s": TRAIN_BATCH * shape.seq_len / wall,
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "profiled": profiled, "launches": launches, **m})
+            if profiled:
+                emit({"phase": "moe_train_profile", "step": step,
+                      "wall_ms": wall * 1e3,
+                      **device_time_by_kind(prof, wall * 1e3,
+                                            MOE_KERNEL_KINDS)})
+    finally:
+        steps.adamw.apply_updates = real_apply
+    check(int(state["step"]) == TRAIN_STEPS,
+          f"AdamW step count {int(state['step'])}")
+    unchanged = [n for n, p in named.items() if fingerprint(p) == before[n]]
+    check(not unchanged, f"parameters unchanged by training: {unchanged}")
+    emit({"phase": "moe_train_summary", "losses": losses, "launches": total})
+    grads = dict(kept)
+    kept.clear()
+    del model, state, named, metrics
+    torch.cuda.empty_cache()
+
+    # compression on the card against the same call on the CPU copies
+    t0 = time.perf_counter()
+    fb = grad_compression.init_feedback(grads)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    q, s, new_fb = grad_compression.compress_tree(grads, fb)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t1
+    del fb
+    worst, mismatched = 0.0, []
+    for name in grads:
+        rec = grad_compression.decompress(q[name], s[name]) + new_fb[name]
+        worst = max(worst, float((rec - grads[name].float()).abs().max()))
+        del rec
+        gc = grads[name].cpu()
+        cq, cs, cfb = grad_compression.compress(
+            gc, torch.zeros(gc.shape, dtype=torch.float32))
+        if not (torch.equal(cq, q[name].cpu())
+                and torch.equal(cs, s[name].cpu())
+                and torch.equal(cfb, new_fb[name].cpu())):
+            mismatched.append(name)
+        del gc, cq, cs, cfb
+    check(not mismatched, f"compress_tree on the card differs from the CPU "
+          f"at {mismatched}")
+    check(worst <= MOE_COMPRESS_ATOL, f"decompress + feedback misses the "
+          f"corrected gradient by {worst}")
+    n = sum(g.numel() for g in grads.values())
+    emit({"phase": "moe_compress", "leaves": len(grads), "elements": n,
+          "grad_bytes": 4 * n, "int8_bytes": n, "card_s": card_s,
+          "feedback_max_err": worst, "bit_equal_to_cpu": True,
+          "largest_scale": max(float(v) for v in s.values()),
+          "seconds": time.perf_counter() - t0})
+    del grads, q, s, new_fb
+    torch.cuda.empty_cache()
+    return total
+
+
+def moe_runner_run():
+    """``TrainRunner`` on the card over ``lm_train_step`` (llama4's smoke
+    config): a simulated preemption before step MOE_RUNNER_CRASH of
+    MOE_RUNNER_STEPS, a resume from the last checkpoint, and an
+    uninterrupted run; checkpoints under ``build/`` (removed after)."""
+    import shutil
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import RunnerConfig, TrainRunner
+
+    cfg = registry.get(MOE_RUNNER_ARCH).smoke_config
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                            total_steps=MOE_RUNNER_STEPS)
+    stream = TokenStreamConfig(cfg.vocab, 64, 4, seed=LM_DATA_SEED)
+    root = ROOT / "build" / "moe_runner"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def runner(name):
+        model = TransformerLM(cfg, device="cuda", seed=LM_SEED)
+        named = dict(model.named_parameters())
+        fresh = {n: p.detach().clone() for n, p in named.items()}
+
+        def init_state():
+            with torch.no_grad():
+                for n, p in named.items():
+                    p.copy_(fresh[n])
+            return {"params": named, "opt": adamw.init_state(named, opt)}
+
+        def step_fn(state, step):
+            with torch.no_grad():
+                for n, p in named.items():
+                    if state["params"][n] is not p:
+                        p.copy_(state["params"][n])
+            lm_train_step(model, opt, state["opt"],
+                          *batch_at_step(stream, step))
+            return {"params": named, "opt": state["opt"]}
+
+        return TrainRunner(RunnerConfig(str(root / name), ckpt_every=3,
+                                        max_steps=MOE_RUNNER_STEPS),
+                           init_state, step_fn)
+
+    t0 = time.perf_counter()
+    try:
+        try:
+            runner("a").run(crash_at_step=MOE_RUNNER_CRASH)
+            check(False, "the runner did not stop at the preemption")
+        except RuntimeError as e:
+            check("simulated preemption" in str(e), f"runner raised {e}")
+        resumed = runner("a").run()
+        clean = runner("b").run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    worst, bit_equal = 0.0, True
+    for part in ("params",):
+        for n, p in clean[part].items():
+            diff = float((resumed[part][n] - p).detach().abs().max())
+            top = float(p.abs().max())
+            worst = max(worst, diff / top if top else diff)
+            bit_equal &= torch.equal(resumed[part][n], p)
+            check(diff <= MOE_RUNNER_RTOL * top, f"resumed {n} differs "
+                  f"from the uninterrupted run's by {diff}")
+    check(int(resumed["opt"]["step"]) == MOE_RUNNER_STEPS, "runner steps")
+    emit({"phase": "moe_preemption", "arch": MOE_RUNNER_ARCH,
+          "steps": MOE_RUNNER_STEPS, "crash_at_step": MOE_RUNNER_CRASH,
+          "largest_rel_diff": worst, "bit_equal": bit_equal,
+          "seconds": time.perf_counter() - t0})
+
+
+def moe_lm_phase():
+    """The ``moe_lm`` phase: llama4-scout then mixtral (forward, layer 0
+    against the host, serving, their kernels), mixtral training with the
+    gradients' compression, and the preemption runner.  Returns the flash
+    launches by phase and the kernel rows."""
+    import torch
+    torch.cuda.empty_cache()
+    fwd_launches, fwd_rows, bwd_rows = 0, [], []
+    for arch in MOE_ARCHS:
+        n, rows, brows = moe_model_run(arch)
+        fwd_launches += n
+        fwd_rows += rows
+        bwd_rows += brows
+    train = moe_train_run()
+    moe_runner_run()
+    return fwd_launches, train, fwd_rows, bwd_rows
 
 
 # --------------------------------------------------------------------------
@@ -3421,6 +4091,17 @@ def main() -> int:
     t0 = time.perf_counter()
     lm_serve_phase()
     serve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_fwd, moe_train, moe_rows, moe_bwd_rows = moe_lm_phase()
+    for row in moe_rows:
+        emit({"phase": "kernel", "name": "flash_attention_fwd", **row})
+    for row in moe_bwd_rows:
+        emit({"phase": "kernel", "name": "flash_attention_bwd", **row})
+    check(moe_fwd > 0 and moe_train["dq"] > 0 and moe_train["dkv"] > 0,
+          "the MoE path launched no flash kernel")
+    flash_rows += moe_rows
+    bwd_rows += moe_bwd_rows
+    moe_s = time.perf_counter() - t0
 
     gnn_launches, seg_rows, gnn_blocks = gnn_phase()
     for row in seg_rows:
@@ -3432,7 +4113,7 @@ def main() -> int:
     models_launches = gnn_models_phase(gnn_blocks)
     del gnn_blocks
     emit({"phase": "new_phase_seconds", "lm_serve": serve_s,
-          "gnn_models": time.perf_counter() - t0})
+          "moe_lm": moe_s, "gnn_models": time.perf_counter() - t0})
     check(models_launches > 0, "the GIN cells launched no segment_matmul")
 
     rec_launches, rec_rows, item_table, bags = rec_phase()
@@ -3466,12 +4147,17 @@ def main() -> int:
         "kernel_route": flash_row["kernel_route"],
         "source": flash_source("fwd", flash_row["kernel_route"]),
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
-        "launches": flash_launches + train_launches["fwd"],
+        "launches": flash_launches + train_launches["fwd"] + moe_fwd
+        + moe_train["fwd"],
         "launches_by_phase": {"lm_forward": flash_launches,
-                              "lm_train": train_launches["fwd"]},
-        "launches_by_route": {"wgmma": flash_launches
-                              + train_launches["fwd_wgmma"],
-                              "simt": train_launches["fwd_simt"]},
+                              "lm_train": train_launches["fwd"],
+                              "moe_forward": moe_fwd,
+                              "moe_train": moe_train["fwd"]},
+        "launches_by_route": {"wgmma": flash_launches + moe_fwd
+                              + train_launches["fwd_wgmma"]
+                              + moe_train["fwd_wgmma"],
+                              "simt": train_launches["fwd_simt"]
+                              + moe_train["fwd_simt"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_err_over_limit": max(
             [r["err_over_limit"] for r in flash_rows]
@@ -3488,8 +4174,11 @@ def main() -> int:
         "kernel_route": bwd_row["kernel_route"],
         "source": flash_source("bwd", bwd_row["kernel_route"]),
         "replaces": f"src/repro/kernels/flash_attention/bwd.py:{line}",
-        "launches": train_launches[kname],
+        "launches": train_launches[kname] + moe_train[kname],
+        "launches_by_phase": {"lm_train": train_launches[kname],
+                              "moe_train": moe_train[kname]},
         "launches_by_route": {r: train_launches[f"{kname}_{r}"]
+                              + moe_train[f"{kname}_{r}"]
                               for r in ("wgmma", "simt")},
         "max_abs_err": max(r[f"{g}_max_abs_err"] for r in bwd_rows
                            for g in grads),

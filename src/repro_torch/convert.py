@@ -72,24 +72,24 @@ def lm_params_from_reference(cfg, params) -> Dict:
     "final_norm" and, unless ``cfg.tie_embeddings``, "lm_head" (d, V).
     Matrices keep the reference's ``x @ W`` orientation, so nothing is
     transposed; a tied head is read as ``embed.T`` by the model itself.
+    An MoE layer's "moe" carries router (L, d, E), w_gate and w_up (L, E,
+    d, f), w_down (L, E, f, d) and, with a shared expert, "shared"
+    {w_gate, w_up, w_down} with a leading L.
     """
     layers = params["layers"]
     n = int(np.shape(layers["ln1"])[0])
     if n != cfg.n_layers:
         raise ValueError(f"reference params have {n} layers, config "
                          f"{cfg.name} has {cfg.n_layers}")
-    if "moe" in layers:
-        raise NotImplementedError("MoE layers are not ported yet")
+
+    def layer(tree, i):
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return _tensor(np.asarray(tree)[i])
+
     out = {
         "embed": _tensor(params["embed"]),
-        "layers": [
-            {"attn": {k: _tensor(np.asarray(a)[i])
-                      for k, a in layers["attn"].items()},
-             "mlp": {k: _tensor(np.asarray(a)[i])
-                     for k, a in layers["mlp"].items()},
-             "ln1": _tensor(np.asarray(layers["ln1"])[i]),
-             "ln2": _tensor(np.asarray(layers["ln2"])[i])}
-            for i in range(n)],
+        "layers": [layer(layers, i) for i in range(n)],
         "final_norm": _tensor(params["final_norm"]),
     }
     if cfg.tie_embeddings:
@@ -104,14 +104,14 @@ def lm_params_from_reference(cfg, params) -> Dict:
 def named_lm_params(params: Dict) -> Dict[str, torch.Tensor]:
     """An ``init_params``-layout dict flattened to the names of
     ``TransformerLM.named_parameters()`` ("embed", "layers.3.attn.wq",
-    "layers.3.ln1", ..., "final_norm", "lm_head")."""
+    "layers.3.moe.router", "layers.3.moe.shared.w_gate", "layers.3.ln1",
+    ..., "final_norm", "lm_head")."""
     out = {"embed": params["embed"]}
     for i, layer in enumerate(params["layers"]):
-        for group in ("attn", "mlp"):
-            for k, t in layer[group].items():
-                out[f"layers.{i}.{group}.{k}"] = t
-        out[f"layers.{i}.ln1"] = layer["ln1"]
-        out[f"layers.{i}.ln2"] = layer["ln2"]
+        group = "moe" if "moe" in layer else "mlp"
+        for name in ("attn", group, "ln1", "ln2"):
+            out.update(named_graph_params(layer[name],
+                                          f"layers.{i}.{name}."))
     out["final_norm"] = params["final_norm"]
     if "lm_head" in params:
         out["lm_head"] = params["lm_head"]
@@ -312,20 +312,23 @@ def adamw_state_from_reference(cfg, opt_state) -> Dict:
 
 def lm_params_to_reference(model) -> Dict:
     """A port ``TransformerLM``'s parameters as numpy in the reference's
-    layout: every layer leaf stacked along a leading L axis.  f32 leaves
-    stay f32; bf16 leaves come out as f32 arrays of the same values (numpy
-    has no bf16)."""
-    layers = model.layers
+    layout: every layer leaf stacked along a leading L axis (an MoE
+    layer's "moe" and its "shared" sub-dict too).  f32 leaves stay f32;
+    bf16 leaves come out as f32 arrays of the same values (numpy has no
+    bf16)."""
+    def stacked(trees):
+        if isinstance(trees[0], torch.Tensor):
+            return np.stack([_array(t) for t in trees])
+        return {k: stacked([t[k] for t in trees]) for k in trees[0].keys()}
+
+    blocks = model.layers
+    group = "moe" if model.cfg.is_moe else "mlp"
     out = {
         "embed": _array(model.embed),
-        "layers": {
-            group: {k: np.stack([_array(getattr(b, group)[k]) for b in layers])
-                    for k in getattr(layers[0], group)}
-            for group in ("attn", "mlp")},
+        "layers": {name: stacked([getattr(b, name) for b in blocks])
+                   for name in ("attn", group, "ln1", "ln2")},
         "final_norm": _array(model.final_norm),
     }
-    out["layers"]["ln1"] = np.stack([_array(b.ln1) for b in layers])
-    out["layers"]["ln2"] = np.stack([_array(b.ln2) for b in layers])
     if not model.cfg.tie_embeddings:
         out["lm_head"] = _array(model.lm_head)
     return out

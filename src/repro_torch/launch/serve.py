@@ -49,6 +49,15 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
     greedily.  ``model`` serves in place of a fresh one drawn from
     ``seed`` (its config then stands for the registry's).
 
+    The cache holds every position whatever the arch, as the reference's
+    does: for mixtral, whose layers all see a window of 4096, decode masks
+    the slots older than the window (``steps.lm_cache_shape`` gives the
+    smaller ring a window-bounded server would allocate); for llama4, and
+    the other archs' global layers, every slot is attended.  An MoE layer
+    routes the whole prompt in one dispatch (its capacity counted over
+    batch x prompt_len tokens) and each decode step's batch of tokens in
+    another, so near-tie routes may differ between the two.
+
     Returns {"generated" (batch, gen) int64 numpy, "logits" (gen + 1,
     batch, V) on the model's device (the prefill's, then each decode
     step's), "cache", "prefill_s" (cache growth included), "decode_s",

@@ -49,7 +49,8 @@ def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
     microbatches along B, one backward each; their gradients accumulate
     in the parameters' f32 ``.grad`` and are divided by n, and the loss is
     the microbatches' mean (the reference's scan).  Activation memory is
-    that of one microbatch.
+    that of one microbatch, and an MoE layer's capacity is counted over
+    one microbatch's tokens, as in the reference.
     """
     cfg = model.cfg
     tokens = torch.as_tensor(tokens, device=model.device).long()
@@ -100,9 +101,12 @@ def lm_decode_step(model: TransformerLM, cache, token):
 
 
 def lm_cache_shape(cfg: TransformerConfig, batch: int, seq_len: int):
-    """Allocated KV-cache shape (L, B, S, Hkv, hd): S bounded by the window
-    when every layer is windowed (mixtral), the full length when any layer
-    is global (gemma3)."""
+    """Allocated KV-cache shape (L, B, S, Hkv, hd) a ring-buffer
+    ``decode_step`` needs for ``seq_len`` tokens: S bounded by the window
+    when every layer is windowed (mixtral: at most 4096 slots, the older
+    positions overwritten in the ring), the full length otherwise, when
+    any layer is global (gemma3) or none is windowed (qwen2.5, qwen3,
+    llama4)."""
     if cfg.sliding_window > 0 and cfg.local_global_ratio == 0:
         S = min(seq_len, cfg.sliding_window)
     else:

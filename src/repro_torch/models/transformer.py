@@ -1,11 +1,13 @@
 """The decoder-only LM of the JAX package's ``models/transformer.py``, for
-the dense architectures: its forward (logits and loss of one batch), its
+all five architectures: its forward (logits and loss of one batch), its
 gradients through autograd (``launch/steps.py::lm_train_step``), and its
 serving path: ``prefill`` (the KV cache and the last position's logits)
 and ``decode_step`` (one token against a ring-buffer KV cache).
 
 One config-driven module:
-  * dense SwiGLU FFN
+  * dense SwiGLU FFN, or MoE (``models/moe.py``: top-1 with a shared
+    expert for llama4, top-2 for mixtral); ``forward`` returns the sum of
+    the layers' load-balancing losses as its aux
   * GQA, optional QKV bias / qk-norm
   * full, sliding-window, or local:global attention patterns
   * one module per layer, looped in Python, so each layer's window is a
@@ -28,8 +30,11 @@ configs the port's ``pallas`` path equals the reference's ``xla`` path.
 ``prefill`` takes the ``xla`` branches whatever ``attention_impl`` is, as
 the reference's does.
 
-MoE configs, and ``moe_local_dispatch``, raise: the MoE LM is ROADMAP queue
-1, item 4.
+An MoE layer routes and dispatches all the tokens of its call at once, the
+capacity counted over them (a microbatch's in training, the whole prompt's
+in ``prefill``, the batch's one token each in ``decode_step``).
+``moe_local_dispatch``, the reference's per-shard dispatch under a
+sharding context, raises: sharding is ROADMAP queue 1, item 11.
 """
 from __future__ import annotations
 
@@ -48,11 +53,12 @@ from ..kernels.flash_attention.ops import flash_attention
 from .layers import (AttnParamsSpec, attention_xla, attention_xla_chunked,
                      attn_qkv, init_attn, init_mlp, make_attention_mask,
                      mlp_swiglu, rms_norm)
+from .moe import MoeSpec, init_moe, moe_apply
 
 # sequences >= this use the chunked (flash-style) XLA attention path
 CHUNKED_ATTN_THRESHOLD = 2048
 
-_MOE = "MoE LM (ROADMAP queue 1, item 4)"
+_SHARDING = "sharding (ROADMAP queue 1, item 11)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +108,12 @@ class TransformerConfig:
     def attn_spec(self) -> AttnParamsSpec:
         return AttnParamsSpec(self.d_model, self.n_heads, self.n_kv_heads,
                               self.head_dim, self.qkv_bias, self.qk_norm)
+
+    @property
+    def moe_spec(self) -> MoeSpec:
+        return MoeSpec(self.d_model, self.moe_d_ff or self.d_ff,
+                       self.moe_experts, self.moe_top_k,
+                       shared_expert=self.moe_shared_expert)
 
     def layer_windows(self) -> np.ndarray:
         """Per-layer attention window (0 = full)."""
@@ -156,13 +168,11 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 # settings that tune code not ported yet; the port reads none of them, so a
 # value other than the default raises rather than being ignored
-_UNREAD_SETTINGS = {"moe_local_dispatch": ("the MoE dispatch", _MOE)}
+_UNREAD_SETTINGS = {"moe_local_dispatch": ("the per-shard MoE dispatch",
+                                          _SHARDING)}
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are not ported "
-                                  f"yet: {_MOE}")
     if cfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
     for f in dataclasses.fields(cfg):
@@ -182,14 +192,20 @@ def _check_supported(cfg: TransformerConfig) -> None:
 def init_params(cfg: TransformerConfig, generator: torch.Generator,
                 dtype=torch.float32) -> Dict:
     """The reference's parameter shapes and scales, drawn from
-    ``generator`` on its device: {"embed", "layers": [per-layer dicts],
-    "final_norm", "lm_head" (unless tied)}."""
+    ``generator`` on its device: {"embed", "layers": [per-layer dicts:
+    "attn", "mlp" (dense) or "moe" (MoE: ``moe.init_moe``), "ln1",
+    "ln2"], "final_norm", "lm_head" (unless tied)}."""
     _check_supported(cfg)
     dev = generator.device
     embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
                         dtype=dtype, device=dev) * 0.02
-    layers = [{"attn": init_attn(generator, cfg.attn_spec, dtype),
-               "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dtype),
+
+    def ffn():
+        if cfg.is_moe:
+            return {"moe": init_moe(generator, cfg.moe_spec, dtype)}
+        return {"mlp": init_mlp(generator, cfg.d_model, cfg.d_ff, dtype)}
+
+    layers = [{"attn": init_attn(generator, cfg.attn_spec, dtype), **ffn(),
                "ln1": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
                "ln2": torch.zeros((cfg.d_model,), dtype=dtype, device=dev)}
               for _ in range(cfg.n_layers)]
@@ -203,21 +219,46 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     return params
 
 
-class Block(nn.Module):
-    """One decoder layer's parameters."""
+def _params(p: Dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(v) for k, v in p.items()})
+
+
+class MoeParams(nn.Module):
+    """One MoE layer's parameters, read by ``moe_apply`` as a dict:
+    "router", "w_gate", "w_up", "w_down" and, with a shared expert,
+    "shared" {"w_gate", "w_up", "w_down"}."""
 
     def __init__(self, p: Dict):
         super().__init__()
-        self.attn = nn.ParameterDict({k: nn.Parameter(v)
-                                      for k, v in p["attn"].items()})
-        self.mlp = nn.ParameterDict({k: nn.Parameter(v)
-                                     for k, v in p["mlp"].items()})
+        for k, v in p.items():
+            setattr(self, k, _params(v) if isinstance(v, dict)
+                    else nn.Parameter(v))
+
+    def __getitem__(self, key):
+        return getattr(self, key)
+
+    def keys(self):
+        return ([n for n, _ in self.named_parameters(recurse=False)]
+                + [n for n, _ in self.named_children()])
+
+
+class Block(nn.Module):
+    """One decoder layer's parameters: "attn", "mlp" or "moe", "ln1",
+    "ln2"."""
+
+    def __init__(self, p: Dict):
+        super().__init__()
+        self.attn = _params(p["attn"])
+        if "moe" in p:
+            self.moe = MoeParams(p["moe"])
+        else:
+            self.mlp = _params(p["mlp"])
         self.ln1 = nn.Parameter(p["ln1"])
         self.ln2 = nn.Parameter(p["ln2"])
 
 
 class TransformerLM(nn.Module):
-    """The dense LM on one device.
+    """The LM, dense or MoE, on one device.
 
     ``params`` is a dict laid out as :func:`init_params` returns it (or as
     ``repro_torch.convert.lm_params_from_reference`` carries it over from
@@ -247,6 +288,9 @@ class TransformerLM(nn.Module):
         if cfg.tie_embeddings == ("lm_head" in params):
             raise ValueError("an lm_head is wanted exactly when the config "
                              "does not tie embeddings")
+        ffn = "moe" if cfg.is_moe else "mlp"
+        if any(ffn not in p for p in params["layers"]):
+            raise ValueError(f"{cfg.name} wants an {ffn!r} in every layer")
         self.embed = nn.Parameter(params["embed"])
         self.layers = nn.ModuleList(Block(p) for p in params["layers"])
         self.final_norm = nn.Parameter(params["final_norm"])
@@ -278,21 +322,28 @@ class TransformerLM(nn.Module):
         mask = make_attention_mask(positions, positions, window, causal=True)
         return attention_xla(q, k, v, mask[:, None, None, :, :])
 
+    def _ffn(self, layer: Block, h):
+        """The layer's FFN on its normed input: (out, aux f32 or None)."""
+        if self.cfg.is_moe:
+            return moe_apply(layer.moe, h, self.cfg.moe_spec)
+        return mlp_swiglu(layer.mlp, h), None
+
     def _layer(self, layer: Block, window: int, x, positions,
                attention=None):
-        """One decoder layer: x (B, S, d) -> (x (B, S, d), k, v), k and v
-        (B, S, Hkv, hd) the layer's rotated keys and values."""
+        """One decoder layer: x (B, S, d) -> (x (B, S, d), aux, k, v), aux
+        the MoE load-balancing loss (None for a dense layer), k and v (B,
+        S, Hkv, hd) the layer's rotated keys and values."""
         B, S, _ = x.shape
         h = rms_norm(x, layer.ln1)
         q, k, v = attn_qkv(layer.attn, h, self.cfg.attn_spec, positions,
                            self.cfg.rope_theta)
         attn_out = (attention or self._attention)(q, k, v, window, positions)
         x = x + attn_out.reshape(B, S, -1) @ layer.attn["wo"].to(x.dtype)
-        h2 = rms_norm(x, layer.ln2)
-        return x + mlp_swiglu(layer.mlp, h2), k, v
+        out, aux = self._ffn(layer, rms_norm(x, layer.ln2))
+        return x + out, aux, k, v
 
     def _block(self, layer: Block, window: int, x, positions):
-        return self._layer(layer, window, x, positions)[0]
+        return self._layer(layer, window, x, positions)[:2]
 
     def _embed(self, tokens):
         tokens = torch.as_tensor(tokens, device=self.device).long()
@@ -307,23 +358,29 @@ class TransformerLM(nn.Module):
         return x @ head.to(self.cfg.dtype)
 
     def forward(self, tokens):
-        """tokens: (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux_loss)."""
+        """tokens: (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux_loss:
+        the sum over layers of the MoE load-balancing losses, f32; 0 for a
+        dense config)."""
         cfg = self.cfg
         x, positions = self._embed(tokens)
+        auxs = []
         for layer, window in zip(self.layers, self.windows):
             if cfg.remat == "none":
-                x = self._block(layer, window, x, positions)
+                x, aux = self._block(layer, window, x, positions)
             elif cfg.remat == "full":
-                x = checkpoint(self._block, layer, window, x, positions,
-                               use_reentrant=False)
+                x, aux = checkpoint(self._block, layer, window, x, positions,
+                                    use_reentrant=False)
             else:
-                x = checkpoint(self._block, layer, window, x, positions,
-                               use_reentrant=False,
-                               context_fn=functools.partial(
-                                   create_selective_checkpoint_contexts,
-                                   _dots_policy))
-        return self._logits(x), torch.zeros((), dtype=torch.float32,
-                                            device=self.device)
+                x, aux = checkpoint(self._block, layer, window, x, positions,
+                                    use_reentrant=False,
+                                    context_fn=functools.partial(
+                                        create_selective_checkpoint_contexts,
+                                        _dots_policy))
+            if aux is not None:
+                auxs.append(aux)
+        aux = (torch.stack(auxs).sum() if auxs else
+               torch.zeros((), dtype=torch.float32, device=self.device))
+        return self._logits(x), aux
 
     def loss_fn(self, tokens, labels, aux_weight: float = 0.01):
         """(loss, {"nll", "aux"}) of next-token prediction on one batch."""
@@ -344,8 +401,8 @@ class TransformerLM(nn.Module):
         ks = torch.empty(shape, dtype=cfg.dtype, device=self.device)
         vs = torch.empty_like(ks)
         for i, (layer, window) in enumerate(zip(self.layers, self.windows)):
-            x, k, v = self._layer(layer, window, x, positions,
-                                  attention=self._xla_attention)
+            x, _, k, v = self._layer(layer, window, x, positions,
+                                     attention=self._xla_attention)
             ks[i].copy_(k)
             vs[i].copy_(v)
             del k, v
@@ -393,7 +450,7 @@ class TransformerLM(nn.Module):
             attn_out = attention_xla(q, kc[i], vc[i],
                                      mask[:, None, None, :, :])
             x = x + attn_out.reshape(B, 1, -1) @ layer.attn["wo"].to(x.dtype)
-            x = x + mlp_swiglu(layer.mlp, rms_norm(x, layer.ln2))
+            x = x + self._ffn(layer, rms_norm(x, layer.ln2))[0]
         return self._logits(x[:, 0]), {"k": kc, "v": vc,
                                        "length": length + 1}
 

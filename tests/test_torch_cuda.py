@@ -1197,6 +1197,122 @@ def test_cuda_prefill_and_decode_equal_cpu(card, monkeypatch):
                                    atol=1e-4 * float(cpu[1].abs().max()))
         assert torch.equal(gpu[2], cpu[2])
 
+# ------------------------------------------------------- MoE LM on the card
+# the flash kernels at the MoE archs' head groups: llama4-scout's 40 query
+# heads over 8 kv heads (G 5) and mixtral's 48 over 8 (G 6), D 128, bf16,
+# with mixtral's window of 4096 at S 4096 (every key inside it) and S 8192
+# (where it bites); dk/dv sums the G heads of a group
+MOE_FLASH_CASES = [(S, H, window) for S in (4096, 8192)
+                   for H in (40, 48) for window in (0, 4096)]
+
+
+@pytest.mark.parametrize("S,H,window", MOE_FLASH_CASES)
+def test_flash_kernels_at_moe_head_groups(card, S, H, window):
+    from repro_torch.kernels.flash_attention import bwd, kernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_ref, attention_fwd_lse_ref)
+    Hkv, D = 8, 128
+    q, k, v, do = _bwd_inputs(card, 1, S, S, H, Hkv, D, torch.bfloat16,
+                              S + H + window)
+    assert kernel.route(q) == bwd.route(q) == "wgmma"
+    before = fops.flash_attention.launches_by_route["wgmma"]
+    got = fops.flash_attention(q, k, v, causal=True, window=window)
+    assert fops.flash_attention.launches_by_route["wgmma"] == before + 1
+    o, lse = attention_fwd_lse_ref(q, k, v, True, window)
+    torch.testing.assert_close(got.float(), o.float(),
+                               **FLASH_TOL[torch.bfloat16])
+    del got
+    _, lse_kernel = kernel.flash_attention_cuda(q, k, v, True, window,
+                                                with_lse=True)
+    _assert_within(lse_kernel, lse, S, "lse")
+    delta = bwd.row_delta(o, do)
+    dq = bwd.flash_bwd_dq(q, k, v, do, lse, delta, True, window)
+    dk, dv = bwd.flash_bwd_dkv(q, k, v, do, lse, delta, True, window)
+    want = attention_bwd_ref(q, k, v, o, lse, do, True, window)
+    torch.cuda.synchronize()
+    G = H // Hkv
+    for name, g, ref, n in zip(("dq", "dk", "dv"), (dq, dk, dv), want,
+                               (S, G * S, G * S)):
+        _assert_within(g, ref, n, name)
+
+
+def _moe_on(dev, spec, params, x):
+    from repro_torch.models import moe
+    p = {k: ({n: t.to(dev) for n, t in v.items()} if isinstance(v, dict)
+             else v.to(dev)) for k, v in params.items()}
+    out, aux = moe.moe_apply(p, x.to(dev), spec)
+    r = moe.route(p["router"], x.to(dev).reshape(-1, x.shape[-1]), spec)
+    return out.cpu(), aux.cpu(), r.gate_idx.cpu(), r.kept_by_token().cpu()
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "mixtral-8x22b"])
+def test_cuda_moe_apply_equals_cpu(card, monkeypatch, arch):
+    """The smoke configs' MoE layer (4 experts, top-1 with a shared expert
+    or top-2) at T 512 in f32 with TF32 off, on the card and on the CPU:
+    routes and keep mask equal, output within 1e-5 of the CPU's largest,
+    aux within 1e-6 relative."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = registry.get(arch).smoke_config.moe_spec
+    params = moe.init_moe(torch.Generator().manual_seed(3), spec)
+    x = torch.randn(2, 256, spec.d_model,
+                    generator=torch.Generator().manual_seed(4))
+    cpu = _moe_on("cpu", spec, params, x)
+    gpu = _moe_on(card, spec, params, x)
+    assert torch.equal(gpu[2], cpu[2]) and torch.equal(gpu[3], cpu[3])
+    torch.testing.assert_close(gpu[0], cpu[0], rtol=0,
+                               atol=1e-5 * float(cpu[0].abs().max()))
+    torch.testing.assert_close(gpu[1], cpu[1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_cuda_moe_ties_route_as_on_cpu(card, top_k):
+    """A tie-heavy bf16 router: x and the router in {-1, 0, 1} (every
+    logit an exact integer, the same on both devices) and pairs of equal
+    router columns, so many tokens tie at the top.  The card's routes,
+    ties to the lower expert, and its keep mask equal the CPU's; the
+    output within 2e-2 of the CPU's largest (bf16 expert products)."""
+    from repro_torch.models import moe
+    E, d = 8, 64
+    spec = moe.MoeSpec(d, 32, E, top_k, capacity_factor=1.0)
+    g = torch.Generator().manual_seed(5)
+    params = moe.init_moe(g, spec)
+    router = torch.randint(-1, 2, (d, E // 2), generator=g).float()
+    params["router"] = router.repeat_interleave(2, dim=1)
+    x = torch.randint(-1, 2, (4, 128, d), generator=g).to(torch.bfloat16)
+    logits = (x.reshape(-1, d).float() @ params["router"])
+    top = logits.max(-1, keepdim=True).values
+    assert bool(((logits == top).sum(-1) > 2).any())   # ties past the pair
+    cpu = _moe_on("cpu", spec, params, x)
+    gpu = _moe_on(card, spec, params, x)
+    assert torch.equal(gpu[2], cpu[2]) and torch.equal(gpu[3], cpu[3])
+    assert not bool(gpu[3].all())           # capacity 1.0 drops some
+    torch.testing.assert_close(gpu[0].float(), cpu[0].float(), rtol=0,
+                               atol=2e-2 * float(cpu[0].abs().max()))
+    torch.testing.assert_close(gpu[1], cpu[1], rtol=1e-6, atol=0)
+
+
+def test_cuda_compress_is_bit_equal_to_cpu(card):
+    """int8 compression with error feedback on the card equals the same
+    call on the CPU bit for bit (q, scale, feedback), on gradients whose
+    largest magnitude over 127 a reciprocal multiplication would round
+    otherwise than the division."""
+    from repro_torch.optim import grad_compression as gc
+    g = torch.Generator().manual_seed(6)
+    grads = {f"g{i}": torch.randn(1000 + i, generator=g) * 10 ** (i % 5 - 2)
+             for i in range(64)}
+    fb = {k: torch.randn(v.shape, generator=g) * 1e-3
+          for k, v in grads.items()}
+    cpu = gc.compress_tree(grads, fb)
+    gpu = gc.compress_tree({k: v.to(card) for k, v in grads.items()},
+                           {k: v.to(card) for k, v in fb.items()})
+    for want, got in zip(cpu, gpu):
+        for k in grads:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
 if __name__ == "__main__":
     import json
     print(json.dumps(flash_fwd_digests()))

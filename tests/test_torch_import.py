@@ -52,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.runtime.retry, repro_torch.launch.serve, "
             "repro_torch.models.gnn.gcn, repro_torch.models.gnn.schnet, "
             "repro_torch.models.gnn.mace, repro_torch.configs.qwen3_4b, "
-            "repro_torch.configs.gcn_cora, repro_torch.configs.sasrec_cfg; "
+            "repro_torch.configs.gcn_cora, repro_torch.configs.sasrec_cfg, "
+            "repro_torch.models.moe, repro_torch.runtime.fault_tolerance, "
+            "repro_torch.optim.grad_compression; "
             "from repro_torch.ampc import RoutedDht; "
             "from repro_torch.core.dht import DhtMesh, make_mesh, "
             "routed_lookup; "

@@ -334,13 +334,26 @@ def test_bf16_reference_params_carry_over_exactly():
 
 # ----------------------------------------------------------------- refusals
 def test_unported_paths_raise():
-    """Only MoE stays unported: the chunked forward, ``prefill`` and
-    ``decode_step`` run (their values are held against the JAX package's
-    in ``tests/test_torch_lm_serving.py``)."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TransformerLM(_port_smoke("LLAMA4_SCOUT"), device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TransformerLM(_port_smoke("MIXTRAL_8X22B"), device="cpu")
+    """Every LM path runs, MoE configs included (their values are held
+    against the JAX package's in ``tests/test_torch_moe.py``, the chunked
+    forward's, ``prefill``'s and ``decode_step``'s in
+    ``tests/test_torch_lm_serving.py``); what stays unported raises,
+    naming its ROADMAP item: ``compressed_psum`` (item 12, collectives
+    across cards) and a ``TrainRunner`` given shardings (item 11)."""
+    from repro_torch.optim import grad_compression
+    from repro_torch.runtime.fault_tolerance import (RunnerConfig,
+                                                     TrainRunner)
+    for name in ("LLAMA4_SCOUT", "MIXTRAL_8X22B"):
+        cfg = _port_smoke(name)
+        model = TransformerLM(cfg, device="cpu")
+        assert len(model.layers[0].moe.w_gate) == cfg.moe_experts
+    g = {"w": torch.ones(3)}
+    with pytest.raises(NotImplementedError, match="item 12"):
+        grad_compression.compressed_psum(
+            g, grad_compression.init_feedback(g), "data")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        TrainRunner(RunnerConfig("unused"), dict, lambda s, i: s,
+                    shardings={"w": None})
     base = _port_smoke("QWEN3_4B")
     with pytest.raises(ValueError, match="remat"):
         TransformerLM(dataclasses.replace(base, remat="some"), device="cpu")
@@ -365,17 +378,21 @@ def test_unported_paths_raise():
 @pytest.mark.parametrize("field,value,item", [
     ("moe_local_dispatch", True, "MoE")])
 def test_unread_settings_raise_when_set(field, value, item):
-    """The setting of the reference's MoE dispatch is kept in the config
-    but read by nothing ported: a value other than the default raises,
-    naming its ROADMAP item, instead of being ignored.  The registry's
-    configs leave it at its default."""
-    cfg = dataclasses.replace(_port_smoke("QWEN3_4B"), **{field: value})
-    with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
-        TransformerLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, torch.Generator().manual_seed(0))
+    """The setting of the reference's per-shard MoE dispatch is kept in
+    the config but read by nothing ported (the reference reads it only
+    under a sharding context): a value other than the default raises,
+    naming its ROADMAP item (11, sharding), instead of being ignored, on a
+    dense config and on an MoE one.  The registry's configs leave it at
+    its default, and every LM of the registry builds."""
+    for name in ("QWEN3_4B", "MIXTRAL_8X22B"):
+        cfg = dataclasses.replace(_port_smoke(name), **{field: value})
+        with pytest.raises(NotImplementedError,
+                           match=f"{field}.*{item}.*item 11"):
+            TransformerLM(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            init_params(cfg, torch.Generator().manual_seed(0))
     for entry in registry.REGISTRY.values():
-        if entry.family == "lm" and not entry.config.is_moe:
+        if entry.family == "lm":
             TransformerLM(entry.smoke_config, device="cpu")
 
 
