@@ -272,13 +272,36 @@ CUDA toolkit.  It:
    (``sector_bytes``) and the same counted bag by bag
    (``bag_sector_bytes``: what HBM serves when no row stays in L2 from
    one bag to the next);
-16. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+16. the ``launch`` phase: (a) ``python -m repro_torch.launch.dryrun --all``
+   on the host (8 worker processes, no card) while the card works: every
+   cell of the registry built and run once on ``meta``, one line a cell,
+   37 ok and the registry's 3 skipped with its reasons, each LM's
+   parameters ``param_count()`` plus the qk-norm scales and QKV biases,
+   llama4's and mixtral's bf16 weights at full depth 215.5 and 281.3 GB;
+   qwen3-4b cut to 4 layers at B 2: the dry-run's parameter and AdamW
+   bytes equal to ``memory_allocated`` after the real build, its peak
+   beside the real step's; (b) one NCCL rank, a (1, 1) ("data", "model")
+   mesh: qwen3-4b at full width, 4 layers, f32 parameters, B 2, S 4096,
+   remat "full": the loss and one ``lm_train_step`` with a ``ShardCtx``
+   bit-equal to the plain port's (metrics, parameters, moments), the
+   flash launches (counted from 0 around the step) equal to the plain
+   step's and all wgmma; one mixtral layer at full width with
+   ``moe_local_dispatch`` under the context bit-equal to ``moe_apply``,
+   and ``moe_apply_local`` at 2 and 4 shards on that layer's input
+   against a float64 host computation of the per-shard dispatch;
+   (c) the plain state checkpointed and restored with ``shardings=``
+   onto the mesh, bit-equal, and ``TrainRunner(shardings=)`` over the
+   sharded step preempted and resumed, bit-equal to an uninterrupted run;
+   (d) the four ``examples/torch_*.py`` on the card; (e) SDPA's backward
+   at G 5 and 6 (40/8 and 48/8 heads, (1, 4096, H, 128) bf16, causal);
+17. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
    (the engine's solves, the serving phases, the routed phase's 0, the
    eager phase's 2, the SASRec cells); the
    flash forward: the first layer's own q, k, v, its kernel route and the
    SIMT kernel's time there, with its launches by phase (the qwen3-4b
-   forward and step, the MoE forwards and mixtral's steps); dq and dk/dv:
+   forward and step, the MoE forwards and mixtral's steps, the sharded
+   step); dq and dk/dv:
    the training path's shape, their route and the SIMT kernels' time
    there, with their launches by phase;
    segment_matmul: GIN layer 0's own inputs in the
@@ -3031,13 +3054,16 @@ def recorded_routes():
         moe.route = real
 
 
-def host_moe_check(tag, spec, p32, weights, xt):
+def host_moe_check(tag, spec, p32, weights, xt, shards=1):
     """Layer 0's MoE on its own (T, d) input in f32 on the card (TF32 off;
     ``p32`` its parameters cast to f32) against a float64 host computation
     written here with numpy alone from ``weights``, the same parameters in
     the model's bf16: softmax routes (ties to the lower expert), the
     stable capacity order and its drops, SwiGLU per expert on a seeded
-    sample of tokens, and the shared expert."""
+    sample of tokens, and the shared expert.  With ``shards`` > 1 the card
+    runs ``moe_apply_local`` (the per-shard dispatch: the T tokens in
+    ``shards`` blocks, each with its own capacity) and the host counts
+    each block's capacity and drops apart."""
     import numpy as np
     import torch
     from repro_torch.models import moe
@@ -3047,13 +3073,17 @@ def host_moe_check(tag, spec, p32, weights, xt):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         with torch.no_grad():
-            r = moe.route(p32["router"], xt, spec)
-            out, aux = moe.moe_apply(p32, xt[None], spec)
+            rs = [moe.route(p32["router"], part, spec)
+                  for part in xt.chunk(shards)]
+            if shards == 1:
+                out, aux = moe.moe_apply(p32, xt[None], spec)
+            else:
+                out, aux = moe.moe_apply_local(p32, xt[None], spec, shards)
             torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    card_idx = r.gate_idx.cpu().numpy()
-    card_keep = r.kept_by_token().cpu().numpy()
+    card_idx = torch.cat([r.gate_idx for r in rs]).cpu().numpy()
+    card_keep = torch.cat([r.kept_by_token() for r in rs]).cpu().numpy()
     out = out[0]
     x = xt.cpu().double().numpy()
     logits = x @ weights["router"].cpu().double().numpy()
@@ -3073,14 +3103,16 @@ def host_moe_check(tag, spec, p32, weights, xt):
     routes[flips] = card_idx[flips]
     gates = np.take_along_axis(prob, routes, 1)
     gates /= np.maximum(gates.sum(1, keepdims=True), 1e-9)
-    A = T * K
+    A = T // shards * K
     C = int(math.ceil(A / E * spec.capacity_factor))
-    se = routes.reshape(-1)
-    order = np.argsort(se, kind="stable")
-    start = np.searchsorted(se[order], np.arange(E))
-    keep = np.empty(A, bool)
-    keep[order] = np.arange(A) - start[se[order]] < C
-    keep = keep.reshape(T, K)
+    keep = np.empty((T, K), bool)
+    for block in np.split(np.arange(T), shards):
+        se = routes[block].reshape(-1)
+        order = np.argsort(se, kind="stable")
+        start = np.searchsorted(se[order], np.arange(E))
+        kb = np.empty(A, bool)
+        kb[order] = np.arange(A) - start[se[order]] < C
+        keep[block] = kb.reshape(-1, K)
     kept_host = np.zeros((T, E), bool)
     kept_card = np.zeros((T, E), bool)
     rows = np.arange(T)[:, None]
@@ -3119,8 +3151,9 @@ def host_moe_check(tag, spec, p32, weights, xt):
     check(err <= limit, f"{tag}: layer 0's MoE differs from the host's by "
           f"{err} (limit {limit})")
     line = {"phase": "moe_layer_vs_host", "arch": tag, "tokens": T,
+            "shards": shards,
             "capacity": C, "route_flips": len(flips), "flip_margins": margins,
-            "dropped_slots": int((~keep).sum()), "slots": A,
+            "dropped_slots": int((~keep).sum()), "slots": T * K,
             "dropped_share": float((~keep).mean()),
             "sample_tokens": MOE_HOST_SAMPLE, "max_abs_err": err,
             "limit": limit, "aux": float(aux)}
@@ -3957,6 +3990,449 @@ def embedding_bag_phase(table, bags):
 
 
 # --------------------------------------------------------------------------
+# --------------------------------------------------------------------------
+# phase: the launch layer (dry-run, sharded step, elastic restore, examples)
+# --------------------------------------------------------------------------
+# the dry-run's worker processes (CPU only: every cell is built on meta)
+DRYRUN_JOBS, DRYRUN_TIMEOUT_S = 8, 600
+# PERF.md section 4's bf16 weights of the MoE LMs at full depth, GB
+FULL_DEPTH_WEIGHT_GB = {"llama4-scout-17b-a16e": 215.5, "mixtral-8x22b": 281.3}
+# qwen3-4b at full width, its depth cut so two states (plain and sharded,
+# f32 parameters and AdamW) fit beside one step's activations
+LAUNCH_LAYERS, LAUNCH_BATCH = 4, 2
+LAUNCH_LOCAL_SHARDS = (2, 4)
+EXAMPLE_RUNS = (("torch_quickstart", []), ("torch_graph_analytics", []),
+                ("torch_train_lm", ["--tiny", "--steps", "20"]),
+                ("torch_serve_lm", []))
+
+
+def dryrun_start():
+    """Start ``python -m repro_torch.launch.dryrun --all`` on the host (no
+    card: ``CUDA_VISIBLE_DEVICES`` empty), its records into ``build/``."""
+    out = ROOT / "build" / "dryrun.jsonl"
+    out.parent.mkdir(exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--jobs", str(DRYRUN_JOBS), "--out", str(out)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    return proc, out, time.perf_counter()
+
+
+def dryrun_finish(proc, out, t0):
+    """Wait for the dry-run and hold its records: 37 cells ok and the 3 the
+    registry skips, with its reasons; each LM's parameters
+    ``param_count()`` plus the qk-norm scales and QKV biases it leaves
+    out; llama4's and mixtral's bf16 weights at full depth PERF.md's."""
+    from repro_torch.configs import registry
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"the dry-run ran past {DRYRUN_TIMEOUT_S} s")
+    for line in stdout.splitlines():
+        print(f"[dryrun] {line}", flush=True)
+    check(proc.returncode == 0, f"the dry-run exited {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    recs = [json.loads(line) for line in out.read_text().splitlines()]
+    cells = list(registry.all_cells())
+    check([(r["arch"], r["shape"]) for r in recs]
+          == [(a, s) for a, s, _ in cells], "dry-run cells out of order")
+    for r, (_, _, reason) in zip(recs, cells):
+        want = "skipped" if reason else "ok"
+        check(r["status"] == want and r.get("reason") == reason,
+              f"dry-run {r['arch']} {r['shape']}: {r['status']} "
+              f"{r.get('error')}")
+    for r in recs:
+        entry = registry.get(r["arch"])
+        if r["status"] != "ok" or entry.family != "lm":
+            continue
+        cfg = entry.config
+        extra = cfg.n_layers * ((2 * cfg.head_dim if cfg.qk_norm else 0)
+                                + ((cfg.n_heads + 2 * cfg.n_kv_heads)
+                                   * cfg.head_dim if cfg.qkv_bias else 0))
+        check(r["params"] == cfg.param_count() + extra,
+              f"{r['arch']}: {r['params']} parameters")
+        if r["arch"] in FULL_DEPTH_WEIGHT_GB:
+            check(round(r["param_bytes"] / 1e9, 1)
+                  == FULL_DEPTH_WEIGHT_GB[r["arch"]],
+                  f"{r['arch']}: {r['param_bytes']} bytes of bf16 weights")
+    emit({"phase": "launch_dryrun",
+          "ok": sum(r["status"] == "ok" for r in recs),
+          "skipped": sum(r["status"] == "skipped" for r in recs),
+          "fits_h100_80gb": [f"{r['arch']}/{r['shape']}" for r in recs
+                             if r.get("fits_h100_80gb")],
+          "weights_gb": {a: round(next(r["param_bytes"] for r in recs
+                                       if r["arch"] == a
+                                       and r["status"] == "ok") / 1e9, 1)
+                         for a in FULL_DEPTH_WEIGHT_GB},
+          "seconds": time.perf_counter() - t0})
+    return recs
+
+
+def dryrun_vs_card():
+    """qwen3-4b at full width and LAUNCH_LAYERS layers (the train_4k cell,
+    bf16 parameters, f32 AdamW, cut to B LAUNCH_BATCH): the dry-run's
+    parameter and optimizer bytes against ``memory_allocated`` after the
+    real build on the card, equal; its peak beside the real step's
+    ``max_memory_allocated`` (no gate)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    rec = dryrun.run_cell(LM_ARCH, LM_SHAPE,
+                          overrides={"n_layers": LAUNCH_LAYERS},
+                          shape_overrides={"global_batch": LAUNCH_BATCH})
+    check(rec["status"] == "ok", f"dry-run of the cut cell: {rec}")
+    cfg = dataclasses.replace(registry.get(LM_ARCH).config,
+                              n_layers=LAUNCH_LAYERS, remat="dots",
+                              attention_impl="pallas")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = TransformerLM(cfg, device="cuda", seed=LM_SEED,
+                          dtype=torch.bfloat16)
+    opt = adamw.init_state(model, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    check(state == rec["state_alloc_bytes"], f"the card allocated {state} "
+          f"bytes of state, the dry-run counts {rec['state_alloc_bytes']}")
+    tokens, labels = batch_at_step(TokenStreamConfig(
+        cfg.vocab, registry.get(LM_ARCH).shapes[LM_SHAPE].seq_len,
+        LAUNCH_BATCH, seed=LM_DATA_SEED), 0)
+    torch.cuda.reset_peak_memory_stats()
+    steps.lm_train_step(model, adamw.AdamWConfig(), opt, tokens, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    emit({"phase": "launch_dryrun_vs_card", "arch": LM_ARCH,
+          "n_layers": LAUNCH_LAYERS, "batch": LAUNCH_BATCH,
+          "state_bytes": state, "dryrun_state_bytes": rec["state_alloc_bytes"],
+          "param_bytes": rec["param_bytes"], "opt_bytes": rec["opt_bytes"],
+          "peak_bytes": peak, "dryrun_peak_bytes": rec["peak_bytes"],
+          "dryrun_flops": rec["flops"], "model_flops": rec["model_flops"]})
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def launch_mesh():
+    """A (1, 1) ("data", "model") mesh over one NCCL rank (its address on
+    this host), and the sharding context on it."""
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import MeshShape, make_mesh
+    from repro_torch.models.transformer import ShardCtx
+    if not dist.is_initialized():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+    mesh = make_mesh(MeshShape((1, 1), ("data", "model")), "cuda")
+    return ShardCtx(mesh, "data")
+
+
+def bits_equal(a, b) -> bool:
+    import torch
+    full = getattr(a, "full_tensor", None)
+    return torch.equal(full() if full else a, b)
+
+
+def launch_sharded(sctx):
+    """qwen3-4b at full width, LAUNCH_LAYERS layers, f32 parameters, bf16
+    compute, remat "full", B LAUNCH_BATCH at S 4096: the loss and one
+    ``lm_train_step`` with ``sctx`` bit-equal to the plain port's (metrics,
+    every parameter, AdamW's moments), the flash launches equal and all on
+    the wgmma route.  Returns the sharded step's launches and the plain
+    model's state (for the restore)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(registry.get(LM_ARCH).config,
+                              n_layers=LAUNCH_LAYERS, attention_impl="pallas",
+                              remat="full")
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=20, total_steps=100)
+    t0 = time.perf_counter()
+    plain = TransformerLM(cfg, device="cuda", seed=LM_SEED)
+    sharded = TransformerLM(cfg, device="cuda", seed=LM_SEED)
+    opt_p, opt_s = adamw.init_state(plain), adamw.init_state(sharded)
+    steps.place_lm(sharded, opt_s, sctx)
+    tokens, labels = batch_at_step(TokenStreamConfig(
+        cfg.vocab, registry.get(LM_ARCH).shapes[LM_SHAPE].seq_len,
+        LAUNCH_BATCH, seed=LM_DATA_SEED), 0)
+    with torch.no_grad():
+        loss_p = plain.loss_fn(tokens, labels)[0]
+        loss_s = sharded.loss_fn(tokens, labels, sctx=sctx)[0]
+    check(bits_equal(loss_s, loss_p), f"sharded loss "
+          f"{float(loss_s.full_tensor())} != plain {float(loss_p)}")
+    zero_launch_counts()
+    t1 = time.perf_counter()
+    met_p = steps.lm_train_step(plain, opt_cfg, opt_p, tokens, labels)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t1
+    plain_launches = launch_counts()
+    zero_launch_counts()
+    t1 = time.perf_counter()
+    met_s = steps.lm_train_step(sharded, opt_cfg, opt_s, tokens, labels,
+                                sctx=sctx)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t1
+    launches = launch_counts()
+    check(launches == plain_launches, f"sharded launches {launches} != "
+          f"plain {plain_launches}")
+    check(launches["fwd"] > 0 and launches["fwd_simt"] == 0
+          and launches["dq_simt"] == 0 and launches["dkv_simt"] == 0,
+          f"the sharded step's flash launches: {launches}")
+    check(all(torch.equal(met_s[k], met_p[k]) for k in met_p),
+          f"sharded metrics {met_s} != plain {met_p}")
+    named = dict(sharded.named_parameters())
+    unequal = [n for n, p in plain.named_parameters()
+               if not bits_equal(named[n].detach(), p.detach())
+               or not bits_equal(opt_s["m"][n], opt_p["m"][n])
+               or not bits_equal(opt_s["v"][n], opt_p["v"][n])]
+    check(not unequal, f"sharded state differs from plain at {unequal[:5]}")
+    emit({"phase": "launch_sharded", "arch": LM_ARCH, "mesh": "1x1",
+          "n_layers": LAUNCH_LAYERS, "batch": LAUNCH_BATCH,
+          "loss": float(met_s["loss"]), "bit_equal": True,
+          "launches": launches, "step_s": step_s, "plain_step_s": plain_s,
+          "placements": {n: str(p.placements) for n, p in
+                         list(named.items())[:3]},
+          "seconds": time.perf_counter() - t0})
+    del sharded, opt_s
+    torch.cuda.empty_cache()
+    return launches, plain, opt_p
+
+
+def launch_moe(sctx):
+    """One mixtral layer at full width (bf16, B 2, S 4096): the forward
+    with ``moe_local_dispatch`` under ``sctx`` (one data shard: the
+    per-shard dispatch at dp_shards 1) bit-equal to the plain model's
+    ``moe_apply``; then ``moe_apply_local`` at LAUNCH_LOCAL_SHARDS shards
+    in f32 on that layer's MoE against the float64 host computation of the
+    per-shard dispatch (routes, drops, outputs on sampled tokens)."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import steps
+    from repro_torch.models.transformer import TransformerLM, init_params
+    arch = "mixtral-8x22b"
+    cfg = dataclasses.replace(registry.get(arch).config, n_layers=1,
+                              attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        LM_SEED), torch.bfloat16)
+    plain = TransformerLM(cfg, params)
+    local = TransformerLM(dataclasses.replace(cfg, moe_local_dispatch=True),
+                          params)
+    steps.place_lm(local, None, sctx)
+    tokens, _ = batch_at_step(TokenStreamConfig(
+        cfg.vocab, 4096, 2, seed=LM_DATA_SEED), 0)
+    captured, ffn = {}, plain._ffn
+
+    def record_ffn(layer, h, sctx=None):
+        captured["h"] = h      # the MoE's input, layer 0's normed tokens
+        return ffn(layer, h, sctx)
+
+    plain._ffn = record_ffn
+    with torch.no_grad():
+        logits_p, aux_p = plain(tokens)
+        logits_l, aux_l = local(tokens, sctx=sctx)
+        check(bits_equal(logits_l, logits_p) and bits_equal(aux_l, aux_p),
+              "mixtral's layer with the per-shard dispatch at one shard "
+              "differs from moe_apply")
+    del logits_p, logits_l, local
+    h = captured.pop("h")
+    moe0 = plain.layers[0].moe
+    p16 = {k: moe0[k].detach() for k in moe0.keys()}
+    p32 = {k: v.float() for k, v in p16.items()}
+    xt = h.reshape(-1, h.shape[-1]).float()
+    lines = [host_moe_check(f"mixtral_local_{n}", cfg.moe_spec, p32, p16,
+                            xt, shards=n) for n in LAUNCH_LOCAL_SHARDS]
+    emit({"phase": "launch_moe", "arch": arch, "layers": 1,
+          "bit_equal_at_one_shard": True,
+          "shards": {str(n): {k: line[k] for k in ("capacity", "route_flips",
+                                                   "dropped_share",
+                                                   "max_abs_err", "limit")}
+                     for n, line in zip(LAUNCH_LOCAL_SHARDS, lines)},
+          "seconds": time.perf_counter() - t0})
+    del plain, params, p16, p32, xt, h
+    torch.cuda.empty_cache()
+
+
+def launch_restore(sctx, plain, opt):
+    """The plain model's trained state checkpointed and restored with
+    ``shardings=`` onto the mesh, bit-equal; then ``TrainRunner`` with
+    ``shardings=`` over the sharded step (llama4's smoke config) preempted
+    and resumed, bit-equal to an uninterrupted sharded run."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.fault_tolerance import RunnerConfig, TrainRunner
+    root = ROOT / "build" / "launch_restore"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    try:
+        named = {n: p.detach() for n, p in plain.named_parameters()}
+        state = {"params": named, "m": opt["m"]}
+        ckpt.save(str(root / "elastic"), 1, state)
+        t_save = time.perf_counter() - t0
+        place = sharding.lm_param_shardings(sctx.mesh, named)
+        restored, _ = ckpt.restore(str(root / "elastic"), state,
+                                   shardings={"params": place, "m": place})
+        for part in ("params", "m"):
+            for n, t in restored[part].items():
+                check(tuple(t.placements) == place[n].placements
+                      and bits_equal(t, state[part][n]),
+                      f"restored {part} {n} differs")
+        del restored, state, named
+        torch.cuda.empty_cache()
+        t_restore = time.perf_counter() - t0 - t_save
+
+        cfg = registry.get(MOE_RUNNER_ARCH).smoke_config
+        opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=2,
+                                    total_steps=MOE_RUNNER_STEPS)
+        stream = TokenStreamConfig(cfg.vocab, 64, 4, seed=LM_DATA_SEED)
+
+        def runner(name):
+            model = TransformerLM(cfg, device="cuda", seed=LM_SEED)
+            mopt = adamw.init_state(model, opt_cfg)
+            steps.place_lm(model, mopt, sctx)
+            params = dict(model.named_parameters())
+            fresh = {n: p.detach().clone() for n, p in params.items()}
+            shards = sharding.lm_param_shardings(sctx.mesh, params)
+
+            def init_state():
+                with torch.no_grad():
+                    for n, p in params.items():
+                        p.copy_(fresh[n])
+                return {"params": params, "opt": adamw.init_state(
+                    params, opt_cfg)}
+
+            def step_fn(st, i):
+                with torch.no_grad():
+                    for n, p in params.items():
+                        if st["params"][n] is not p:
+                            p.copy_(st["params"][n])
+                steps.lm_train_step(model, opt_cfg, st["opt"],
+                                    *batch_at_step(stream, i), sctx=sctx)
+                return {"params": params, "opt": st["opt"]}
+
+            return TrainRunner(
+                RunnerConfig(str(root / name), ckpt_every=3,
+                             max_steps=MOE_RUNNER_STEPS), init_state,
+                step_fn, shardings={"params": shards,
+                                    "opt": {"m": shards, "v": shards,
+                                            "step": None}})
+
+        try:
+            runner("a").run(crash_at_step=MOE_RUNNER_CRASH)
+            check(False, "the runner did not stop at the preemption")
+        except RuntimeError as e:
+            check("simulated preemption" in str(e), f"runner raised {e}")
+        resumed = runner("a").run()
+        clean = runner("b").run()
+        unequal = [n for n, p in clean["params"].items()
+                   if not bits_equal(resumed["params"][n].detach(),
+                                     p.detach().full_tensor())]
+        check(not unequal, f"the resumed sharded run differs at {unequal}")
+        check(int(resumed["opt"]["step"]) == MOE_RUNNER_STEPS, "runner steps")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "launch_restore", "arch": LM_ARCH,
+          "n_layers": LAUNCH_LAYERS, "save_s": t_save,
+          "restore_s": t_restore, "runner_arch": MOE_RUNNER_ARCH,
+          "runner_steps": MOE_RUNNER_STEPS,
+          "runner_crash_at": MOE_RUNNER_CRASH, "bit_equal": True,
+          "seconds": time.perf_counter() - t0})
+
+
+def launch_examples():
+    """Each of the port's examples (``examples/torch_*.py``) on the card at
+    its small size, its ``main`` called here."""
+    import importlib.util
+    import shutil
+    import torch
+    ckpt_dir = ROOT / "build" / "launch_train_lm"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    walls = {}
+    try:
+        for name, args in EXAMPLE_RUNS:
+            if name == "torch_train_lm":
+                args = args + ["--ckpt-dir", str(ckpt_dir)]
+            spec = importlib.util.spec_from_file_location(
+                name, ROOT / "examples" / f"{name}.py")
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            t0 = time.perf_counter()
+            out = module.main(args)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            check(out is not None, f"{name} returned nothing")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    emit({"phase": "launch_examples", "seconds": walls})
+
+
+def sdpa_bwd_rows():
+    """SDPA's backward at G 5 (40/8 heads) and G 6 (48/8, the window of
+    4096 masking nothing at S 4096) on ``flash_bwd``'s inputs: (1, 4096,
+    H, 128) bf16, causal, seeded q, k, v and dO."""
+    import torch
+    rows = []
+    for H in (40, 48):
+        g = torch.Generator(device="cuda").manual_seed(LM_SEED)
+        q, k, v, do = (torch.randn((1, 4096, h, 128), generator=g,
+                                   device="cuda").to(torch.bfloat16)
+                       for h in (H, 8, 8, H))
+        ms, backend = sdpa_backward_ms(q, k, v, do)
+        rows.append({"phase": "launch_sdpa_bwd", "G": H // 8, "heads": H,
+                     "kv_heads": 8, "S": 4096, "D": 128, "ms": ms,
+                     "backend": backend})
+        emit(rows[-1])
+        del q, k, v, do
+    return rows
+
+
+def launch_phase():
+    """The launch layer: (a) the dry-run of every cell (on the host, in the
+    background of the card's work), its state bytes against the card;
+    (b) the sharded step on one NCCL rank; (c) elastic restore; (d) the
+    examples; (e) SDPA's backward at G 5 and 6.  Returns the sharded
+    step's launches."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    proc, out, t_dry = dryrun_start()
+    try:
+        sctx = launch_mesh()
+        launches, plain, opt = launch_sharded(sctx)
+        launch_restore(sctx, plain, opt)
+        del plain, opt
+        launch_moe(sctx)
+        dryrun_vs_card()
+        launch_examples()
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    dryrun_finish(proc, out, t_dry)
+    sdpa_bwd_rows()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    emit({"phase": "launch_seconds", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def build_kernels():
     """Build every kernel from its source: one ``nvcc`` each, all started
     together."""
@@ -4128,6 +4604,10 @@ def main() -> int:
     embag_row = embag_rows[0]   # the trained table, step 0's histories
     del item_table, bags
 
+    launch = launch_phase()
+    check(launch["fwd"] > 0 and launch["dq"] > 0 and launch["dkv"] > 0,
+          "the sharded step launched no flash kernel")
+
     main_row = rows[0]   # the first cc solve's root-label read
     flash_row = flash_rows[0]   # the first layer's own q, k, v
     emit({"kernels": [{
@@ -4148,16 +4628,18 @@ def main() -> int:
         "source": flash_source("fwd", flash_row["kernel_route"]),
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": flash_launches + train_launches["fwd"] + moe_fwd
-        + moe_train["fwd"],
+        + moe_train["fwd"] + launch["fwd"],
         "launches_by_phase": {"lm_forward": flash_launches,
                               "lm_train": train_launches["fwd"],
                               "moe_forward": moe_fwd,
-                              "moe_train": moe_train["fwd"]},
+                              "moe_train": moe_train["fwd"],
+                              "launch_sharded": launch["fwd"]},
         "launches_by_route": {"wgmma": flash_launches + moe_fwd
                               + train_launches["fwd_wgmma"]
-                              + moe_train["fwd_wgmma"],
+                              + moe_train["fwd_wgmma"]
+                              + launch["fwd_wgmma"],
                               "simt": train_launches["fwd_simt"]
-                              + moe_train["fwd_simt"]},
+                              + moe_train["fwd_simt"] + launch["fwd_simt"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_err_over_limit": max(
             [r["err_over_limit"] for r in flash_rows]
@@ -4174,11 +4656,14 @@ def main() -> int:
         "kernel_route": bwd_row["kernel_route"],
         "source": flash_source("bwd", bwd_row["kernel_route"]),
         "replaces": f"src/repro/kernels/flash_attention/bwd.py:{line}",
-        "launches": train_launches[kname] + moe_train[kname],
+        "launches": train_launches[kname] + moe_train[kname]
+        + launch[kname],
         "launches_by_phase": {"lm_train": train_launches[kname],
-                              "moe_train": moe_train[kname]},
+                              "moe_train": moe_train[kname],
+                              "launch_sharded": launch[kname]},
         "launches_by_route": {r: train_launches[f"{kname}_{r}"]
                               + moe_train[f"{kname}_{r}"]
+                              + launch[f"{kname}_{r}"]
                               for r in ("wgmma", "simt")},
         "max_abs_err": max(r[f"{g}_max_abs_err"] for r in bwd_rows
                            for g in grads),

@@ -82,3 +82,11 @@ def get(arch_id: str) -> ArchEntry:
     if arch_id not in REGISTRY:
         raise KeyError(f"unknown arch '{arch_id}'; known: {sorted(REGISTRY)}")
     return REGISTRY[arch_id]
+
+
+def all_cells():
+    """Yield (arch_id, shape_name, skipped_reason|None) for all 40 cells,
+    in the reference's order."""
+    for aid, entry in REGISTRY.items():
+        for sname in entry.shapes:
+            yield aid, sname, entry.skip_shapes.get(sname)

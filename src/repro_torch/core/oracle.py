@@ -121,3 +121,29 @@ def is_mis(g: UGraph, in_set: np.ndarray) -> bool:
     covered[u[in_set[v]]] = True
     covered[v[in_set[u]]] = True
     return bool(covered.all())
+
+
+def yoshida_mis_queries(g: UGraph, rank: np.ndarray) -> int:
+    """Total query count of the Yoshida et al. recursive MIS process
+    (run independently from every vertex, no memoization): the quantity the
+    paper's caching optimization reduces.  Exponential in the worst case;
+    for small graphs, to sanity check the O(m) average bound.  A recursion
+    deeper than 60 answers "in the set", as in the reference."""
+    indptr, indices, _, _ = g.csr()
+    count = 0
+
+    def in_mis(v, depth=0):
+        nonlocal count
+        if depth > 60:
+            return True
+        nbrs = indices[indptr[v]:indptr[v + 1]]
+        lower = nbrs[rank[nbrs] < rank[v]]
+        for u in lower[np.argsort(rank[lower], kind="stable")]:
+            count += 1
+            if in_mis(int(u), depth + 1):
+                return False
+        return True
+
+    for v in range(g.n):
+        in_mis(v)
+    return count

@@ -34,3 +34,10 @@ def batch_at_step(cfg: TokenStreamConfig, step: int):
     take_noise = rng.random((B, S + 1)) < 0.1
     seq = np.where(take_noise, noise, ramps).astype(np.int32)
     return seq[:, :-1], seq[:, 1:]
+
+
+def shard_of_batch(tokens, labels, shard: int, n_shards: int):
+    """Static round-robin sharding of the global batch (straggler re-dispatch
+    re-assigns shard indices, not data): rows shard, shard + n_shards,
+    ..."""
+    return tokens[shard::n_shards], labels[shard::n_shards]

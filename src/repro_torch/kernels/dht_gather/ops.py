@@ -1,8 +1,9 @@
 """``dht_gather``: the cached gather behind the DHT lookup.
 
 On a CUDA tensor it launches the Hopper kernel (``kernel.py``); on a CPU
-tensor it runs the plain version (``ref.py``).  There is no fallback from
-one to the other.
+tensor it runs the plain version (``ref.py``); on a ``meta`` tensor it
+returns empty outputs of the right shapes (the dry-run's branch: no
+launch, no count).  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -44,7 +45,11 @@ def dht_gather(table: torch.Tensor, keys: torch.Tensor,
         return out, hits
     if table.device.type == "cpu":
         return dht_gather_fused_ref(table, sk, order)
-    raise ValueError(f"dht_gather runs on CUDA or CPU tensors, got "
+    if table.device.type == "meta":
+        return (torch.empty((keys.shape[0], table.shape[1]),
+                            dtype=table.dtype, device="meta"),
+                torch.empty((), dtype=torch.int64, device="meta"))
+    raise ValueError(f"dht_gather runs on CUDA, CPU or meta tensors, got "
                      f"{table.device}")
 
 

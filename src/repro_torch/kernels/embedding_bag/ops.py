@@ -1,7 +1,8 @@
 """``embedding_bag``: the sum-mode EmbeddingBag, (V, D) x (B, L) -> (B, D).
 
 On a CUDA tensor it launches the Hopper kernel (``kernel.py``); on a CPU
-tensor it runs the plain version (``ref.py``).  There is no fallback from
+tensor it runs the plain version (``ref.py``); on a ``meta`` tensor it
+returns an empty output (no launch, no count).  There is no fallback from
 one to the other.  The JAX package has no backward kernel and no path of
 either package differentiates it, so neither does the port: a table that
 would need a gradient raises.
@@ -20,7 +21,8 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     in the table's type, summed in f32 in slot order.
 
     ``embedding_bag.launches`` counts kernel launches (CUDA tensors, B and
-    D nonzero).
+    D nonzero); ``embedding_bag.meta_flops`` the additions, B·L·D, of the
+    calls answered on ``meta``.
     """
     check_inputs(table, ids)
     if ids.device != table.device:
@@ -36,8 +38,13 @@ def embedding_bag(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         return out
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids)
-    raise ValueError(f"embedding_bag runs on CUDA or CPU tensors, got "
+    if table.device.type == "meta":
+        embedding_bag.meta_flops += ids.numel() * table.shape[1]
+        return torch.empty((ids.shape[0], table.shape[1]), dtype=table.dtype,
+                           device="meta")
+    raise ValueError(f"embedding_bag runs on CUDA, CPU or meta tensors, got "
                      f"{table.device}")
 
 
 embedding_bag.launches = 0
+embedding_bag.meta_flops = 0

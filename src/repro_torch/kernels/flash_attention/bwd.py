@@ -15,10 +15,12 @@ other:
 
 On CUDA tensors the Function launches the kernels; on CPU tensors it runs
 their plain versions (``ref.attention_fwd_lse_ref``,
-``ref.attention_bwd_ref``), so the CPU tests exercise its plumbing.  There
-is no fallback from one to the other.  The sources compile with ``nvcc``
-on first use, as the forward's do (``kernels/_build.py``); nothing is
-built or loaded when this module is imported.
+``ref.attention_bwd_ref``), so the CPU tests exercise its plumbing; on
+``meta`` tensors it returns empty outputs of the kernels' shapes (the
+dry-run's branch).  There is no fallback from one to the other.  The
+sources compile with ``nvcc`` on first use, as the forward's do
+(``kernels/_build.py``); nothing is built or loaded when this module is
+imported.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch
 from .. import _build
 from .kernel import CSRC, _check_tma, check_kernel_inputs, \
     flash_attention_cuda, tma_fault
-from .ref import attention_bwd_ref, attention_fwd_lse_ref
+from .ref import attention_bwd_ref, attention_flops, attention_fwd_lse_ref
 
 # route -> (source, library, {kernel: C entry}); a route's two entries take
 # the arguments of the SIMT route's entries
@@ -172,6 +174,9 @@ flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
 flash_bwd_dq.launches_by_route = {"wgmma": 0, "simt": 0}
 flash_bwd_dkv.launches_by_route = {"wgmma": 0, "simt": 0}
+# the kernels' work answered on meta tensors (``ref.attention_flops``)
+flash_bwd_dq.meta_flops = 0
+flash_bwd_dkv.meta_flops = 0
 
 
 def row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -205,6 +210,10 @@ class FlashAttention(torch.autograd.Function):
         if q.is_cuda:
             out, lse = flash_attention_cuda(q, k, v, causal=causal,
                                             window=window, with_lse=True)
+        elif q.device.type == "meta":
+            B, S, H, _ = q.shape
+            out = torch.empty_like(q, memory_format=torch.contiguous_format)
+            lse = q.new_empty((B, H, S), dtype=torch.float32)
         else:
             out, lse = attention_fwd_lse_ref(q, k, v, causal, window)
         ctx.save_for_backward(q, k, v, out, lse)
@@ -214,6 +223,17 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
+        if q.device.type == "meta":
+            flash_bwd_dq.meta_flops += attention_flops(q, k, ctx.causal,
+                                                       ctx.window, 3)
+            flash_bwd_dkv.meta_flops += attention_flops(q, k, ctx.causal,
+                                                        ctx.window, 4)
+            delta = row_delta(out, do)
+            del delta
+            return (torch.empty_like(q, memory_format=torch.contiguous_format),
+                    torch.empty_like(k, memory_format=torch.contiguous_format),
+                    torch.empty_like(v, memory_format=torch.contiguous_format),
+                    None, None)
         if not q.is_cuda:
             dq, dk, dv = attention_bwd_ref(q, k, v, out, lse, do, ctx.causal,
                                            ctx.window)

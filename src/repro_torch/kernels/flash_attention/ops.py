@@ -2,7 +2,9 @@
 
 On CUDA tensors it launches the Hopper kernels (``kernel.py``, and
 ``bwd.py`` when a gradient is wanted); on CPU tensors it runs their plain
-versions (``ref.py``).  There is no fallback from one to the other.
+versions (``ref.py``); on ``meta`` tensors it returns empty outputs of the
+right shapes and counts the kernels' work by formula (the dry-run's
+branch: no launch, no count).  There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -10,7 +12,7 @@ import torch
 
 from .bwd import FlashAttention
 from .kernel import flash_attention_cuda, route
-from .ref import attention_ref
+from .ref import attention_flops, attention_ref
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -29,7 +31,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel that took them (``kernel.route``: "wgmma" or "simt");
     ``bwd.flash_bwd_dq.launches`` and ``bwd.flash_bwd_dkv.launches`` count
     the backward kernels', and their ``launches_by_route`` the same by
-    ``bwd.route`` (bf16 at D 64/128 on "wgmma", the rest on "simt").
+    ``bwd.route`` (bf16 at D 64/128 on "wgmma", the rest on "simt").  On
+    ``meta`` tensors nothing launches or counts; ``meta_flops`` of each
+    of the three adds the kernel's ``ref.attention_flops`` instead (the
+    forward at each call, a recomputed one too; dq and dk/dv at the
+    backward).
     """
     # the contract on every device; flash_attention_cuda checks what the
     # kernel itself needs (type, head width, strides)
@@ -46,11 +52,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"key")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k and v must be on the same device")
-    if not q.is_cuda and q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on CUDA or CPU tensors, got "
-                         f"{q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention runs on CUDA, CPU or meta "
+                         f"tensors, got {q.device}")
+    grad = torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v))
+    if q.device.type == "meta":
+        flash_attention.meta_flops += attention_flops(q, k, causal, window, 2)
+    if grad:
         out = FlashAttention.apply(q, k, v, causal, window)
+    elif q.device.type == "meta":
+        return torch.empty_like(q, memory_format=torch.contiguous_format)
     elif q.is_cuda:
         out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     else:
@@ -62,4 +74,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
+flash_attention.meta_flops = 0
 flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}

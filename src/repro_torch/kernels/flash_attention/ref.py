@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30
@@ -221,3 +222,23 @@ def grad_limit(ref: torch.Tensor, n: int) -> torch.Tensor:
     percent or more, and fails this limit
     (``tests/test_torch_train.py``)."""
     return RTOL[ref.dtype] * ref.float().abs() + 2 * n * F32_ULP
+
+
+def attention_pairs(S: int, K: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask keeps for one (batch, head), the
+    queries at the last S of K positions: the work the kernels' products
+    need on such inputs."""
+    pos = np.arange(S, dtype=np.int64) + (K - S)
+    hi = np.minimum(pos, K - 1) if causal else np.full(S, K - 1)
+    lo = np.maximum(pos - window + 1, 0) if window > 0 else np.zeros(S)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_flops(q: torch.Tensor, k: torch.Tensor, causal: bool,
+                    window: int, products: int) -> int:
+    """2·D multiply-adds a kept pair, for ``products`` matmuls over every
+    (batch, query head): 2 for the forward (QKᵀ, PV), 3 for dq (QKᵀ, dO
+    Vᵀ, dS K) and 4 for dk/dv (QKᵀ, dO Vᵀ, Pᵀ dO, dSᵀ Q)."""
+    B, S, H, D = q.shape
+    return products * 2 * B * H * D * attention_pairs(S, k.shape[1], causal,
+                                                      window)

@@ -2,11 +2,12 @@
 aggregation of a GIN layer.
 
 On a CUDA tensor it launches the Hopper kernel (``kernel.py``); on a CPU
-tensor it runs the plain version (``ref.py``).  There is no fallback from
-one to the other.  ``SegmentMatmul`` is its ``torch.autograd.Function``:
-the JAX package has no backward kernel (its GIN gradient is ``jax.grad`` of
-``take`` and ``segment_sum``), so the backward is plain torch on every
-device.
+tensor it runs the plain version (``ref.py``); on a ``meta`` tensor it
+returns empty outputs of the right shapes (no launch, no count).  There is
+no fallback from one to the other.  ``SegmentMatmul`` is its
+``torch.autograd.Function``: the JAX package has no backward kernel (its
+GIN gradient is ``jax.grad`` of ``take`` and ``segment_sum``), so the
+backward is plain torch on every device.
 """
 from __future__ import annotations
 
@@ -30,7 +31,11 @@ class SegmentMatmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, nbr, w):
         want_agg = ctx.needs_input_grad[2]
-        if x.is_cuda:
+        if x.device.type == "meta":
+            out = x.new_empty((nbr.shape[0], w.shape[1]))
+            agg = (x.new_empty((nbr.shape[0], x.shape[1]),
+                               dtype=torch.float32) if want_agg else None)
+        elif x.is_cuda:
             if want_agg:
                 out, agg = segment_matmul_cuda(x, nbr, w, with_agg=True)
             else:
@@ -51,7 +56,10 @@ class SegmentMatmul(torch.autograd.Function):
         dx = dw = None
         if ctx.needs_input_grad[2]:
             dw = (agg.T @ g).to(w.dtype)
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0] and g.device.type == "meta":
+            # the valid slots are data: count every row's product once
+            dx = (g @ w.float().T).new_zeros(ctx.x_shape).to(ctx.x_dtype)
+        elif ctx.needs_input_grad[0]:
             N, D = ctx.x_shape
             rows, slots = torch.nonzero(nbr >= 0, as_tuple=True)
             dst = nbr[rows, slots].clamp(max=N - 1).long()
@@ -69,18 +77,26 @@ def segment_matmul(x: torch.Tensor, nbr: torch.Tensor,
 
     Where grad is enabled and x or w requires it, the call goes through
     :class:`SegmentMatmul`.  ``segment_matmul.launches`` counts kernel
-    launches (CUDA tensors, M and F nonzero).
+    launches (CUDA tensors, M and F nonzero); ``segment_matmul.meta_flops``
+    the kernel's work, M·K·D additions and 2·M·D·F for the product, in
+    the calls answered on ``meta``.
     """
     check_inputs(x, nbr, w)
     if not (x.device == nbr.device == w.device):
         raise ValueError("x, nbr and w must be on the same device")
-    if not x.is_cuda and x.device.type != "cpu":
-        raise ValueError(f"segment_matmul runs on CUDA or CPU tensors, got "
-                         f"{x.device}")
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"segment_matmul runs on CUDA, CPU or meta tensors, "
+                         f"got {x.device}")
+    if x.device.type == "meta":
+        M, K = nbr.shape
+        segment_matmul.meta_flops += M * K * x.shape[1] \
+            + 2 * M * x.shape[1] * w.shape[1]
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         out = SegmentMatmul.apply(x, nbr, w)
     elif x.is_cuda:
         out = segment_matmul_cuda(x, nbr, w)
+    elif x.device.type == "meta":
+        return x.new_empty((nbr.shape[0], w.shape[1]))
     else:
         return segment_matmul_ref(x, nbr, w)
     if x.is_cuda and nbr.shape[0] and w.shape[1]:
@@ -89,3 +105,4 @@ def segment_matmul(x: torch.Tensor, nbr: torch.Tensor,
 
 
 segment_matmul.launches = 0
+segment_matmul.meta_flops = 0

@@ -11,19 +11,28 @@ state:
 A parameter that the loss never reads (MACE's ``mix_v`` and ``mix_t``)
 has no autograd gradient; the steps give it a zero one, as ``jax.grad``
 does, so AdamW's weight decay still moves it.
+
+The LM steps take a ``ShardCtx`` (``sctx``): the caller places the
+parameters and AdamW's moments once by ``sharding.lm_param_shardings`` on
+its mesh (:func:`place_lm`), as the reference's ``in_shardings`` do, and
+each data rank computes on its contiguous block of the global batch, as
+GSPMD splits it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
+from ..devices import is_dtensor, whole
+
 from ..models.gnn import gcn, gin, mace, schnet
 from ..models.gnn.common import GraphBatch
 from ..models.sasrec import SASRec
-from ..models.transformer import TransformerConfig, TransformerLM
+from ..models.transformer import ShardCtx, TransformerConfig, TransformerLM
 from ..optim import adamw
+from .sharding import lm_param_shardings, place_params, place_tensors
 
 GNN_MODULES = {"gcn-cora": gcn, "gin-tu": gin, "schnet": schnet, "mace": mace}
 # each arch's model: ``GNN_MODELS[arch](cfg, params=None, *, device=None,
@@ -34,49 +43,92 @@ GNN_MODELS = {"gcn-cora": gcn.GCN, "gin-tu": gin.GIN,
 
 def _grads(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each parameter's ``.grad``, a zero one where autograd left none (a
-    parameter the loss does not read): ``jax.grad``'s gradient."""
-    return {n: p.grad if p.grad is not None else torch.zeros_like(p)
-            for n, p in named.items()}
+    parameter the loss does not read): ``jax.grad``'s gradient.  A
+    DTensor parameter's gradient is put in the parameter's placements
+    (autograd may leave it a partial sum over ranks)."""
+    grads = {}
+    for n, p in named.items():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if is_dtensor(g) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        grads[n] = g
+    return grads
+
+
+def place_lm(model: TransformerLM, opt_state: Optional[Dict],
+             sctx: ShardCtx) -> None:
+    """Place ``model``'s parameters and ``opt_state``'s moments (in
+    place) by ``lm_param_shardings`` on ``sctx.mesh``: ZeRO-sharded state,
+    Megatron-split projections.  The step counter stays a plain tensor,
+    the same on every rank.  Called once, before the steps."""
+    shardings = lm_param_shardings(sctx.mesh, dict(model.named_parameters()))
+    place_params(model, shardings)
+    if opt_state is not None:
+        for key in ("m", "v"):
+            opt_state[key] = place_tensors(opt_state[key], shardings)
+
+
+def _check_placed(model: TransformerLM, sctx: ShardCtx) -> None:
+    """Raise unless ``model``'s parameters are on ``sctx.mesh`` (its first
+    one checked): a step under a context runs on a placed state."""
+    p = model.embed
+    if not is_dtensor(p) or p.device_mesh != sctx.mesh:
+        raise ValueError("the parameters are not placed on the context's "
+                         "mesh: call place_lm(model, opt_state, sctx) once "
+                         "before the steps")
 
 
 def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
-                  opt_state: Dict, tokens, labels) -> Dict[str, torch.Tensor]:
+                  opt_state: Dict, tokens, labels,
+                  sctx: Optional[ShardCtx] = None
+                  ) -> Dict[str, torch.Tensor]:
     """One step: forward, backward and AdamW, in place on ``model``'s
     parameters and ``opt_state``.  Returns the metrics ``loss``, ``nll``,
     ``aux``, ``lr`` and ``grad_norm`` as tensors.
 
+    Under ``sctx`` (every rank given the same global batch, the state
+    placed by :func:`place_lm`) data rank r computes on the r-th
+    contiguous block of rows, as GSPMD splits the reference's batch; the
+    gradients are the global batch's, the metrics plain tensors, the same
+    on every rank.  Each microbatch must split into the data shards.
+
     With ``cfg.n_microbatches`` n > 1 the batch is split into n equal
-    microbatches along B, one backward each; their gradients accumulate
+    contiguous microbatches along B (the reference's scan), each split
+    over the data shards in turn, one backward each; their gradients accumulate
     in the parameters' f32 ``.grad`` and are divided by n, and the loss is
     the microbatches' mean (the reference's scan).  Activation memory is
     that of one microbatch, and an MoE layer's capacity is counted over
     one microbatch's tokens, as in the reference.
     """
     cfg = model.cfg
+    n_micro = max(cfg.n_microbatches, 1)
+    n_data = 1
+    if sctx is not None:
+        _check_placed(model, sctx)
+        n_data = sctx.dp_size
     tokens = torch.as_tensor(tokens, device=model.device).long()
     labels = torch.as_tensor(labels, device=model.device).long()
-    n_micro = max(cfg.n_microbatches, 1)
     B = tokens.shape[0]
-    if B % n_micro:
+    if B % (n_micro * n_data):
         raise ValueError(f"batch {B} does not split into {n_micro} "
-                         f"microbatches")
+                         f"microbatches of {n_data} data shards")
     named = dict(model.named_parameters())
     for p in named.values():
         p.grad = None
     if n_micro == 1:
-        loss, metrics = model.loss_fn(tokens, labels)
+        loss, metrics = model.loss_fn(tokens, labels, sctx=sctx)
         loss.backward()
-        loss, metrics = loss.detach(), {k: v.detach()
-                                        for k, v in metrics.items()}
+        loss, metrics = whole(loss.detach()), {
+            k: whole(v.detach()) for k, v in metrics.items()}
     else:
         mb = B // n_micro
         loss_sum = aux_sum = 0.0
         for i in range(n_micro):
             part = slice(i * mb, (i + 1) * mb)
-            loss_i, m = model.loss_fn(tokens[part], labels[part])
+            loss_i, m = model.loss_fn(tokens[part], labels[part], sctx=sctx)
             loss_i.backward()
-            loss_sum = loss_sum + loss_i.detach()
-            aux_sum = aux_sum + m["aux"].detach()
+            loss_sum = loss_sum + whole(loss_i.detach())
+            aux_sum = aux_sum + whole(m["aux"].detach())
         for p in named.values():
             p.grad.div_(n_micro)
         loss = loss_sum / n_micro
@@ -88,16 +140,26 @@ def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
     return {"loss": loss, **metrics, **opt_metrics}
 
 
-def lm_prefill_step(model: TransformerLM, tokens):
+def lm_prefill_step(model: TransformerLM, tokens,
+                    sctx: Optional[ShardCtx] = None):
     """(last logits (B, V), cache {"k", "v": (L, B, S, Hkv, hd), "length":
-    (B,) int32}) of a (B, S) prompt."""
-    return model.prefill(tokens)
+    (B,) int32}) of a (B, S) prompt.  Under ``sctx`` (the parameters
+    placed by :func:`place_lm`) data rank r prefills the r-th contiguous
+    block of rows; the logits and k, v are DTensors."""
+    if sctx is not None:
+        _check_placed(model, sctx)
+    return model.prefill(tokens, sctx=sctx)
 
 
-def lm_decode_step(model: TransformerLM, cache, token):
+def lm_decode_step(model: TransformerLM, cache, token,
+                   sctx: Optional[ShardCtx] = None):
     """(logits (B, V), the cache with ``length + 1``) of one (B,) token;
-    the new keys and values are written into ``cache`` in place."""
-    return model.decode_step(cache, token)
+    the new keys and values are written into ``cache`` in place (under
+    ``sctx``, the parameters placed by :func:`place_lm`: gathered,
+    decoded and placed back)."""
+    if sctx is not None:
+        _check_placed(model, sctx)
+    return model.decode_step(cache, token, sctx=sctx)
 
 
 def lm_cache_shape(cfg: TransformerConfig, batch: int, seq_len: int):

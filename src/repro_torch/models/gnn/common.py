@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...devices import resolve_device
+from ...devices import seeded_generator, randn, resolve_device
 
 
 @dataclasses.dataclass
@@ -34,6 +34,10 @@ class GraphBatch:
     labels: optional (N,) or (n_graphs,) targets
     nbr: optional (N, K) int32 in-neighbour table, -1 as padding: row n
         lists the senders of n's unmasked edges in edge order
+    overflow: optional (senders (E_over,), hub_of (E_over,), hubs
+        (n_hubs,)), the edges ``nbr`` leaves out (``split_neighbors``' cut
+        past a cap): each one's sender, its receiver's index in ``hubs``
+        and the receivers themselves
     """
     senders: torch.Tensor
     receivers: torch.Tensor
@@ -46,6 +50,7 @@ class GraphBatch:
     species: Optional[torch.Tensor] = None
     labels: Optional[torch.Tensor] = None
     nbr: Optional[torch.Tensor] = None
+    overflow: Optional[tuple] = None
 
     @property
     def n_nodes(self) -> int:
@@ -138,8 +143,7 @@ def init_linear(generator: torch.Generator, d_in, d_out,
     """{"w": (d_in, d_out) ~ N(0, 1/d_in), "b": zeros}, drawn from
     ``generator`` on its device (the reference's shapes and scales)."""
     dev = generator.device
-    p = {"w": torch.randn((d_in, d_out), generator=generator, device=dev,
-                          dtype=dtype) / np.sqrt(d_in)}
+    p = {"w": randn((d_in, d_out), generator, dtype) / np.sqrt(d_in)}
     if bias:
         p["b"] = torch.zeros((d_out,), dtype=dtype, device=dev)
     return p
@@ -214,7 +218,7 @@ class GraphModel(ParamTree):
         dev = resolve_device(device, type(self).__name__)
         if params is None:
             params = type(self).init(
-                cfg, torch.Generator(device=dev).manual_seed(seed))
+                cfg, seeded_generator(dev, seed))
         key, field = self.depth
         if len(params[key]) != getattr(cfg, field):
             raise ValueError(f"{len(params[key])} {key} of parameters for a "

@@ -12,9 +12,11 @@ where ``segment_matmul`` is the Hopper kernel's ``(sum_k x[nbr[n, k]]) @
 W1`` on the card (its plain version on the CPU), one launch a layer.  This
 equals the reference's layer up to f32 rounding.
 
-A batch that carries ``nbr`` (a sampled block) is read through it alone.
-An edge-list batch gets a table no wider than ``K_CAP``; the in-edges of a
-row past its first ``K_CAP`` (a hub's) are summed apart, by ``index_add_``
+A batch that carries ``nbr`` (a sampled block) is read through it alone,
+and through its ``overflow`` where it carries one (the dry-run's
+edge-list batch, whose cut it sizes explicitly).  An edge-list batch gets
+a table no wider than ``K_CAP``; the in-edges of a row past its first
+``K_CAP`` (a hub's) are summed apart, by ``index_add_``
 of their senders' rows into an f32 sum for the hub rows only, multiplied
 by W1 and added into those rows: W1 distributes over that sum too.  That
 sum gathers the rows a chunk of edges at a time and keeps only the edge
@@ -31,7 +33,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from ...devices import resolve_device
+from ...devices import seeded_generator, resolve_device
 from ...kernels.segment_matmul.ops import segment_matmul
 from .common import (GraphBatch, graph_readout, init_linear, init_mlp2,
                      linear, split_neighbors)
@@ -142,8 +144,7 @@ class GIN(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device, "GIN")
         if params is None:
-            params = init_params(cfg, torch.Generator(device=dev).manual_seed(
-                seed))
+            params = init_params(cfg, seeded_generator(dev, seed))
         if len(params["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(params['layers'])} layers of parameters "
                              f"for a {cfg.n_layers}-layer config")
@@ -162,7 +163,9 @@ class GIN(nn.Module):
                              f"{self.device}")
         x = batch.node_feat.to(self.cfg.dtype)
         nbr, hubs = batch.nbr, None
-        if nbr is None:
+        if nbr is not None and batch.overflow is not None:
+            over_s, hub_of, hubs = batch.overflow
+        elif nbr is None:
             nbr, over_s, over_r = split_neighbors(
                 batch.senders, batch.receivers, batch.edge_mask,
                 batch.n_nodes, cap=K_CAP)

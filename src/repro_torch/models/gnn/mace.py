@@ -24,6 +24,7 @@ import math
 
 import torch
 
+from ...devices import randn
 from .common import (GraphBatch, GraphModel, gather, graph_readout,
                      init_linear, init_mlp2, mlp2, scatter_sum)
 from .schnet import energy_mse
@@ -66,8 +67,7 @@ def init_params(cfg: MACEConfig, generator: torch.Generator):
     "mix_t"}], "energy_head"}."""
     C = cfg.d_hidden
     dev = generator.device
-    p = {"embed": torch.randn((cfg.n_species, C), generator=generator,
-                              dtype=cfg.dtype, device=dev) * 0.1,
+    p = {"embed": randn((cfg.n_species, C), generator, cfg.dtype) * 0.1,
          "layers": []}
     for _ in range(cfg.n_layers):
         p["layers"].append({
@@ -77,8 +77,7 @@ def init_params(cfg: MACEConfig, generator: torch.Generator):
             "R2": init_mlp2(generator, cfg.n_rbf, C, C, cfg.dtype),
             "mix_in": init_linear(generator, C, C, cfg.dtype, bias=False),
             # B-feature weights (correlation contractions -> scalars)
-            "w_b": torch.randn((6, C), generator=generator, dtype=cfg.dtype,
-                               device=dev) * 0.3,
+            "w_b": randn((6, C), generator, cfg.dtype) * 0.3,
             "update": init_mlp2(generator, C, C, C, cfg.dtype),
             # equivariant channel mixers, never read by the forward
             "mix_v": init_linear(generator, C, C, cfg.dtype, bias=False),

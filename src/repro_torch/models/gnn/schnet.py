@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from ...devices import randn
 from .common import (GraphBatch, GraphModel, gather, graph_readout,
                      init_linear, init_mlp2, linear, mlp2, scatter_sum)
 
@@ -54,8 +55,7 @@ def init_params(cfg: SchNetConfig, generator: torch.Generator):
     ``generator`` on its device: {"embed" (n_species, d), "interactions":
     [{"filter", "in_lin" (no bias), "out"}], "energy_head"}."""
     d = cfg.d_hidden
-    p = {"embed": torch.randn((cfg.n_species, d), generator=generator,
-                              dtype=cfg.dtype, device=generator.device) * 0.1,
+    p = {"embed": randn((cfg.n_species, d), generator, cfg.dtype) * 0.1,
          "interactions": []}
     for _ in range(cfg.n_interactions):
         p["interactions"].append({

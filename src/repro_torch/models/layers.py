@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..devices import randn
+
 NEG_INF = -1e30
 
 
@@ -143,7 +145,17 @@ def attention_xla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``static_positions=True`` asserts q_pos/k_pos are standard aranges (q
     aligned to the end of k), enabling static causal chunk skipping: each
     q chunk scans only the KV chunks that meet its causal prefix, and with
-    a uniform ``static_window`` not the leading out-of-window ones."""
+    a uniform ``static_window`` not the leading out-of-window ones.
+
+    On ``meta`` tensors without autograd (the dry-run's prefill) it runs
+    one KV step's allocations instead of the loop and adds the loop's
+    product FLOPs to ``attention_xla_chunked.meta_flops``: the loop is
+    some 10^5 steps a prefill_32k cell."""
+    if q.device.type == "meta" and not (
+            torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return _chunked_on_meta(q, k, window, causal, chunk_q, chunk_kv,
+                                static_positions and causal, static_window)
     if static_positions and causal:
         return _attention_chunked_skipping(
             q, k, v, window, chunk_q, chunk_kv, softmax_scale, p_bf16,
@@ -189,6 +201,40 @@ def attention_xla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         outs.append(out.permute(0, 1, 4, 2, 3, 5).reshape(B, n * cq, H, D)
                     .to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _chunked_on_meta(q, k, window, causal, chunk_q, chunk_kv, skipping,
+                     static_window):
+    """The chunked attention's output on ``meta``, its two products
+    (4·cq·ck·D a head and block visited) counted, and one KV step's f32
+    buffers (logits, probabilities, the running state) allocated and freed
+    so a memory tracker sees the step's peak."""
+    B, S, H, D = q.shape
+    K, Hkv = k.shape[1], k.shape[2]
+    cq, ck = _chunks(S, K, chunk_q, chunk_kv)
+    nq, nk = S // cq, K // ck
+    if skipping:
+        blocks, group = 0, 1
+        for qi in range(nq):
+            q_start = qi * cq + K - S
+            hi = min(nk, (q_start + cq - 1) // ck + 1)
+            lo = (max(0, (q_start - static_window + 1) // ck)
+                  if static_window and static_window > 0 else 0)
+            blocks += hi - lo
+    else:
+        blocks = nq * nk
+        group = max(1, min(nq, Q_GROUP_ELEMENTS // (B * H * cq * ck)))
+    attention_xla_chunked.meta_flops += 4 * B * H * cq * ck * D * blocks
+    state = q.new_empty((B, group, Hkv, H // Hkv, cq, D + 2),
+                        dtype=torch.float32)
+    logits = q.new_empty((B, group, Hkv, H // Hkv, cq, ck),
+                         dtype=torch.float32)
+    probs = torch.empty_like(logits)
+    del state, logits, probs
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+attention_xla_chunked.meta_flops = 0
 
 
 def _attention_chunked_skipping(q, k, v, window, chunk_q: int, chunk_kv: int,
@@ -254,8 +300,7 @@ class AttnParamsSpec:
 
 
 def _normal(generator: torch.Generator, shape, dtype, scale: float):
-    return torch.randn(shape, generator=generator, dtype=dtype,
-                       device=generator.device) * float(scale)
+    return randn(shape, generator, dtype) * float(scale)
 
 
 def init_attn(generator: torch.Generator, spec: AttnParamsSpec,
@@ -284,6 +329,16 @@ def init_attn(generator: torch.Generator, spec: AttnParamsSpec,
 def attn_qkv(params, x: torch.Tensor, spec: AttnParamsSpec,
              positions: torch.Tensor, rope_theta: float):
     """Project to rotated q, k, v. x: (B, S, d)."""
+    q, k, v = attn_project(params, x, spec)
+    q = apply_rope(q, positions, rope_theta)
+    k = apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def attn_project(params, x: torch.Tensor, spec: AttnParamsSpec):
+    """q (B, S, H, hd), k and v (B, S, Hkv, hd) before RoPE: the
+    projections, their biases and the qk-norm.  Every op has a DTensor
+    rule, so a sharded layer runs it on DTensors."""
     B, S, _ = x.shape
     H, Hkv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     q = x @ params["wq"].to(x.dtype)
@@ -299,8 +354,6 @@ def attn_qkv(params, x: torch.Tensor, spec: AttnParamsSpec,
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"])
         k = rms_norm(k, params["k_norm"])
-    q = apply_rope(q, positions, rope_theta)
-    k = apply_rope(k, positions, rope_theta)
     return q, k, v
 
 
@@ -315,7 +368,11 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp_swiglu(params, x: torch.Tensor):
+def mlp_swiglu(params, x: torch.Tensor, hidden_cs=None):
+    """SwiGLU; ``hidden_cs`` places the (..., f) hidden activations (a
+    sharding context's constraint), identity when None."""
     g = F.silu(x @ params["w_gate"].to(x.dtype))
     u = x @ params["w_up"].to(x.dtype)
+    if hidden_cs is not None:
+        g, u = hidden_cs(g), hidden_cs(u)
     return (g * u) @ params["w_down"].to(x.dtype)

@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..core.dht import dedup_gather
-from ..devices import resolve_device
+from ..devices import seeded_generator, randn, resolve_device
 from .layers import attention_xla, make_attention_mask
 
 BLOCK_WEIGHTS = ("wq", "wk", "wv", "wo", "ffn_w1", "ffn_w2")
@@ -48,8 +48,7 @@ def init_params(cfg: SASRecConfig, generator: torch.Generator):
     dev, d = generator.device, cfg.embed_dim
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=generator, device=dev,
-                           dtype=cfg.dtype) * scale
+        return randn(shape, generator, cfg.dtype) * scale
 
     s = 1.0 / math.sqrt(d)
     return {"item_embed": normal((cfg.n_items, d), 0.02),
@@ -84,8 +83,7 @@ class SASRec(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device, "SASRec")
         if params is None:
-            params = init_params(cfg, torch.Generator(device=dev).manual_seed(
-                seed))
+            params = init_params(cfg, seeded_generator(dev, seed))
         if len(params["blocks"]) != cfg.n_blocks:
             raise ValueError(f"{len(params['blocks'])} blocks of parameters "
                              f"for a {cfg.n_blocks}-block config")

@@ -33,8 +33,27 @@ the reference's does.
 An MoE layer routes and dispatches all the tokens of its call at once, the
 capacity counted over them (a microbatch's in training, the whole prompt's
 in ``prefill``, the batch's one token each in ``decode_step``).
-``moe_local_dispatch``, the reference's per-shard dispatch under a
-sharding context, raises: sharding is ROADMAP queue 1, item 11.
+
+Sharding: ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take a
+:class:`ShardCtx` (``sctx``), the reference's GSPMD hints as DTensor
+redistributions.  Under it the parameters are DTensors placed by
+``launch.sharding.lm_param_shardings`` (``launch.steps.place_lm``), the
+batch is a DTensor of rows split over the data axes (each data rank
+keeps its contiguous block of the global batch it is given), and
+``sctx.cs`` places the activations where the reference constrains them.
+Ops with a DTensor rule (the projections, norms, SwiGLU) run on DTensors;
+RoPE, the attention (the flash kernels or the chunked attention), the MoE
+dispatch and the loss run on each rank's local shard under ``local_map``:
+the attention is local to a batch shard and a head shard.  Without
+``moe_local_dispatch`` an MoE layer gathers its tokens to every rank and
+dispatches them all (what GSPMD does implicitly); with it each data rank
+dispatches its own shard (``moe_apply_local``, the shard count taken from
+the mesh) and the aux loss is the shards' mean.  ``decode_step`` under a
+context gathers the parameters and the cache and decodes on every rank,
+as the reference's ``decode_step``, which reads no context, leaves
+placement to its inputs.  Without a context every path is the one-device
+model, unchanged; a ``moe_local_dispatch`` config without one dispatches
+globally, as the reference does.
 """
 from __future__ import annotations
 
@@ -48,17 +67,104 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..devices import resolve_device
+from ..devices import (is_dtensor, randn, resolve_device, seeded_generator,
+                       whole)
 from ..kernels.flash_attention.ops import flash_attention
-from .layers import (AttnParamsSpec, attention_xla, attention_xla_chunked,
-                     attn_qkv, init_attn, init_mlp, make_attention_mask,
-                     mlp_swiglu, rms_norm)
-from .moe import MoeSpec, init_moe, moe_apply
+from ..placement import fix_divisibility, mesh_axes, placements
+from .layers import (AttnParamsSpec, apply_rope, attention_xla,
+                     attention_xla_chunked, attn_project, attn_qkv,
+                     init_attn, init_mlp, make_attention_mask, mlp_swiglu,
+                     rms_norm)
+from .moe import MoeSpec, init_moe, moe_apply, moe_apply_local
 
 # sequences >= this use the chunked (flash-style) XLA attention path
 CHUNKED_ATTN_THRESHOLD = 2048
 
-_SHARDING = "sharding (ROADMAP queue 1, item 11)"
+
+def _dtensor_types():
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    return DTensor, Partial, Replicate
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Activation placements threaded through the model: the reference's
+    GSPMD hints as DTensor redistributions.  ``mesh`` is a ``DeviceMesh``;
+    ``dp`` the data-parallel axis name or names (("pod", "data") folds the
+    pod axis into data); ``model`` the tensor-parallel axis."""
+    mesh: Any
+    dp: Any
+    model: str = "model"
+
+    @property
+    def dp_axes(self) -> tuple:
+        return self.dp if isinstance(self.dp, tuple) else (self.dp,)
+
+    @property
+    def dp_size(self) -> int:
+        sizes = mesh_axes(self.mesh)
+        return int(np.prod([sizes[a] for a in self.dp_axes]))
+
+    def data_rank(self) -> int:
+        """This rank's index among the data shards, row-major over the
+        data axes (JAX's order)."""
+        sizes, r = mesh_axes(self.mesh), 0
+        for a in self.dp_axes:
+            r = r * sizes[a] + self.mesh.get_local_rank(a)
+        return r
+
+    def placements(self, shape, *spec) -> tuple:
+        """``spec``'s placements for ``shape``, an axis that does not
+        divide its dimension dropped (replicated), as the reference's
+        ``cs``."""
+        return placements(fix_divisibility(spec, shape, self.mesh),
+                          self.mesh)
+
+    def cs(self, x, *spec):
+        """``x`` redistributed to ``spec``'s placements; identity on a
+        plain tensor."""
+        if not is_dtensor(x):
+            return x
+        pl = self.placements(x.shape, *spec)
+        return x if tuple(x.placements) == pl else x.redistribute(
+            self.mesh, pl)
+
+    def replicate(self, x):
+        return self.cs(x, *([None] * x.dim()))
+
+    def batch(self, x: torch.Tensor):
+        """A global (B, ...) tensor, the same on every rank, as a DTensor
+        of rows over the data axes: each data rank keeps its contiguous
+        block (every rank keeps all rows when B does not divide)."""
+        pl = self.placements(x.shape, self.dp, *([None] * (x.dim() - 1)))
+        n = self.dp_size if any(p.is_shard() for p in pl) else 1
+        rows = x.shape[0] // n
+        r = self.data_rank() if n > 1 else 0
+        return _dtensor_types()[0].from_local(
+            x[r * rows:(r + 1) * rows], self.mesh, pl, run_check=False)
+
+    def grad_placements(self, act_placements) -> tuple:
+        """The placements of the gradient of a replicated parameter used
+        with activations placed ``act_placements``: partial sums over
+        every mesh dimension that splits the activations, replicated over
+        the others (where every rank computes the same gradient)."""
+        _, Partial, Replicate = _dtensor_types()
+        return tuple(Partial() if p.is_shard() else Replicate()
+                     for p in act_placements)
+
+    def local(self, fn, outs, ins, grads=None):
+        """``fn`` on each rank's local shards (``local_map``): ``outs``
+        lists the placements of each output, ``ins`` of each input (the
+        inputs are redistributed to them first) and ``grads`` of each
+        input's gradient (``ins`` when None)."""
+        from torch.distributed.tensor.experimental import local_map
+        outs = [list(p) for p in outs]
+        return local_map(
+            fn, out_placements=outs[0] if len(outs) == 1 else tuple(outs),
+            in_placements=tuple(list(p) for p in ins),
+            in_grad_placements=None if grads is None else tuple(
+                list(p) for p in grads),
+            device_mesh=self.mesh, redistribute_inputs=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,21 +272,9 @@ def _dots_policy(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-# settings that tune code not ported yet; the port reads none of them, so a
-# value other than the default raises rather than being ignored
-_UNREAD_SETTINGS = {"moe_local_dispatch": ("the per-shard MoE dispatch",
-                                          _SHARDING)}
-
-
 def _check_supported(cfg: TransformerConfig) -> None:
     if cfg.remat not in REMAT:
         raise ValueError(f"remat must be one of {REMAT}, got {cfg.remat!r}")
-    for f in dataclasses.fields(cfg):
-        if f.name in _UNREAD_SETTINGS and getattr(cfg, f.name) != f.default:
-            what, item = _UNREAD_SETTINGS[f.name]
-            raise NotImplementedError(
-                f"{f.name}={getattr(cfg, f.name)!r} tunes {what}, not "
-                f"ported yet: {item}")
     if cfg.attention_impl not in ("xla", "pallas"):
         raise ValueError(f"attention_impl must be 'xla' or 'pallas', got "
                          f"{cfg.attention_impl!r}")
@@ -197,8 +291,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     "ln2"], "final_norm", "lm_head" (unless tied)}."""
     _check_supported(cfg)
     dev = generator.device
-    embed = torch.randn((cfg.vocab, cfg.d_model), generator=generator,
-                        dtype=dtype, device=dev) * 0.02
+    embed = randn((cfg.vocab, cfg.d_model), generator, dtype) * 0.02
 
     def ffn():
         if cfg.is_moe:
@@ -213,9 +306,8 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
               "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
                                         device=dev)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = torch.randn(
-            (cfg.d_model, cfg.vocab), generator=generator, dtype=dtype,
-            device=dev) * 0.02
+        params["lm_head"] = randn((cfg.d_model, cfg.vocab), generator,
+                                  dtype) * 0.02
     return params
 
 
@@ -281,7 +373,7 @@ class TransformerLM(nn.Module):
         dev = resolve_device(device, "TransformerLM")
         if params is None:
             params = init_params(
-                cfg, torch.Generator(device=dev).manual_seed(seed), dtype)
+                cfg, seeded_generator(dev, seed), dtype)
         if len(params["layers"]) != cfg.n_layers:
             raise ValueError(f"{len(params['layers'])} layers of parameters "
                              f"for a {cfg.n_layers}-layer config")
@@ -322,81 +414,219 @@ class TransformerLM(nn.Module):
         mask = make_attention_mask(positions, positions, window, causal=True)
         return attention_xla(q, k, v, mask[:, None, None, :, :])
 
-    def _ffn(self, layer: Block, h):
+    def _ffn(self, layer: Block, h, sctx: Optional[ShardCtx] = None):
         """The layer's FFN on its normed input: (out, aux f32 or None)."""
         if self.cfg.is_moe:
+            if sctx is not None:
+                return self._sharded_moe(layer.moe, h, sctx)
             return moe_apply(layer.moe, h, self.cfg.moe_spec)
-        return mlp_swiglu(layer.mlp, h), None
+        hidden_cs = None
+        if sctx is not None:
+            def hidden_cs(t):
+                return sctx.cs(t, sctx.dp, None, sctx.model)
+        return mlp_swiglu(layer.mlp, h, hidden_cs=hidden_cs), None
+
+    def _sharded_moe(self, moe, h, sctx: ShardCtx):
+        """An MoE layer on a DTensor ``h`` under ``sctx``: each rank runs
+        the dispatch on its local tokens with the expert weights gathered
+        (``local_map``).  With ``moe_local_dispatch`` the tokens stay
+        split over the data axes and each rank dispatches its own
+        ``dp_size / shards`` shards (``moe_apply_local``); without it they
+        are gathered and every rank dispatches them all (``moe_apply``)."""
+        spec, local = self.cfg.moe_spec, self.cfg.moe_local_dispatch
+        h = (sctx.cs(h, sctx.dp, None, None) if local
+             else sctx.replicate(h))
+        keys = [("router",), ("w_gate",), ("w_up",), ("w_down",)]
+        if spec.shared_expert:
+            keys += [("shared", k) for k in ("w_gate", "w_up", "w_down")]
+        weights = [sctx.replicate(moe[k[0]] if len(k) == 1
+                                  else moe[k[0]][k[1]]) for k in keys]
+        h_pl = tuple(h.placements)
+        shards = int(np.prod([sctx.mesh.size(i) for i, pl in enumerate(h_pl)
+                              if not pl.is_replicate()]))
+        grad_pl = sctx.grad_placements(h_pl)
+
+        def fn(xl, *wl):
+            params = {}
+            for k, w in zip(keys, wl):
+                if len(k) == 1:
+                    params[k[0]] = w
+                else:
+                    params.setdefault(k[0], {})[k[1]] = w
+            if local:
+                out, aux = moe_apply_local(params, xl, spec,
+                                           sctx.dp_size // shards)
+                return out, aux / shards
+            return moe_apply(params, xl, spec)
+
+        return sctx.local(
+            fn, [h_pl, grad_pl],
+            [h_pl] + [w.placements for w in weights],
+            [h_pl] + [grad_pl] * len(weights))(h, *weights)
+
+    def _rope(self, sctx: ShardCtx, t):
+        """RoPE on a (B, S, heads, hd) DTensor, on each rank's rows."""
+        S, theta = t.shape[1], self.cfg.rope_theta
+
+        def fn(tl):
+            pos = torch.arange(S, dtype=torch.int32,
+                               device=tl.device).expand(tl.shape[0], S)
+            return apply_rope(tl, pos, theta)
+
+        return sctx.local(fn, [t.placements], [t.placements])(t)
+
+    def _sharded_attention(self, sctx: ShardCtx, q, k, v, window: int,
+                           attention):
+        """``attention`` on each rank's batch shard and head shard.
+        Where q's heads split over the model axis and k, v's do not (Hkv
+        does not divide), a rank reads the kv heads its query heads
+        group into, and their gradients are partial sums over the axis."""
+        Partial = _dtensor_types()[1]
+        q_pl, kv_pl = tuple(q.placements), tuple(k.placements)
+        H, Hkv = q.shape[2], k.shape[2]
+        G, S = H // Hkv, q.shape[1]
+        m = list(mesh_axes(sctx.mesh)).index(sctx.model)
+        q_split, kv_split = q_pl[m].is_shard(), kv_pl[m].is_shard()
+        kv_grad = kv_pl
+        if q_split and not kv_split:
+            r = sctx.mesh.get_local_rank(sctx.model)
+            Hl = H // sctx.mesh.size(m)
+            lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
+            if Hl % (hi - lo):
+                raise ValueError(f"{Hl} query heads a rank do not group "
+                                 f"into {hi - lo} kv heads")
+            kv_grad = kv_pl[:m] + (Partial(),) + kv_pl[m + 1:]
+
+        def fn(ql, kl, vl):
+            if q_split and not kv_split:
+                kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
+            pos = torch.arange(S, dtype=torch.int32,
+                               device=ql.device).expand(ql.shape[0], S)
+            return attention(ql, kl, vl, window, pos)
+
+        return sctx.local(fn, [q_pl], [q_pl, kv_pl, kv_pl],
+                          [q_pl, kv_grad, kv_grad])(q, k, v)
 
     def _layer(self, layer: Block, window: int, x, positions,
-               attention=None):
+               attention=None, sctx: Optional[ShardCtx] = None):
         """One decoder layer: x (B, S, d) -> (x (B, S, d), aux, k, v), aux
         the MoE load-balancing loss (None for a dense layer), k and v (B,
-        S, Hkv, hd) the layer's rotated keys and values."""
+        S, Hkv, hd) the layer's rotated keys and values.  Under ``sctx``
+        x is a DTensor and so are the four results."""
         B, S, _ = x.shape
+        attention = attention or self._attention
         h = rms_norm(x, layer.ln1)
-        q, k, v = attn_qkv(layer.attn, h, self.cfg.attn_spec, positions,
-                           self.cfg.rope_theta)
-        attn_out = (attention or self._attention)(q, k, v, window, positions)
-        x = x + attn_out.reshape(B, S, -1) @ layer.attn["wo"].to(x.dtype)
-        out, aux = self._ffn(layer, rms_norm(x, layer.ln2))
-        return x + out, aux, k, v
+        if sctx is None:
+            q, k, v = attn_qkv(layer.attn, h, self.cfg.attn_spec, positions,
+                               self.cfg.rope_theta)
+            attn_out = attention(q, k, v, window, positions)
+            x = x + attn_out.reshape(B, S, -1) @ layer.attn["wo"].to(x.dtype)
+            out, aux = self._ffn(layer, rms_norm(x, layer.ln2))
+            return x + out, aux, k, v
+        dp, mdl = sctx.dp, sctx.model
+        q, k, v = attn_project(layer.attn, h, self.cfg.attn_spec)
+        q = self._rope(sctx, sctx.cs(q, dp, None, mdl, None))
+        k = self._rope(sctx, sctx.cs(k, dp, None, mdl, None))
+        v = sctx.cs(v, dp, None, mdl, None)
+        attn_out = self._sharded_attention(sctx, q, k, v, window, attention)
+        attn_flat = sctx.cs(attn_out.reshape(B, S, -1), dp, None, mdl)
+        x = sctx.cs(x + attn_flat @ layer.attn["wo"].to(x.dtype),
+                    dp, None, None)
+        out, aux = self._ffn(layer, rms_norm(x, layer.ln2), sctx)
+        return sctx.cs(x + out, dp, None, None), aux, k, v
 
-    def _block(self, layer: Block, window: int, x, positions):
-        return self._layer(layer, window, x, positions)[:2]
+    def _block(self, layer: Block, window: int, x, positions, sctx=None):
+        return self._layer(layer, window, x, positions, sctx=sctx)[:2]
 
-    def _embed(self, tokens):
+    def _embed(self, tokens, sctx: Optional[ShardCtx] = None):
+        """(x (B, S, d) in ``cfg.dtype``, positions (B, S) int32; None
+        under ``sctx``, where each rank makes its own rows')."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
+        if sctx is not None:
+            tok = sctx.batch(tokens)
+            table = sctx.replicate(self.embed)
+            pl = tuple(tok.placements)
+            dtype = self.cfg.dtype
+            x = sctx.local(lambda e, t: e[t].to(dtype), [pl],
+                           [table.placements, pl],
+                           [sctx.grad_placements(pl), pl])(table, tok)
+            return sctx.cs(x, sctx.dp, None, None), None
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=self.device).expand(B, S)
         return self.embed[tokens].to(self.cfg.dtype), positions
 
-    def _logits(self, x):
+    def _logits(self, x, sctx: Optional[ShardCtx] = None):
         x = rms_norm(x, self.final_norm)
         head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        return x @ head.to(self.cfg.dtype)
+        logits = x @ head.to(self.cfg.dtype)
+        if sctx is None:
+            return logits
+        return sctx.cs(logits, sctx.dp, *([None] * (logits.dim() - 2)),
+                       sctx.model)
 
-    def forward(self, tokens):
+    def forward(self, tokens, sctx: Optional[ShardCtx] = None):
         """tokens: (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux_loss:
         the sum over layers of the MoE load-balancing losses, f32; 0 for a
-        dense config)."""
+        dense config).  Under ``sctx`` both are DTensors, the logits split
+        over the batch and the vocabulary, the aux replicated."""
         cfg = self.cfg
-        x, positions = self._embed(tokens)
+        x, positions = self._embed(tokens, sctx)
         auxs = []
         for layer, window in zip(self.layers, self.windows):
             if cfg.remat == "none":
-                x, aux = self._block(layer, window, x, positions)
+                x, aux = self._block(layer, window, x, positions, sctx)
             elif cfg.remat == "full":
                 x, aux = checkpoint(self._block, layer, window, x, positions,
-                                    use_reentrant=False)
+                                    sctx, use_reentrant=False)
             else:
                 x, aux = checkpoint(self._block, layer, window, x, positions,
-                                    use_reentrant=False,
+                                    sctx, use_reentrant=False,
                                     context_fn=functools.partial(
                                         create_selective_checkpoint_contexts,
                                         _dots_policy))
             if aux is not None:
-                auxs.append(aux)
-        aux = (torch.stack(auxs).sum() if auxs else
-               torch.zeros((), dtype=torch.float32, device=self.device))
-        return self._logits(x), aux
+                auxs.append(aux if sctx is None else sctx.replicate(aux))
+        if auxs:
+            aux = torch.stack(auxs).sum()
+        else:
+            aux = torch.zeros((), dtype=torch.float32, device=self.device)
+            if sctx is not None:
+                aux = _dtensor_types()[0].from_local(
+                    aux, sctx.mesh, sctx.placements(()), run_check=False)
+        return self._logits(x, sctx), aux
 
-    def loss_fn(self, tokens, labels, aux_weight: float = 0.01):
-        """(loss, {"nll", "aux"}) of next-token prediction on one batch."""
-        logits, aux = self(tokens)
-        return lm_loss(logits, aux, labels, aux_weight)
+    def loss_fn(self, tokens, labels, aux_weight: float = 0.01,
+                sctx: Optional[ShardCtx] = None):
+        """(loss, {"nll", "aux"}) of next-token prediction on one batch
+        (under ``sctx`` replicated DTensors)."""
+        logits, aux = self(tokens, sctx)
+        return lm_loss(logits, aux, labels, aux_weight, sctx=sctx)
 
     @torch.no_grad()
-    def prefill(self, tokens):
+    def prefill(self, tokens, sctx: Optional[ShardCtx] = None):
         """tokens: (B, S) -> (last logits (B, V) in ``cfg.dtype``, cache
         {"k", "v": (L, B, S, Hkv, hd) in ``cfg.dtype``, "length": (B,)
         int32, all S}).  Attention takes the reference's xla branches
         (chunked at S >= ``CHUNKED_ATTN_THRESHOLD``, masked below) whatever
-        ``attention_impl`` is."""
+        ``attention_impl`` is.  Under ``sctx`` the logits and the cache's
+        k and v are DTensors (rows over the data axes, kv heads over the
+        model axis where they divide)."""
         cfg = self.cfg
-        x, positions = self._embed(tokens)
-        B, S = positions.shape
+        x, positions = self._embed(tokens, sctx)
+        B, S = x.shape[:2]
+        if sctx is not None:
+            ks, vs = [], []
+            for layer, window in zip(self.layers, self.windows):
+                x, _, k, v = self._layer(layer, window, x, None,
+                                         attention=self._xla_attention,
+                                         sctx=sctx)
+                ks.append(k)
+                vs.append(v)
+            return self._logits(x[:, -1], sctx), {
+                "k": torch.stack(ks), "v": torch.stack(vs),
+                "length": torch.full((B,), S, dtype=torch.int32,
+                                     device=self.device)}
         shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
         ks = torch.empty(shape, dtype=cfg.dtype, device=self.device)
         vs = torch.empty_like(ks)
@@ -412,7 +642,7 @@ class TransformerLM(nn.Module):
                                              device=self.device)}
 
     @torch.no_grad()
-    def decode_step(self, cache, token):
+    def decode_step(self, cache, token, sctx: Optional[ShardCtx] = None):
         """One decode step: token (B,) against ``cache`` (k/v (L, B, S,
         Hkv, hd), S the allocated length, and ``length`` (B,) int32, the
         tokens so far) -> (logits (B, V) in ``cfg.dtype``, {"k", "v",
@@ -425,7 +655,13 @@ class TransformerLM(nn.Module):
         absolute position ``cur - cur % S + i`` up to the slot just
         written, ``cur - cur % S - S + i`` past it.  A slot is attended
         when its position lies in [0, cur] and, for a windowed layer,
-        within the window."""
+        within the window.
+
+        Under ``sctx`` every rank gathers the parameters and the cache,
+        decodes the whole batch, and keeps its shards of the new cache in
+        the placements of the old one; the logits come back replicated."""
+        if sctx is not None:
+            return self._decode_gathered(cache, token, sctx)
         cfg = self.cfg
         kc, vc, length = cache["k"], cache["v"], cache["length"]
         L, B, S = kc.shape[:3]
@@ -453,6 +689,29 @@ class TransformerLM(nn.Module):
             x = x + self._ffn(layer, rms_norm(x, layer.ln2))[0]
         return self._logits(x[:, 0]), {"k": kc, "v": vc,
                                        "length": length + 1}
+
+
+    def _decode_gathered(self, cache, token, sctx: ShardCtx):
+        DTensor = _dtensor_types()[0]
+        params = {"layers": [{} for _ in self.layers]}
+        for name, p in self.named_parameters():
+            node, *path = name.split(".")
+            if node == "layers":
+                node = params["layers"][int(path[0])]
+                for key in path[1:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = whole(p.detach())
+            else:
+                params[node] = whole(p.detach())
+        plain = TransformerLM(self.cfg, params, device=self.device)
+        logits, new = plain.decode_step(
+            {name: whole(t) for name, t in cache.items()}, token)
+        for name, t in cache.items():
+            if is_dtensor(t):
+                new[name] = DTensor.from_local(
+                    new[name], sctx.mesh, sctx.placements(())).redistribute(
+                        sctx.mesh, t.placements)
+        return DTensor.from_local(logits, sctx.mesh, sctx.placements(())), new
 
 
 # rows of logits taken to f32 at once by the loss (2^26 elements, 256 MiB)
@@ -499,9 +758,25 @@ class _NextTokenNLL(torch.autograd.Function):
 
 
 def lm_loss(logits: torch.Tensor, aux: torch.Tensor, labels,
-            aux_weight: float = 0.01):
+            aux_weight: float = 0.01, sctx: Optional[ShardCtx] = None):
     """The reference ``loss_fn``'s loss from ``forward``'s outputs: mean
-    next-token NLL in f32, plus ``aux_weight * aux``."""
+    next-token NLL in f32, plus ``aux_weight * aux``.  Under ``sctx`` the
+    logits are gathered over the vocabulary, each rank takes the NLL of
+    its rows, weighted by its share of the batch, and the sum over the
+    data axes is replicated: the loss and its parts are replicated
+    DTensors."""
     labels = torch.as_tensor(labels, device=logits.device).long()
-    nll = _NextTokenNLL.apply(logits, labels)
+    if sctx is None:
+        nll = _NextTokenNLL.apply(logits, labels)
+        return nll + aux_weight * aux, {"nll": nll, "aux": aux}
+    labels = sctx.batch(labels)
+    logits = sctx.cs(logits, sctx.dp, None, None)
+    pl, B = tuple(logits.placements), logits.shape[0]
+
+    def fn(lg, lb):
+        return _NextTokenNLL.apply(lg, lb) * (lg.shape[0] / B)
+
+    nll = sctx.local(fn, [sctx.grad_placements(pl)], [pl, pl])(logits,
+                                                               labels)
+    nll = sctx.replicate(nll)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}

@@ -14,15 +14,24 @@ master copy).  ``torch.optim.AdamW`` orders these operations otherwise
 State: ``{"m": {name: tensor}, "v": {name: tensor}, "step": int32
 tensor}``, the moments in ``state_dtype`` ("float32" or "bfloat16"), keyed
 by the parameter names of ``nn.Module.named_parameters``.
+
+Sharded parameters (DTensors, ``launch.sharding``) get moments with their
+placements, and the update runs on each rank's shards: the global norm's
+sum of squares is made a replicated value before the square root, so
+every rank clips alike, and the schedule's scalars join the DTensor
+arithmetic as replicated values.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, Mapping, Tuple, Union
 
 import torch
 from torch import nn
+
+from ..devices import is_dtensor, whole
 
 STATE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -69,7 +78,8 @@ def init_state(params: Union[nn.Module, Mapping[str, torch.Tensor]],
     without a config) and step 0, on the parameters' devices."""
     dtype = STATE_DTYPES[cfg.state_dtype if cfg is not None else "float32"]
     named = _named(params)
-    zeros = {n: torch.zeros(p.shape, dtype=dtype, device=p.device)
+    zeros = {n: torch.zeros_like(p, dtype=dtype,
+                                 memory_format=torch.contiguous_format)
              for n, p in named.items()}
     device = next(iter(named.values())).device
     return {"m": zeros,
@@ -78,12 +88,14 @@ def init_state(params: Union[nn.Module, Mapping[str, torch.Tensor]],
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of every element's square, in f32, leaf by leaf."""
+    """sqrt of the sum of every element's square, in f32, leaf by leaf.
+    Over DTensors the sum is replicated (every rank's partial sums
+    reduced) before the square root, and the norm is a plain tensor."""
     total = None
     for t in tensors:
         sq = (t.float() ** 2).sum()
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return torch.sqrt(whole(total))
 
 
 @torch.no_grad()
@@ -106,6 +118,22 @@ def apply_updates(cfg: AdamWConfig,
     stepf = step.to(torch.float32)
     bc1 = 1 - torch.pow(_f32(cfg.b1, dev), stepf)
     bc2 = 1 - torch.pow(_f32(cfg.b2, dev), stepf)
+    with _replicated_scalars(any(is_dtensor(p) for p in named.values())):
+        _update(cfg, named, grads, state, scale, lr, bc1, bc2)
+    state["step"] = step
+    return state, {"lr": lr, "grad_norm": gnorm}
+
+
+def _replicated_scalars(sharded: bool):
+    """Where parameters are DTensors, plain 0-d tensors (the schedule's
+    scalars) act as replicated DTensors in the update."""
+    if not sharded:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def _update(cfg, named, grads, state, scale, lr, bc1, bc2):
     for name, p in named.items():
         m, v = state["m"][name], state["v"][name]
         g = grads[name].float() * scale
@@ -120,5 +148,3 @@ def apply_updates(cfg: AdamWConfig,
         delta.add_(cfg.weight_decay * p.float())
         p.copy_(p.float() - lr * delta)
         del delta, mh
-    state["step"] = step
-    return state, {"lr": lr, "grad_norm": gnorm}

@@ -14,7 +14,8 @@ counterpart of the JAX package's ``runtime/fault_tolerance.py``.
 
 A state is a tree of dicts and lists of tensors, as the checkpointer
 stores it; a restored leaf takes the type and device of its counterpart
-in a fresh ``init_state_fn()``.
+in a fresh ``init_state_fn()``, and with ``shardings`` its placements on
+a mesh (the elastic restart).
 """
 from __future__ import annotations
 
@@ -23,8 +24,6 @@ import time
 from typing import Callable, Dict, List, Optional, Set
 
 from ..checkpoint import checkpointer as ckpt
-
-_SHARDING = "sharding (ROADMAP queue 1, item 11)"
 
 
 @dataclasses.dataclass
@@ -38,27 +37,35 @@ class RunnerConfig:
 class TrainRunner:
     """Drives (state, step) -> state with checkpoint and restart.
 
-    ``shardings`` is the reference's placement of a restored state over a
-    device mesh; the port runs on one device, and a value other than None
-    raises."""
+    ``shardings``, a tree like the state of ``launch.sharding.Sharding``
+    (or None) leaves, places a restored state over a device mesh
+    (``checkpointer.restore(shardings=)``); it is checked against the
+    first state, and an ill-formed one raises ``TypeError``."""
 
     def __init__(self, cfg: RunnerConfig, init_state_fn: Callable[[], dict],
                  step_fn: Callable[[dict, int], dict], shardings=None):
-        if shardings is not None:
-            raise NotImplementedError(f"shardings place a state over a "
-                                      f"mesh, not ported yet: {_SHARDING}")
         self.cfg = cfg
         self.init_state_fn = init_state_fn
         self.step_fn = step_fn
+        self.shardings = shardings
 
     def run(self, crash_at_step: Optional[int] = None) -> dict:
         """Steps [start, max_steps) from the latest checkpoint (or a fresh
         state), a checkpoint every ``ckpt_every`` steps and after the last;
         raises ``RuntimeError`` before step ``crash_at_step``."""
         state = self.init_state_fn()
+        if self.shardings is not None:
+            ckpt.check_shardings(state, self.shardings)
         start = 0
-        if ckpt.latest_step(self.cfg.ckpt_dir) is not None:
-            state, start = ckpt.restore(self.cfg.ckpt_dir, state)
+        latest = ckpt.latest_step(self.cfg.ckpt_dir)
+        # under a process group rank 0 writes the checkpoints: every rank
+        # reads the directory before any rank runs a step, and restores
+        # the step it read
+        ckpt.wait_for_ranks()
+        if latest is not None:
+            state, start = ckpt.restore(self.cfg.ckpt_dir, state,
+                                        step=latest,
+                                        shardings=self.shardings)
             start += 1
         for step in range(start, self.cfg.max_steps):
             if crash_at_step is not None and step == crash_at_step:

@@ -110,8 +110,14 @@ def test_op_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="without rows"):
         ops.embedding_bag(torch.zeros(0, 4), ids)
     assert ops.embedding_bag(torch.zeros(0, 4), ids[:, :0]).shape == (2, 4)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.embedding_bag(table.to("meta"), ids.to("meta"))
+    # meta tensors (the dry-run's) get an empty output of the kernel's
+    # shape and its additions counted, with no launch
+    launches, ops.embedding_bag.meta_flops = ops.embedding_bag.launches, 0
+    out = ops.embedding_bag(table.to("meta"), ids.to("meta"))
+    assert out.device.type == "meta"
+    assert tuple(out.shape) == (ids.shape[0], table.shape[1])
+    assert ops.embedding_bag.meta_flops == ids.numel() * table.shape[1]
+    assert ops.embedding_bag.launches == launches
     with pytest.raises(ValueError, match="CUDA device"):
         kernel.embedding_bag_cuda(table, ids)
 

@@ -13,7 +13,8 @@ FORBIDDEN = ("jax", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+            + sorted((REPO / "examples").glob("torch_*.py")))
 
 
 def _imported_roots(path: Path):
@@ -54,7 +55,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.gnn.mace, repro_torch.configs.qwen3_4b, "
             "repro_torch.configs.gcn_cora, repro_torch.configs.sasrec_cfg, "
             "repro_torch.models.moe, repro_torch.runtime.fault_tolerance, "
-            "repro_torch.optim.grad_compression; "
+            "repro_torch.optim.grad_compression, repro_torch.launch.mesh, "
+            "repro_torch.launch.sharding, repro_torch.launch.specs, "
+            "repro_torch.launch.dryrun, repro_torch.devices, "
+            "repro_torch.placement; "
             "from repro_torch.ampc import RoutedDht; "
             "from repro_torch.core.dht import DhtMesh, make_mesh, "
             "routed_lookup; "

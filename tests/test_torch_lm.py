@@ -339,7 +339,9 @@ def test_unported_paths_raise():
     forward's, ``prefill``'s and ``decode_step``'s in
     ``tests/test_torch_lm_serving.py``); what stays unported raises,
     naming its ROADMAP item: ``compressed_psum`` (item 12, collectives
-    across cards) and a ``TrainRunner`` given shardings (item 11)."""
+    across cards).  A ``TrainRunner`` given shardings (item 11, ported)
+    builds, and refuses only ill-formed ones
+    (``tests/test_torch_runtime.py``)."""
     from repro_torch.optim import grad_compression
     from repro_torch.runtime.fault_tolerance import (RunnerConfig,
                                                      TrainRunner)
@@ -351,9 +353,9 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         grad_compression.compressed_psum(
             g, grad_compression.init_feedback(g), "data")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TrainRunner(RunnerConfig("unused"), dict, lambda s, i: s,
-                    shardings={"w": None})
+    runner = TrainRunner(RunnerConfig("unused"), dict, lambda s, i: s,
+                         shardings={"w": None})
+    assert runner.shardings == {"w": None}
     base = _port_smoke("QWEN3_4B")
     with pytest.raises(ValueError, match="remat"):
         TransformerLM(dataclasses.replace(base, remat="some"), device="cpu")
@@ -375,22 +377,25 @@ def test_unported_paths_raise():
             TransformerLM(base)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("moe_local_dispatch", True, "MoE")])
-def test_unread_settings_raise_when_set(field, value, item):
-    """The setting of the reference's per-shard MoE dispatch is kept in
-    the config but read by nothing ported (the reference reads it only
-    under a sharding context): a value other than the default raises,
-    naming its ROADMAP item (11, sharding), instead of being ignored, on a
-    dense config and on an MoE one.  The registry's configs leave it at
-    its default, and every LM of the registry builds."""
+def test_moe_local_dispatch_without_context_is_global_dispatch():
+    """The setting of the reference's per-shard MoE dispatch is read only
+    under a sharding context (its sharded values are held in
+    ``tests/test_torch_sharding.py``).  Without one a config that sets it
+    builds and runs as the reference does, the MoE dispatch global: the
+    same parameters from one seed and the same logits as the default
+    config's, on a dense config and on an MoE one.  The registry's configs
+    leave it at its default, and every LM of the registry builds."""
+    tokens = np.arange(16, dtype=np.int32).reshape(2, 8)
     for name in ("QWEN3_4B", "MIXTRAL_8X22B"):
-        cfg = dataclasses.replace(_port_smoke(name), **{field: value})
-        with pytest.raises(NotImplementedError,
-                           match=f"{field}.*{item}.*item 11"):
-            TransformerLM(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(cfg, torch.Generator().manual_seed(0))
+        base = dataclasses.replace(_port_smoke(name), dtype=torch.float32)
+        cfg = dataclasses.replace(base, moe_local_dispatch=True)
+        got = init_params(cfg, torch.Generator().manual_seed(0))
+        want = init_params(base, torch.Generator().manual_seed(0))
+        assert torch.equal(got["embed"], want["embed"])
+        with torch.no_grad():
+            got_logits = TransformerLM(cfg, got, device="cpu")(tokens)[0]
+            want_logits = TransformerLM(base, want, device="cpu")(tokens)[0]
+        assert torch.equal(got_logits, want_logits)
     for entry in registry.REGISTRY.values():
         if entry.family == "lm":
             TransformerLM(entry.smoke_config, device="cpu")

@@ -130,10 +130,16 @@ def test_lm_preemption_restart_is_bit_equal(tmp_path):
     assert int(resumed["opt"]["step"]) == int(clean["opt"]["step"]) == 8
 
 
-def test_runner_refuses_shardings():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TrainRunner(RunnerConfig("unused"), _toy_state, _toy_step,
-                    shardings={"w": "data"})
+def test_runner_refuses_shardings(tmp_path):
+    """Shardings are ported (``tests/test_torch_sharding.py`` resumes on a
+    mesh); a tree whose leaves are not ``Sharding`` or None, or whose
+    paths are not the state's, is refused before a step runs."""
+    for bad in ({"w": "data", "step_sum": None}, {"other": None}):
+        runner = TrainRunner(RunnerConfig(str(tmp_path / "c")), _toy_state,
+                             _toy_step, shardings=bad)
+        with pytest.raises(TypeError):
+            runner.run()
+    assert not (tmp_path / "c").exists()
 
 
 # ------------------------------------------------------------- stragglers

@@ -191,7 +191,12 @@ def test_wrappers_refuse_what_they_do_not_take():
         ops.segment_matmul(x, nbr, torch.zeros(5, 3))
     with pytest.raises(ValueError, match="without rows"):
         ops.segment_matmul(torch.zeros(0, 4), nbr, w)
-    with pytest.raises(ValueError, match="CUDA or CPU"):
-        ops.segment_matmul(x.to("meta"), nbr.to("meta"), w.to("meta"))
+    # meta tensors (the dry-run's) get an empty output of the kernel's
+    # shape and its work counted, with no launch
+    launches, ops.segment_matmul.meta_flops = ops.segment_matmul.launches, 0
+    out = ops.segment_matmul(x.to("meta"), nbr.to("meta"), w.to("meta"))
+    assert out.device.type == "meta" and tuple(out.shape) == (8, 3)
+    assert ops.segment_matmul.meta_flops == 8 * 2 * 4 + 2 * 8 * 4 * 3
+    assert ops.segment_matmul.launches == launches
     with pytest.raises(ValueError, match="CUDA"):
         kernel.segment_matmul_cuda(x, nbr, w)

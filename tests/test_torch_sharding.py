@@ -1,0 +1,589 @@
+"""Sharding: the port's DTensor placements against the JAX package's
+``PartitionSpec``s, and the sharded LM step in 2 and 4 ``gloo`` processes
+on the CPU against the JAX package's own sharded step (mixtral, with and
+without ``moe_local_dispatch``, on 4 host devices in a subprocess) and,
+with the global dispatch, against the unsharded port on the same batch.
+
+A reference spec translates to placements by the rule of
+``launch/sharding.py``: on each mesh dimension ``Shard(d)`` where tensor
+dimension d is split over that axis (alone or in a tuple), ``Replicate()``
+elsewhere; the reference's stacked leaves lose their leading L entry.
+
+The process tests spawn their ranks with a join timeout, so a hang fails
+the test.  Each rank writes what it found to a file, rank 0 its full
+tensors; the parent holds them against the one-process port and the
+reference's.
+
+Tolerances, stated before measuring: against the unsharded port, every
+metric, parameter and first moment within ``RTOL`` (1e-5) of the
+tensor's largest |element|; against the reference's sharded step, those
+of ``tests/test_torch_moe_lm.py`` for one f32 step: the metrics within
+1e-5 relative, each first moment (a tenth of the clipped gradient) within
+1e-4 of its largest |element|, each parameter within 2 lr.
+"""
+import contextlib
+import dataclasses
+import functools
+import json
+import os
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.configs import registry
+from repro_torch.launch import mesh as lmesh
+from repro_torch.launch import sharding, steps
+from repro_torch.models import transformer as tr
+from repro_torch.optim import adamw
+
+JOIN_TIMEOUT_S = 300
+BATCH = (4, 16)
+# |sharded - unsharded| <= RTOL * the largest |unsharded| of each tensor
+RTOL = 1e-5
+
+
+# ------------------------------------------------- placements vs reference
+def _translate(spec, axes, stacked):
+    from torch.distributed.tensor import Replicate, Shard
+    entries = list(spec)[1:] if stacked else list(spec)
+    out = []
+    for name in axes:
+        dims = [d for d, a in enumerate(entries)
+                if a == name or (isinstance(a, tuple) and name in a)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    return tuple(out)
+
+
+def _abstract(multi):
+    from jax.sharding import AbstractMesh
+    shape = lmesh.production_mesh_shape(multi_pod=multi)
+    return shape, AbstractMesh(shape.sizes, shape.axis_names)
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ["gemma3-12b", "qwen2.5-32b", "qwen3-4b",
+                                  "llama4-scout-17b-a16e", "mixtral-8x22b",
+                                  "sasrec"])
+def test_placements_equal_the_reference_specs(arch, multi):
+    """Every parameter leaf (and AdamW moment) of the five LMs and SASRec,
+    and each decode cell's KV cache, at 16x16 and 2x16x16."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import registry as jreg
+    from repro.launch import sharding as jsh
+    from repro.models import sasrec as jsasrec
+    from repro.models import transformer as jtr
+    from repro_torch.models.sasrec import SASRec
+
+    shape, amesh = _abstract(multi)
+    axes = shape.axis_names
+    entry = registry.get(arch)
+    if entry.family == "lm":
+        model = tr.TransformerLM(entry.config, device="meta",
+                                 dtype=torch.bfloat16)
+        init = functools.partial(jtr.init_params, jreg.get(arch).config,
+                                 dtype=jnp.bfloat16)
+        rule, jrule = sharding.lm_param_shardings, jsh.lm_param_shardings
+    else:
+        model = SASRec(entry.config, device="meta")
+        init = functools.partial(jsasrec.init_params, jreg.get(arch).config)
+        rule, jrule = sharding.rec_param_shardings, jsh.rec_param_shardings
+    params = dict(model.named_parameters())
+    want_tree = jrule(amesh, jax.eval_shape(init, jax.random.PRNGKey(0)))
+    flat, _ = jsh._tree_paths(want_tree)
+    want = {path: ns.spec for path, ns in flat}
+    got = rule(shape, params)
+    assert len(got) == len(params)
+    for name, sh in got.items():
+        path = sharding.param_path(name)
+        if entry.family != "lm":   # SASRec's blocks are a list: blocks/0/wq
+            path = name.replace(".", "/")
+        stacked = entry.family == "lm" and name.startswith("layers.")
+        assert sh.placements == _translate(want[path], axes, stacked), name
+    opt = adamw.init_state(params)
+    assert rule(shape, opt["m"]) == got
+    if entry.family == "lm":
+        for sname, spec in entry.shapes.items():
+            if spec.kind != "decode" or entry.skip_shapes.get(sname):
+                continue
+            cache = steps.lm_cache_shape(entry.config, spec.global_batch,
+                                         spec.seq_len)
+            w = jsh.kv_cache_shardings(amesh, cache, spec.global_batch).spec
+            g = sharding.kv_cache_shardings(shape, cache, spec.global_batch)
+            assert g.placements == _translate(w, axes, False), sname
+            assert g.local_shape(cache)[1] in (spec.global_batch // (
+                shape.shape["data"] * shape.shape.get("pod", 1)),
+                spec.global_batch)
+
+
+def test_rules_fall_back_where_an_axis_does_not_divide():
+    mesh = lmesh.MeshShape((2, 3), ("data", "model"))
+    got = sharding.lm_param_shardings(mesh, {
+        "layers.0.attn.wq": torch.empty(4, 6, device="meta"),
+        "layers.0.attn.wk": torch.empty(5, 4, device="meta"),
+        "embed": torch.empty(7, 4, device="meta")})
+    assert got["layers.0.attn.wq"].spec == ("data", "model")
+    assert got["layers.0.attn.wk"].spec == (None, None)
+    assert got["embed"].spec == (None, "data")
+    assert got["layers.0.attn.wq"].local_shape((4, 6)) == (2, 2)
+    pod = lmesh.production_mesh_shape(multi_pod=True)
+    assert lmesh.data_axes(pod) == ("pod", "data")
+    assert lmesh.n_chips(pod) == 512
+    assert sharding.batch_sharding(pod, 2).spec == (("pod", "data"), None)
+
+
+# --------------------------------------------------------- gloo processes
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn(fn, nprocs, *args):
+    """Run ``fn(rank, nprocs, port, *args)`` in ``nprocs`` spawned
+    processes; fail (and stop them) past ``JOIN_TIMEOUT_S``, with the
+    stacks the ranks dumped (``args[0]``, the output directory)."""
+    ctx = mp.start_processes(fn, args=(nprocs, _free_port()) + args,
+                             nprocs=nprocs, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            for p in ctx.processes:
+                p.join(10)
+            stacks = "".join(
+                open(os.path.join(args[0], f)).read()
+                for f in sorted(os.listdir(args[0])) if f.startswith(
+                    f"stacks-{nprocs}-"))
+            pytest.fail(f"{fn.__name__} hung past {JOIN_TIMEOUT_S} s:\n"
+                        f"{stacks}")
+    assert all(not p.is_alive() for p in ctx.processes)
+
+
+def _batch(vocab):
+    rng = np.random.default_rng(0)
+    return (rng.integers(0, vocab, BATCH).astype(np.int32),
+            rng.integers(0, vocab, BATCH).astype(np.int32))
+
+
+def _cfg(arch, local=False, remat="none", n_micro=1):
+    return dataclasses.replace(registry.get(arch).smoke_config,
+                               dtype=torch.float32, attention_impl="pallas",
+                               moe_local_dispatch=local, remat=remat,
+                               n_microbatches=n_micro)
+
+
+# the sharded runs: (mesh sizes, arch, moe_local_dispatch, remat,
+# microbatches)
+RUNS_2 = [((2, 1), "qwen3-4b", False, "none", 1),
+          ((2, 1), "mixtral-8x22b", False, "dots", 1),
+          ((1, 2), "mixtral-8x22b", False, "none", 1),
+          ((2, 1), "mixtral-8x22b", True, "none", 1),
+          ((1, 2), "mixtral-8x22b", True, "none", 1)]
+RUNS_4 = [((2, 2), "qwen3-4b", False, "full", 1),
+          ((2, 2), "mixtral-8x22b", False, "none", 2),
+          ((2, 2), "mixtral-8x22b", True, "dots", 1)]
+MIXTRAL_RUNS = [r for r in RUNS_2 + RUNS_4 if r[1] == "mixtral-8x22b"]
+GLOBAL_RUNS = [r for r in RUNS_2 + RUNS_4 if not r[2]]
+
+
+def _run_id(run):
+    sizes, arch, local, remat, n_micro = run
+    return (f"{sizes[0]}x{sizes[1]}-{arch}{'-local' if local else ''}"
+            f"-remat_{remat}{f'-micro{n_micro}' if n_micro > 1 else ''}")
+
+
+def _run_file(run):
+    sizes, arch, local = run[:3]
+    return f"{sizes}-{arch}-{local}.pt"
+
+
+# the reference's sharded ``lm_train_step`` on 4 host devices, from the
+# port's seed-0 parameters, for each run in argv[2] (JSON); jitted with
+# ``xla_allow_excess_precision`` off, as ``tests/test_torch_moe_lm.py``
+REFERENCE_SCRIPT = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses, functools, json, sys
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro.configs import registry as jreg
+    from repro.launch import sharding as jsh
+    from repro.launch import steps as jsteps
+    from repro.models import transformer as jtr
+    from repro.optim import adamw as jadamw
+    from repro_torch.configs import registry
+    from repro_torch.convert import (lm_params_from_reference,
+                                     lm_params_to_reference, named_lm_params)
+    from repro_torch.models.transformer import TransformerLM
+
+    assert len(jax.devices()) == 4
+    out_dir, runs, batch = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+    saved = np.load(batch)
+    tokens, labels = jnp.asarray(saved["tokens"]), jnp.asarray(saved["labels"])
+    for sizes, arch, local, remat, n_micro in runs:
+        cfg = dataclasses.replace(
+            registry.get(arch).smoke_config, dtype=torch.float32,
+            remat="none", n_microbatches=n_micro)
+        jcfg = dataclasses.replace(
+            jreg.get(arch).smoke_config, dtype=jnp.float32,
+            moe_local_dispatch=local, n_microbatches=n_micro)
+        params = jax.tree.map(jnp.asarray, lm_params_to_reference(
+            TransformerLM(cfg, device="cpu")))
+        mesh = Mesh(np.array(jax.devices()[:int(np.prod(sizes))])
+                    .reshape(sizes), ("data", "model"))
+        opt_cfg = jadamw.AdamWConfig()
+        opt = jadamw.init_state(params)
+        p_sh = jsh.lm_param_shardings(mesh, params)
+        o_sh = {"m": p_sh, "v": p_sh, "step": NamedSharding(mesh, P())}
+        b_sh = jsh.batch_sharding(mesh, 2)
+        step = jax.jit(functools.partial(
+            jsteps.lm_train_step, jcfg, opt_cfg,
+            sctx=jtr.ShardCtx(mesh, "data")),
+            in_shardings=(p_sh, o_sh, b_sh, b_sh),
+            compiler_options={"xla_allow_excess_precision": False})
+        new, opt, metrics = step(params, opt, tokens, labels)
+
+        def named(tree):
+            return named_lm_params(lm_params_from_reference(
+                cfg, jax.tree.map(np.asarray, tree)))
+        torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
+                    "params": named(new), "m": named(opt["m"])},
+                   os.path.join(out_dir, f"jax-{tuple(sizes)}-{arch}-"
+                                f"{local}.pt"))
+    print("REFERENCE_OK")
+""")
+
+
+def _start_reference(out_dir):
+    """The reference's sharded steps of ``MIXTRAL_RUNS``, started in a
+    subprocess (4 host devices must be set before JAX starts)."""
+    batch = os.path.join(out_dir, "batch.npz")
+    tokens, labels = _batch(_cfg("mixtral-8x22b").vocab)
+    np.savez(batch, tokens=tokens, labels=labels)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in [env.get("PYTHONPATH")] if p])
+    return subprocess.Popen(
+        [sys.executable, "-c", REFERENCE_SCRIPT, out_dir,
+         json.dumps(MIXTRAL_RUNS), batch], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _full(t):
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def _lm_runs(rank, world, out_dir, runs):
+    from torch.distributed.tensor.debug import CommDebugMode
+    for run in runs:
+        sizes, arch, local, remat, n_micro = run
+        mesh = lmesh.make_mesh(lmesh.MeshShape(sizes, ("data", "model")),
+                               "cpu")
+        cfg = _cfg(arch, local, remat, n_micro)
+        model = tr.TransformerLM(cfg, device="cpu")
+        opt = adamw.init_state(model)
+        sctx = tr.ShardCtx(mesh, "data")
+        steps.place_lm(model, opt, sctx)
+        tokens, labels = _batch(cfg.vocab)
+        # CommDebugMode's module tracker fails on a second forward of the
+        # model inside one mode, so a microbatched step goes uncounted
+        comm = CommDebugMode() if n_micro == 1 else None
+        with comm or contextlib.nullcontext():
+            metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt,
+                                          tokens, labels, sctx=sctx)
+        counts = None if comm is None else {
+            str(k).split(".")[-1]: v
+            for k, v in comm.get_comm_counts().items()}
+        params = {n: _full(p.detach()) for n, p in model.named_parameters()}
+        m = {n: _full(t) for n, t in opt["m"].items()}
+        if rank == 0:
+            torch.save({"metrics": metrics, "params": params, "m": m,
+                        "counts": counts, "placements": {
+                            n: str(p.placements)
+                            for n, p in model.named_parameters()}},
+                       os.path.join(out_dir, _run_file(run)))
+
+
+def _serve_run(rank, out_dir):
+    """prefill and one decode step of the qwen3 smoke model on (2, 2)."""
+    mesh = lmesh.make_mesh(lmesh.MeshShape((2, 2), ("data", "model")), "cpu")
+    cfg = _cfg("qwen3-4b")
+    model = tr.TransformerLM(cfg, device="cpu")
+    sctx = tr.ShardCtx(mesh, "data")
+    steps.place_lm(model, None, sctx)
+    tokens, _ = _batch(cfg.vocab)
+    logits, cache = steps.lm_prefill_step(model, tokens, sctx=sctx)
+    from repro_torch.launch.serve import grow_cache
+    full = {k: _full(v) for k, v in cache.items()}
+    grown = grow_cache(full, BATCH[1] + 1)
+    place = sharding.kv_cache_shardings(mesh, grown["k"].shape, BATCH[0])
+    grown = {"k": place.distribute(grown["k"]),
+             "v": place.distribute(grown["v"]), "length": grown["length"]}
+    step_logits, new = steps.lm_decode_step(
+        model, grown, torch.as_tensor(tokens[:, -1]).long(), sctx=sctx)
+    assert tuple(new["k"].placements) == tuple(grown["k"].placements)
+    found = {"logits": _full(logits), "k": full["k"],
+             "step_logits": _full(step_logits), "k_after": _full(new["k"])}
+    if rank == 0:
+        torch.save(found, os.path.join(out_dir, "serve.pt"))
+
+
+def _restore_run(rank, out_dir):
+    """Write a state placed on (2, 1) and restore it onto (1, 2); then a
+    ``TrainRunner`` preempted on one mesh resumes on the other."""
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.runtime.fault_tolerance import RunnerConfig, TrainRunner
+    a = lmesh.make_mesh(lmesh.MeshShape((2, 1), ("data", "model")), "cpu")
+    b = lmesh.make_mesh(lmesh.MeshShape((1, 2), ("data", "model")), "cpu")
+    model = tr.TransformerLM(_cfg("qwen3-4b"), device="cpu")
+    named = dict(model.named_parameters())
+    on_a = sharding.place_tensors(
+        {n: p.detach() for n, p in named.items()},
+        sharding.lm_param_shardings(a, named))
+    ckpt.save(os.path.join(out_dir, "elastic"), 0, {"params": on_a})
+    target = sharding.lm_param_shardings(b, named)
+    restored, step = ckpt.restore(os.path.join(out_dir, "elastic"),
+                                  {"params": named},
+                                  shardings={"params": target})
+    assert step == 0
+    for n, t in restored["params"].items():
+        assert tuple(t.placements) == target[n].placements, n
+        assert torch.equal(t.full_tensor(), named[n].detach()), n
+
+    def state():
+        return {"w": torch.arange(24.0).reshape(8, 3), "n": torch.zeros(())}
+
+    def step_fn(s, i):
+        return {"w": s["w"] * 1.5 + i, "n": s["n"] + 1}
+
+    place = {"w": sharding.Sharding(b, ("model", None)), "n": None}
+    cfg = RunnerConfig(os.path.join(out_dir, "runner"), ckpt_every=1,
+                       max_steps=5)
+    try:
+        TrainRunner(cfg, state, step_fn).run(crash_at_step=3)
+    except RuntimeError:
+        pass
+    resumed = TrainRunner(cfg, state, step_fn, shardings=place).run()
+    assert tuple(resumed["w"].placements) == place["w"].placements
+    clean = state()
+    for i in range(5):
+        clean = step_fn(clean, i)
+    assert torch.equal(resumed["w"].full_tensor(), clean["w"])
+    assert torch.equal(resumed["n"], clean["n"])
+
+
+def _one_rank(out_dir):
+    """On a (1, 1) mesh the sharded loss and step are the plain port's bit
+    for bit, with the global and the per-shard dispatch alike."""
+    mesh = lmesh.make_mesh(lmesh.MeshShape((1, 1), ("data", "model")), "cpu")
+    sctx = tr.ShardCtx(mesh, "data")
+    for arch, local in (("qwen3-4b", False), ("mixtral-8x22b", True)):
+        cfg = _cfg(arch, local, "full")
+        plain = tr.TransformerLM(cfg, device="cpu")
+        shard = tr.TransformerLM(cfg, device="cpu")
+        o_p, o_s = adamw.init_state(plain), adamw.init_state(shard)
+        steps.place_lm(shard, o_s, sctx)
+        tokens, labels = _batch(cfg.vocab)
+        with torch.no_grad():
+            assert torch.equal(
+                shard.loss_fn(tokens, labels, sctx=sctx)[0].full_tensor(),
+                plain.loss_fn(tokens, labels)[0])
+        m_p = steps.lm_train_step(plain, adamw.AdamWConfig(), o_p, tokens,
+                                  labels)
+        m_s = steps.lm_train_step(shard, adamw.AdamWConfig(), o_s, tokens,
+                                  labels, sctx=sctx)
+        assert all(torch.equal(m_s[k], m_p[k]) for k in m_p), (m_s, m_p)
+        try:   # a step under a context runs only on a placed state
+            steps.lm_train_step(plain, adamw.AdamWConfig(), o_p, tokens,
+                                labels, sctx=sctx)
+        except ValueError as e:
+            assert "place_lm" in str(e), e
+        else:
+            raise AssertionError("a step on an unplaced state ran")
+        named = dict(shard.named_parameters())
+        for n, p in plain.named_parameters():
+            assert torch.equal(named[n].detach().full_tensor(), p.detach()), n
+            assert torch.equal(o_s["v"][n].full_tensor(), o_p["v"][n]), n
+    with open(os.path.join(out_dir, "one_rank.ok"), "w") as f:
+        f.write("bit-equal\n")
+
+
+def _worker(rank, world, port, out_dir, runs, extra):
+    import faulthandler
+    import torch.distributed as dist
+    # one thread a rank: the suite runs beside other test processes, and
+    # spinning intra-op threads over more ranks than cores stall gloo
+    torch.set_num_threads(1)
+    # where a rank stands if it outlives the parent's patience
+    stacks = open(os.path.join(out_dir, f"stacks-{world}-{rank}.txt"), "w")
+    faulthandler.dump_traceback_later(JOIN_TIMEOUT_S - 20, file=stacks)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        _lm_runs(rank, world, out_dir, runs)
+        if extra == "one_rank":
+            _one_rank(out_dir)
+        elif extra == "restore":
+            _restore_run(rank, out_dir)
+        elif extra == "serve":
+            _serve_run(rank, out_dir)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+        stacks.close()
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def sharded(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("sharded"))
+    reference = _start_reference(out)
+    try:
+        _spawn(_worker, 1, out, [], "one_rank")
+        _spawn(_worker, 2, out, RUNS_2, "restore")
+        _spawn(_worker, 4, out, RUNS_4, "serve")
+        stdout, stderr = reference.communicate(timeout=JOIN_TIMEOUT_S)
+    finally:
+        if reference.poll() is None:
+            reference.kill()
+            reference.communicate()
+    assert reference.returncode == 0 and "REFERENCE_OK" in stdout, \
+        stderr[-3000:]
+    return out
+
+
+def _unsharded(run):
+    """The one-process port's step on the same global batch."""
+    model = tr.TransformerLM(_cfg(run[1], remat=run[3], n_micro=run[4]),
+                             device="cpu")
+    opt = adamw.init_state(model)
+    tokens, labels = _batch(model.cfg.vocab)
+    metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt, tokens,
+                                  labels)
+    return metrics, dict(model.named_parameters()), opt["m"]
+
+
+def _close(got, want, what):
+    want = want.detach()
+    scale = max(float(want.abs().max()), 1e-30)
+    err = float((got - want).abs().max())
+    assert err <= RTOL * scale, f"{what}: {err} > {RTOL} * {scale}"
+
+
+def _check_collectives(got, sizes):
+    counts = got["counts"]
+    assert "Shard" in got["placements"]["layers.0.attn.wq"]
+    if counts is None:   # a microbatched step (``_lm_runs``)
+        return
+    assert counts.get("all_gather_into_tensor", 0) > 0, counts
+    assert counts.get("all_reduce", 0) > 0, counts
+    assert not any("all_to_all" in k for k in counts), counts
+    assert set(counts) <= {"all_gather_into_tensor", "reduce_scatter_tensor",
+                           "all_reduce", "broadcast_", "scatter_"}, counts
+    if sizes == (2, 2):
+        assert counts.get("reduce_scatter_tensor", 0) > 0, counts
+
+
+@pytest.mark.parametrize("run", GLOBAL_RUNS, ids=_run_id)
+def test_sharded_step_equals_the_unsharded_port(sharded, run):
+    """Loss, nll, aux, grad norm, every parameter and AdamW's first moment
+    after one step on a (2,1), (1,2) or (2,2) mesh, with the global MoE
+    dispatch, equal the one-process port's on the same batch within
+    ``RTOL`` of each tensor's largest value; the step's collectives are
+    the ones DTensor needs (CommDebugMode): all-gathers of the
+    ZeRO-sharded weights, reduce-scatters and all-reduces of the
+    gradients, the loss and the global norm, and no all-to-all."""
+    got = torch.load(os.path.join(sharded, _run_file(run)))
+    metrics, params, m = _unsharded(run)
+    for key in ("loss", "nll", "aux", "grad_norm", "lr"):
+        _close(got["metrics"][key], metrics[key], key)
+    assert set(got["params"]) == set(params)
+    for n, p in params.items():
+        _close(got["params"][n], p, n)
+        _close(got["m"][n], m[n], f"m {n}")
+    _check_collectives(got, run[0])
+
+
+@pytest.mark.parametrize("run", MIXTRAL_RUNS, ids=_run_id)
+def test_sharded_step_equals_the_reference_sharded_step(sharded, run):
+    """mixtral's sharded step, with the global and the per-shard MoE
+    dispatch, against the reference's ``lm_train_step`` under its
+    ``ShardCtx`` on a mesh of the same shape, from the same parameters on
+    the same global batch: the same tokens go to each dispatch, so the
+    same ones are dropped; tolerances in the module's docstring."""
+    sizes, arch, local = run[:3]
+    got = torch.load(os.path.join(sharded, _run_file(run)))
+    want = torch.load(os.path.join(sharded, f"jax-{_run_file(run)}"))
+    for key in ("loss", "nll", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(got["metrics"][key]),
+                                   want["metrics"][key], rtol=1e-5,
+                                   err_msg=key)
+    lr = want["metrics"]["lr"]
+    assert set(got["params"]) == set(want["params"])
+    for n, p in want["params"].items():
+        assert float((got["params"][n] - p).abs().max()) <= 2 * lr, n
+        scale = max(float(want["m"][n].abs().max()), 1e-30)
+        err = float((got["m"][n] - want["m"][n]).abs().max())
+        assert err <= 1e-4 * scale, f"m {n}: {err} > 1e-4 * {scale}"
+    _check_collectives(got, sizes)
+
+
+def test_one_rank_step_is_bit_equal_to_the_plain_port(sharded):
+    """Checked in the rank (``_one_rank``); here that it finished."""
+    with open(os.path.join(sharded, "one_rank.ok")) as f:
+        assert f.read() == "bit-equal\n"
+
+
+def test_local_dispatch_differs_from_the_global_one(sharded):
+    """With 2 data shards the local dispatch counts capacity a shard, so
+    its step is not the global dispatch's on the same mesh; with one data
+    shard it is the same dispatch.  On (2, 2) the global run takes 2
+    microbatches: each dispatches the rows 0-1 or 2-3, the same groups as
+    the local dispatch's two data shards, so the aux losses agree."""
+    def aux(sizes, local):
+        return float(torch.load(os.path.join(sharded, _run_file(
+            (sizes, "mixtral-8x22b", local))))["metrics"]["aux"])
+    assert aux((2, 1), True) != aux((2, 1), False)
+    np.testing.assert_allclose(aux((2, 2), True), aux((2, 2), False),
+                               rtol=RTOL)
+    np.testing.assert_allclose(aux((1, 2), True), aux((1, 2), False),
+                               rtol=RTOL)
+
+
+def test_sharded_prefill_and_decode_equal_the_unsharded_port(sharded):
+    got = torch.load(os.path.join(sharded, "serve.pt"))
+    cfg = _cfg("qwen3-4b")
+    model = tr.TransformerLM(cfg, device="cpu")
+    tokens, _ = _batch(cfg.vocab)
+    logits, cache = steps.lm_prefill_step(model, tokens)
+    _close(got["logits"], logits, "prefill logits")
+    _close(got["k"], cache["k"], "cache k")
+    from repro_torch.launch.serve import grow_cache
+    step_logits, new = steps.lm_decode_step(
+        model, grow_cache(cache, BATCH[1] + 1),
+        torch.as_tensor(tokens[:, -1]).long())
+    _close(got["step_logits"], step_logits, "decode logits")
+    _close(got["k_after"], new["k"], "cache k after decode")
+
+
+def test_restore_with_shardings_across_meshes(sharded):
+    """The checks run in the ranks (``_restore_run``): a checkpoint
+    written from (2, 1) restores onto (1, 2) bit for bit in the target
+    placements, and a runner preempted at step 3 resumes onto a mesh to
+    the uninterrupted run's state; here only that they wrote it."""
+    assert os.path.isdir(os.path.join(sharded, "elastic", "step_00000000"))
+    assert sorted(os.listdir(os.path.join(sharded, "runner"))) == [
+        "step_00000002", "step_00000003", "step_00000004"]
