@@ -94,6 +94,22 @@ CUDA toolkit.  It:
      eager local lookup still takes the kernel first); each solve's wall,
      host reads, transfers (``rounds.TRANSFERS``) and harvests beside the
      deferred ones;
+   * ``dht_group``: the DHT on a process group, one NCCL rank (made here,
+     kept for the mixtral phase's ``compressed_psum`` and the ``launch``
+     phase) and a 1-D ``("dht",)`` cuda ``DeviceMesh``.  The first
+     connectivity solve's root-label read and SASRec's history read
+     through the group router, the one-process router at one shard and
+     the local lookup: bit-equal rows, equal distinct keys and
+     overflows, CUDA-event ms of each, and under the profiler two
+     ``all_to_all`` collectives a group lookup and no ``dht_gather``.
+     ``AmpcEngine(mesh=that mesh, dht_backend="routed")`` on the routed
+     phase's problems beside the one-process routed engine at one shard
+     (outputs equal to the engine phase's, every counter but the walls
+     and the host reads equal, no overflow), a group ``solve_many`` of the
+     plain fleet, a session's cold and warm connectivity solve and 8
+     ``submit``s on 2 workers, each equal to the local answer; no
+     ``dht_gather`` launch; the phase's seconds.  Nothing falls back: a
+     failed NCCL start or collective fails the run;
 5. holds the flash-attention forward kernels against their plain version
    on the card, element by element (bf16 within 2^-7 of each output plus
    1e-3, f32 within 1e-5: the kernel sums in another order) at the LM
@@ -190,7 +206,10 @@ CUDA toolkit.  It:
    the last step profiled by kind (the dispatch's sorts and index kernels
    apart); ``compress_tree`` on that step's gradients on the card equals
    the same call on their CPU copies bit for bit, and decompress plus
-   feedback gives the corrected gradient within 1e-6.  Last,
+   feedback gives the corrected gradient within 1e-6; ``compressed_psum``
+   of those gradients over the one NCCL rank (a ``dht_group`` line) gives
+   ``decompress`` of ``compress`` and its feedback bit for bit, timed.
+   Last,
    ``TrainRunner`` on llama4's smoke config on the card stops at a
    simulated preemption before step 4 of 8 and resumes from its
    checkpoint (under ``build/``, removed after): its parameters equal an
@@ -1173,17 +1192,11 @@ def routed_case(name, values, keys, P, cap, local_out):
             "ms": time_ms(lambda: timed.lookup(keys), reps=5, warmup=1)}
 
 
-def routed_dht_level(cc_reads):
-    """``routed_lookup`` (through ``ShardedDHT``) at 1 and 8 shards on the
-    first cc solve's root-label read and on SASRec's history read (65,536
-    step-0 histories of 50 into a seeded 1M x 50 f32 table), and at 8
-    shards with a quarter of the exact capacity on the cc solve's
-    first-slot read (each shard's keys ascend, so most go to one owner and
-    overflow there); each beside the local lookup's time, on a
-    ``routed_dht`` line."""
+def sasrec_history_read():
+    """SASRec's history read: a seeded 1M x 50 f32 item table on the card
+    and the 65,536 step-0 histories of 50 as one (3,276,800,) key batch."""
     import torch
     from repro_torch.configs import registry
-    from repro_torch.core.dht import ShardedDHT
     from repro_torch.data.recsys import RecStreamConfig, batch_at_step
 
     dev = torch.device("cuda")
@@ -1195,6 +1208,21 @@ def routed_dht_level(cc_reads):
     hist = torch.from_numpy(batch_at_step(RecStreamConfig(
         cfg.n_items, cfg.seq_len, B, seed=REC_DATA_SEED),
         0)[0].reshape(-1)).to(dev)
+    return table, hist
+
+
+def routed_dht_level(cc_reads):
+    """``routed_lookup`` (through ``ShardedDHT``) at 1 and 8 shards on the
+    first cc solve's root-label read and on SASRec's history read (65,536
+    step-0 histories of 50 into a seeded 1M x 50 f32 table), and at 8
+    shards with a quarter of the exact capacity on the cc solve's
+    first-slot read (each shard's keys ascend, so most go to one owner and
+    overflow there); each beside the local lookup's time, on a
+    ``routed_dht`` line."""
+    import torch
+    from repro_torch.core.dht import ShardedDHT
+
+    table, hist = sasrec_history_read()
     starved = -(-cc_reads[1][1].shape[0] // ROUTED_SHARDS) // 4
     for name, (values, keys), caps in (
             ("cc_roots", cc_reads[0], ((1, None), (ROUTED_SHARDS, None))),
@@ -1226,7 +1254,8 @@ def routed_phase(g, gw, cycles, outputs, solves, fleet):
     session's cold and warm connectivity solve and a routed ``submit``, each
     equal to its local counterpart.  The launch counts are set to 0 before
     the routed solves and read after them: the router launches no
-    ``dht_gather``.  Returns that count."""
+    ``dht_gather``.  Returns that count and the local ``solve_many``
+    outputs of the fleet's connectivity."""
     import numpy as np
     import torch
     from repro_torch.ampc import AmpcEngine, RoutedDht
@@ -1319,7 +1348,7 @@ def routed_phase(g, gw, cycles, outputs, solves, fleet):
     emit(row)
     check(launches == 0,
           f"the routed phase launched dht_gather {launches} times")
-    return launches
+    return launches, many_want
 
 
 # --------------------------------------------------------------------------
@@ -1374,6 +1403,238 @@ def eager_phase(g, outputs, solves):
         emit({"phase": "eager", "graph": "rmat20", "problem": problem,
               "solves": rows})
     return ops.dht_gather.launches
+
+
+# --------------------------------------------------------------------------
+# phase: the DHT over a process group (one NCCL rank a card)
+# --------------------------------------------------------------------------
+# each collective's op names in a profile, the dispatcher's first
+COLLECTIVE_OPS = {
+    "all_to_all": ("c10d::alltoall_base_", "nccl:all_to_all"),
+    "all_gather": ("c10d::_allgather_base_", "nccl:_all_gather_base",
+                   "nccl:all_gather"),
+    "all_reduce": ("c10d::allreduce_", "nccl:all_reduce")}
+
+
+def nccl_rank():
+    """One NCCL rank on this card (its address on this host), made once a
+    run: the ``dht_group`` and ``launch`` phases share it."""
+    import socket
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+
+
+def group_mesh():
+    """A 1-D ``("dht",)`` cuda ``DeviceMesh`` over the one NCCL rank."""
+    from torch.distributed.device_mesh import init_device_mesh
+    nccl_rank()
+    return init_device_mesh("cuda", (1,), mesh_dim_names=("dht",))
+
+
+def collective_calls(prof):
+    """Calls of each collective in a profile, counted by the first of its
+    op names that appears."""
+    counts = {}
+    for e in prof.key_averages():
+        counts[e.key] = counts.get(e.key, 0) + e.count
+    return {kind: next((counts[n] for n in names if n in counts), 0)
+            for kind, names in COLLECTIVE_OPS.items()}
+
+
+def group_lookup_case(name, values, keys, mesh):
+    """One read through ``ShardedDHT`` three ways: the local lookup, the
+    one-process router at one shard and the router on the process group
+    at one rank.  The group's output bit-equal to both others', its
+    counters (queries, bytes, dedup savings, overflows) equal to both;
+    CUDA-event ms of each; one group lookup under the profiler: two
+    ``all_to_all`` collectives and no ``dht_gather`` launch."""
+    import torch
+    from repro_torch.core.dht import ShardedDHT, make_mesh
+    from repro_torch.core.rounds import RoundLedger
+    from repro_torch.kernels.dht_gather import ops
+
+    kinds = {"local": {}, "one_process": {"mesh": make_mesh(1)},
+             "group": {"mesh": mesh}}
+    outs, counters = {}, {}
+    for kind, kw in kinds.items():
+        led = RoundLedger(name, deferred=True)
+        outs[kind] = ShardedDHT(values, ledger=led, **kw).lookup(keys)
+        led.harvest()
+        counters[kind] = {k: v for k, v in led.summary().items()
+                          if k not in ("wall_time_s", "phase_times")}
+    for kind in ("local", "one_process"):
+        check(torch.equal(outs["group"], outs[kind]),
+              f"dht_group {name}: the group router's rows differ from the "
+              f"{kind} lookup's")
+        check(counters["group"] == counters[kind],
+              f"dht_group {name}: counters {counters['group']}, {kind} "
+              f"{counters[kind]}")
+    check(counters["group"]["dht_overflows"] == 0,
+          f"dht_group {name} overflowed")
+    del outs
+    row = {"read": name, "Q": int(keys.shape[0]),
+           "rows": int(values.shape[0]),
+           "row_bytes": values[0].numel() * values.element_size(),
+           "counters": counters["group"]}
+    for kind, kw in kinds.items():
+        dht = ShardedDHT(values, **kw)
+        row[f"{kind}_ms"] = time_ms(lambda: dht.lookup(keys), reps=5,
+                                    warmup=1)
+    dht = ShardedDHT(values, mesh=mesh)
+    launches0 = ops.dht_gather.launches
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        dht.lookup(keys)
+        torch.cuda.synchronize()
+    row["collectives"] = collective_calls(prof)
+    row["dht_gather_launches"] = ops.dht_gather.launches - launches0
+    row["dht_gather_events"] = sum(
+        e.count for e in prof.key_averages() if "dht_gather" in e.key)
+    check(row["collectives"]["all_to_all"] == 2,
+          f"dht_group {name}: a group lookup made "
+          f"{row['collectives']} collectives, not two all_to_all")
+    check(row["dht_gather_launches"] == 0 and not row["dht_gather_events"],
+          f"dht_group {name}: the group router launched dht_gather")
+    return row
+
+
+def dht_group_phase(cc_reads, g, gw, cycles, outputs, fleet, many_want):
+    """The DHT on a process group: one NCCL rank, a 1-D ``("dht",)``
+    cuda ``DeviceMesh``.  (a) The first cc solve's root-label read and
+    SASRec's history read through the group router, the one-process
+    router at one shard and the local lookup (``group_lookup_case``).
+    (b) ``AmpcEngine(mesh=that mesh, dht_backend="routed")`` on every
+    problem the routed phase solves (rmat20, the 2^24 cycles) beside the
+    one-process routed engine at one shard: outputs equal to the engine
+    phase's, every counter but the walls and the host reads equal to that
+    engine's, no overflow.  (c) A group-backed ``solve_many`` of the plain
+    fleet, a session's cold and warm connectivity solve at rmat20 and
+    ASYNC_GRAPHS ``submit``s on 2 workers, each equal to the local answer.
+    The launch counts are set to 0 before (b) and read after (c): the
+    router launches no ``dht_gather``.  A failed NCCL start or collective
+    raises.  Returns that count."""
+    import numpy as np
+    import torch
+    from repro_torch.ampc import AmpcEngine, RoutedDht
+    from repro_torch.core.dht import make_mesh
+    from repro_torch.kernels.dht_gather import ops
+
+    t0 = time.perf_counter()
+    mesh = group_mesh()
+    table, hist = sasrec_history_read()
+    for name, (values, keys) in (("cc_roots", cc_reads[0]),
+                                 ("sasrec_history", (table, hist))):
+        emit({"phase": "dht_group", **group_lookup_case(
+            name, values, keys.to(torch.int32), mesh)})
+    del table, hist
+    torch.cuda.empty_cache()
+
+    def counts(res):
+        led = {k: v for k, v in res.ledger.items() if k != "wall_time_s"}
+        led["phase_times"] = list(led["phase_times"])
+        return led
+
+    group = AmpcEngine(mesh=mesh, dht_backend="routed", seed=0)
+    one = AmpcEngine(dht_backend=RoutedDht(make_mesh(1)), seed=0)
+    runs = [("rmat20", gw if p in ("msf", "weighted-matching") else g, p)
+            for p in ROUTED_RMAT] + [(name, graph, "one-vs-two")
+                                     for name, graph, _ in cycles]
+    ops.dht_gather.launches = 0
+    for graph_name, graph, problem in runs:
+        want, want_wall, want_reads, _, _ = timed_call(
+            lambda: one.solve(graph, problem))
+        res, wall, reads, _, peak = timed_call(
+            lambda: group.solve(graph, problem))
+        emit({"phase": "dht_group", "graph": graph_name, "problem": problem,
+              "backend": repr(group.dht), "wall_s": wall,
+              "one_process_wall_s": want_wall, "host_reads": reads,
+              "one_process_host_reads": want_reads, "peak_mem_gib": peak,
+              "ledger": res.ledger})
+        check(np.array_equal(res.output, outputs[(graph_name, problem)]),
+              f"group {problem} on {graph_name} differs from the local "
+              "solve")
+        check(counts(res) == counts(want),
+              f"group {problem} on {graph_name}: ledger {res.ledger}, one "
+              f"shard {want.ledger}")
+        check(res.ledger["dht_overflows"] == 0,
+              f"group {problem}: {res.ledger['dht_overflows']} overflows")
+        check(reads == want_reads,
+              f"group {problem}: {reads} host reads, one shard "
+              f"{want_reads}")
+
+    many, wall, _, _, peak = timed_call(
+        lambda: group.solve_many(fleet, "connectivity"))
+    check(all(np.array_equal(r.output, w) for r, w in zip(many, many_want))
+          and all(r.ledger["dht_overflows"] == 0 for r in many),
+          "the group solve_many differs from the local solve_many")
+    row = {"phase": "dht_group_serving", "solve_many_graphs": len(fleet),
+           "solve_many_s": wall, "solve_many_peak_mem_gib": peak}
+    sess = group.session(g)
+    for call, hit, n_shuffles in (("cold", False, 2), ("warm", True, 1)):
+        res, wall, _, _, peak = timed_call(
+            lambda: sess.solve("connectivity"))
+        check(np.array_equal(res.output,
+                             outputs[("rmat20", "connectivity")])
+              and res.stats["snapshot"]["hit"] is hit
+              and res.shuffles == n_shuffles,
+              f"the group session's {call} connectivity solve: snapshot "
+              f"{res.stats['snapshot']}, {res.shuffles} shuffles")
+        row[f"session_{call}_s"] = wall
+    sess.invalidate()
+    with AmpcEngine(mesh=mesh, dht_backend="routed", seed=0,
+                    max_workers=2) as pool:
+        results, wall, _, _, _ = timed_call(lambda: [
+            f.result(timeout=600) for f in [
+                pool.submit(f, "connectivity")
+                for f in fleet[:ASYNC_GRAPHS]]])
+    check(all(np.array_equal(r.output, w)
+              for r, w in zip(results, many_want)),
+          "a group submit differs from the local answer")
+    row.update(submits=len(results), submit_s=wall,
+               dht_gather_launches=ops.dht_gather.launches)
+    emit(row)
+    check(ops.dht_gather.launches == 0,
+          f"the dht_group phase launched dht_gather "
+          f"{ops.dht_gather.launches} times")
+    emit({"phase": "dht_group_seconds", "seconds": time.perf_counter() - t0})
+    return ops.dht_gather.launches
+
+
+def group_psum_case(grads):
+    """``compressed_psum`` of a gradient tree over the one NCCL rank: the
+    average bit-equal to ``decompress`` of ``compress`` and the feedback
+    bit-equal to ``compress``'s, leaf by leaf; its wall."""
+    import torch
+    from repro_torch.optim import grad_compression
+
+    mesh = group_mesh()
+    fb = grad_compression.init_feedback(grads)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    avg, new_fb = grad_compression.compressed_psum(grads, fb, "dht",
+                                                   mesh=mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    mismatched = []
+    for name in grads:
+        q, s, want_fb = grad_compression.compress(grads[name], fb[name])
+        if not (torch.equal(avg[name], grad_compression.decompress(q, s))
+                and torch.equal(new_fb[name], want_fb)):
+            mismatched.append(name)
+        del q, s, want_fb
+    check(not mismatched, f"compressed_psum at one rank differs from "
+          f"compress at {mismatched}")
+    emit({"phase": "dht_group", "case": "compressed_psum", "ranks": 1,
+          "leaves": len(grads), "elements": sum(x.numel()
+                                                for x in grads.values()),
+          "ms": ms, "bit_equal_to_compress": True})
 
 
 # --------------------------------------------------------------------------
@@ -3384,7 +3645,8 @@ def moe_train_run():
     parameters, bf16 compute, remat "full", B 2 in 2 microbatches at S
     4096), the counts set to 0 just before each step and read just after;
     the last step under the profiler.  Then ``compress_tree`` on the last
-    step's gradients, on the card and on their CPU copies.  Returns the
+    step's gradients, on the card and on their CPU copies, and
+    ``compressed_psum`` of them over the one NCCL rank.  Returns the
     launches of the three steps."""
     import torch
     from repro_torch.configs import registry
@@ -3523,7 +3785,9 @@ def moe_train_run():
           "feedback_max_err": worst, "bit_equal_to_cpu": True,
           "largest_scale": max(float(v) for v in s.values()),
           "seconds": time.perf_counter() - t0})
-    del grads, q, s, new_fb
+    del q, s, new_fb
+    group_psum_case(grads)
+    del grads
     torch.cuda.empty_cache()
     return total
 
@@ -4121,16 +4385,9 @@ def dryrun_vs_card():
 def launch_mesh():
     """A (1, 1) ("data", "model") mesh over one NCCL rank (its address on
     this host), and the sharding context on it."""
-    import socket
-    import torch.distributed as dist
     from repro_torch.launch.mesh import MeshShape, make_mesh
     from repro_torch.models.transformer import ShardCtx
-    if not dist.is_initialized():
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
-                                rank=0, world_size=1)
+    nccl_rank()
     mesh = make_mesh(MeshShape((1, 1), ("data", "model")), "cuda")
     return ShardCtx(mesh, "data")
 
@@ -4534,10 +4791,9 @@ def main() -> int:
           f"{serving_launches}")
     t0 = time.perf_counter()
     routed_dht_level(cc_reads)
-    del cc_reads
     t1 = time.perf_counter()
-    serving_launches["routed"] = routed_phase(g, gw, cycles, outputs, solves,
-                                              fleets["plain"])
+    serving_launches["routed"], many_want = routed_phase(
+        g, gw, cycles, outputs, solves, fleets["plain"])
     t2 = time.perf_counter()
     serving_launches["eager"] = eager_phase(g, outputs, solves)
     emit({"phase": "routed_and_eager_seconds", "routed_dht": t1 - t0,
@@ -4545,7 +4801,9 @@ def main() -> int:
     check(serving_launches["eager"] == CC_LAUNCHES_PER_SOLVE,
           f"the eager phase launched dht_gather "
           f"{serving_launches['eager']} times")
-    del fleets, cycles, outputs, solves
+    serving_launches["dht_group"] = dht_group_phase(
+        cc_reads, g, gw, cycles, outputs, fleets["plain"], many_want)
+    del fleets, cycles, outputs, solves, cc_reads, many_want
 
     flash_rows = flash_phase()
     for row in flash_rows:

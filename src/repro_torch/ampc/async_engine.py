@@ -19,6 +19,14 @@ Surface (mixed into ``AmpcEngine``):
     queue; join the workers.  Idempotent; also the engine's context-manager
     exit.
 
+Under a DHT on a process group (``RoutedDht`` over a ``DeviceMesh``) every
+rank must issue its solves' collectives in one order.  The workers then
+take their turns: each item a worker takes from the queue gets the next
+ticket, and it runs only when every earlier ticket has finished
+(:meth:`AsyncEngineMixin._turn`), so solves enter the launch lock in
+submission order on every rank, whichever worker holds them.  Without a
+process group the workers run as soon as they are free.
+
 Every future is observable end to end: the worker wraps the solve in a
 ``solve[async]`` span (the pool-queue wait is recorded as a ``queue_wait``
 event on it), transient launch failures retried by
@@ -186,7 +194,8 @@ class AsyncEngineMixin:
     """
 
     # ------------------------------------------------------------------
-    def _init_async(self, max_workers: int, queue_depth: Optional[int]):
+    def _init_async(self, max_workers: int, queue_depth: Optional[int],
+                    ordered: bool = False):
         if max_workers < 1:
             raise ValueError(f"max_workers must be >= 1, got {max_workers}")
         self._async_workers = int(max_workers)
@@ -199,6 +208,13 @@ class AsyncEngineMixin:
         self._async_queue: Optional[queue.Queue] = None
         self._async_threads: List[threading.Thread] = []
         self._async_closed = False
+        # tickets: the queue order of the items the workers take, and the
+        # next one to run (read only when ``ordered``)
+        self._async_ordered = ordered
+        self._async_take = threading.Lock()
+        self._async_tickets = itertools.count()
+        self._async_turn = threading.Condition()
+        self._async_next = 0
 
     def _ensure_pool(self) -> queue.Queue:
         with self._async_lock:
@@ -342,13 +358,34 @@ class AsyncEngineMixin:
     def _worker_loop(self):
         q = self._async_queue
         while True:
-            item = q.get()
+            with self._async_take:
+                item = q.get()
+                ticket = next(self._async_tickets)
             try:
-                if item is _STOP:
-                    return
-                self._run_future(item)
+                with self._turn(ticket):
+                    if item is _STOP:
+                        return
+                    self._run_future(item)
             finally:
                 q.task_done()
+
+    @contextlib.contextmanager
+    def _turn(self, ticket: int):
+        """Under a process-group backend, wait until every item taken
+        before ``ticket`` has finished, and hand the turn on after this
+        one, however it ends (a result, an error, a cancelled future, a
+        stop sentinel).  Otherwise a no-op."""
+        if not self._async_ordered:
+            yield
+            return
+        with self._async_turn:
+            self._async_turn.wait_for(lambda: self._async_next == ticket)
+        try:
+            yield
+        finally:
+            with self._async_turn:
+                self._async_next += 1
+                self._async_turn.notify_all()
 
     def _run_future(self, fut: AmpcFuture):
         wait_s = time.monotonic() - fut._enqueued_at

@@ -4,7 +4,9 @@ The paper's AMPC model has one shared primitive: an immutable distributed
 hash table written by the previous round and queried adaptively inside the
 current one.  ``core.dht`` runs it on two schedules, a local gather
 (``LocalDht``) and an explicit all-to-all router over shards
-(``RoutedDht``); both sit behind one ``DhtBackend`` protocol, so a solver
+(``RoutedDht``: shards on one device, or one rank a shard over a
+``torch.distributed`` process group); both sit behind one ``DhtBackend``
+protocol, so a solver
 issues lookups without knowing which schedule runs, and the ledger's
 counters (queries, bytes, dedup savings, waves, overflows) are kept the
 same way on both.  A backend binds a value tensor and a ledger into a
@@ -21,8 +23,9 @@ from typing import Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from ..core.dht import ShardedDHT, make_mesh
+from ..core.dht import ShardedDHT, make_mesh, mesh_axis_names
 from ..core.rounds import RoundLedger
+from ..devices import axis_group, is_device_mesh, world_mesh
 from ..obs import trace as obs_trace
 
 
@@ -152,8 +155,14 @@ class RoutedDht(_BackendBase):
     answer (``core.dht.routed_lookup``), the collective schedule an RDMA KV
     store replaces (paper Section 5).
 
-    ``mesh`` (a ``core.dht.DhtMesh``) names the shards on ``axis_name``.
-    Without one, a snapshot takes one shard per device of its values' kind:
+    ``mesh`` names the shards on ``axis_name``: a ``core.dht.DhtMesh``
+    (shards on the values' device, one process) or a ``torch.distributed``
+    ``DeviceMesh`` (one rank a shard; every rank runs the same solve, see
+    ``core.dht``).  Without one, while a default process group is
+    initialized, a 1-D ``("dht",)`` ``DeviceMesh`` over every rank (on
+    ``cuda`` under NCCL, ``cpu`` under gloo), the counterpart of the
+    reference's mesh over every visible device; with no process group a
+    snapshot takes one shard per device of its values' kind:
     ``torch.cuda.device_count()`` for CUDA values, 1 for host values.
     ``capacity`` is the slots a shard has for each owner (default: exact).
     """
@@ -162,9 +171,12 @@ class RoutedDht(_BackendBase):
 
     def __init__(self, mesh=None, axis_name: Optional[str] = None,
                  capacity: Optional[int] = None):
+        dist = torch.distributed
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            mesh = world_mesh(axis_name or "dht")
         self.mesh = mesh
-        self.axis_name = axis_name or (mesh.axis_names[0] if mesh is not None
-                                       else "dht")
+        self.axis_name = axis_name or (mesh_axis_names(mesh)[0]
+                                       if mesh is not None else "dht")
         self.capacity = capacity
 
     def _mesh_for(self, values: torch.Tensor):
@@ -181,6 +193,11 @@ class RoutedDht(_BackendBase):
                           axis_name=self.axis_name, capacity=self.capacity)
 
     def __repr__(self):
+        if is_device_mesh(self.mesh):
+            group = axis_group(self.mesh, self.axis_name, "RoutedDht")[0]
+            ranks = torch.distributed.get_process_group_ranks(group)
+            return (f"RoutedDht(axis={self.axis_name!r}, ranks={ranks!r}, "
+                    f"device={self.mesh.device_type!r})")
         shards = (self.mesh.shape[self.axis_name] if self.mesh is not None
                   else "per device")
         return f"RoutedDht(axis={self.axis_name!r}, shards={shards!r})"
@@ -188,7 +205,7 @@ class RoutedDht(_BackendBase):
 
 def resolve_backend(spec, mesh=None) -> DhtBackend:
     """Map ``"local" | "routed" | DhtBackend-instance`` to a backend object;
-    ``mesh`` goes to the routed one."""
+    ``mesh`` (a ``DhtMesh`` or a ``DeviceMesh``) goes to the routed one."""
     if isinstance(spec, str):
         if spec == "local":
             return LocalDht()

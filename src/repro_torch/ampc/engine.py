@@ -40,8 +40,9 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.dht import group_key
 from ..core.rounds import RoundLedger
-from ..devices import resolve_device
+from ..devices import is_device_mesh, resolve_device
 from ..graph import batching
 from ..obs import metrics as obs_metrics
 from ..obs import trace as obs_trace
@@ -137,12 +138,17 @@ class BatchSolveContext:
     problem: str = ""
     backend_name: str = ""
     mesh: Any = None
+    mesh_key: Any = None
 
     def solver_key(self, batch, *extra):
         """Cache key for this bucket's solver.  ``extra`` captures options
-        the solver closes over (e.g. a walk budget)."""
-        return (self.problem, self.backend_name,
-                batch.n_bucket, batch.m_bucket, *extra)
+        the solver closes over (e.g. a walk budget).  On a process group
+        the key ends with the group's ranks (``core.dht.group_key``), so
+        meshes are told apart; elsewhere it is the reference's key, which
+        ``stats["solver_cache"]`` reports."""
+        key = (self.problem, self.backend_name,
+               batch.n_bucket, batch.m_bucket, *extra)
+        return key if self.mesh_key is None else key + (self.mesh_key,)
 
 
 class AmpcEngine(AsyncEngineMixin):
@@ -150,9 +156,13 @@ class AmpcEngine(AsyncEngineMixin):
 
     Parameters
     ----------
-    mesh:         a ``repro_torch.core.dht.DhtMesh`` handed to the routed
-                  backend (one shard a device of the values' kind when
-                  omitted).
+    mesh:         a ``repro_torch.core.dht.DhtMesh`` or a
+                  ``torch.distributed`` ``DeviceMesh`` handed to the routed
+                  backend (without one: a 1-D mesh over the default
+                  process group's ranks where one is initialized, else one
+                  shard a device of the values' kind).  On a
+                  ``DeviceMesh`` every rank runs the same solves in the
+                  same order (SPMD); only the DHT is distributed.
     dht_backend:  ``"local"`` | ``"routed"`` | a ``DhtBackend`` instance.
     epsilon:      the paper's space exponent (per-machine space n^ε).
     seed:         default randomness for rank permutations.
@@ -172,7 +182,9 @@ class AmpcEngine(AsyncEngineMixin):
                   backpressure; default ``2 * max_workers``.
     serialize_launches: hold one engine-wide lock around every solve's and
                   bucket's device work, so concurrent async solves overlap
-                  host-side phases but never race on the device.
+                  host-side phases but never race on the device.  A
+                  process-group backend needs it (``False`` raises), and
+                  its async solves take the lock in submission order.
     deferred_accounting: ``True`` (default) → per-solve ledgers queue DHT
                   counters on the device and a solve makes one
                   device-to-host harvest (one a ``solve_many`` bucket);
@@ -190,6 +202,15 @@ class AmpcEngine(AsyncEngineMixin):
         self.device = resolve_device(device, "AmpcEngine")
         self.mesh = mesh
         self.dht = resolve_backend(dht_backend, mesh=mesh)
+        dht_mesh = getattr(self.dht, "mesh", None)
+        on_group = is_device_mesh(dht_mesh)
+        if on_group and not serialize_launches:
+            raise ValueError(
+                "serialize_launches=False with a DHT on a process group: "
+                "unserialized launches issue the ranks' collectives in "
+                "different orders, and the ranks hang")
+        self._mesh_key = (group_key(dht_mesh, self.dht.axis_name)
+                          if on_group else None)
         self.epsilon = float(epsilon)
         self.seed = int(seed)
         self.deferred_accounting = bool(deferred_accounting)
@@ -202,7 +223,7 @@ class AmpcEngine(AsyncEngineMixin):
         self._snapshot_cache = SolverCache()
         self._launch_lock = (threading.RLock() if serialize_launches
                              else contextlib.nullcontext())
-        self._init_async(max_workers, queue_depth)
+        self._init_async(max_workers, queue_depth, ordered=on_group)
 
     # ------------------------------------------------------------------
     def _ledger(self, spec, record_events: bool) -> RoundLedger:
@@ -338,7 +359,8 @@ class AmpcEngine(AsyncEngineMixin):
             seed=self.seed if seed is None else int(seed),
             epsilon=self.epsilon if epsilon is None else float(epsilon),
             cache=self._solver_cache, device=self.device,
-            problem=spec.name, backend_name=self.dht.name, mesh=self.mesh)
+            problem=spec.name, backend_name=self.dht.name, mesh=self.mesh,
+            mesh_key=self._mesh_key)
         bspan = tracer.span(
             "bucket", problem=spec.name, n_bucket=batch.n_bucket,
             m_bucket=batch.m_bucket, batch_size=len(batch)) \

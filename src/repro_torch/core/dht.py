@@ -9,10 +9,19 @@ and a lookup is a gather.  This is the port of the JAX package's
     per-machine caching, Section 5.3);
   * ``routed_lookup`` — the explicit router: each shard dedups its keys,
     buckets them by owner shard, exchanges them all-to-all, answers from
-    its own block of rows and routes the answers back.  The shards are a
-    leading dimension of tensors on the values' device (a :class:`DhtMesh`
-    names how many), the counterpart of the reference's mesh over the
-    devices of one host.
+    its own block of rows and routes the answers back.  It runs on two
+    kinds of mesh:
+
+      - a :class:`DhtMesh`: the shards are a leading dimension of tensors
+        on the values' device, one process (the model of the schedule the
+        tests hold everything else to);
+      - a ``torch.distributed`` ``DeviceMesh`` (one dimension of it): one
+        rank a shard, each running the body of the reference's
+        ``shard_map``, the keys and the answers crossing ranks through
+        ``all_to_all_single`` (NCCL on the card, gloo on the CPU).  The
+        ranks are SPMD copies of one program: each holds the same
+        snapshot and the same keys, stores its own block of rows and
+        routes its own run of keys.
 
 ``ShardedDHT`` serves both.  Without a mesh it has two gather
 implementations:
@@ -29,8 +38,10 @@ the same kernel, with a gradient (:class:`DedupGather`).
 
 A deferred ledger's counts stay on the device: they go to the ledger
 through ``RoundLedger.record_queries_deferred`` and nothing here reads
-them.  An eager ledger (``deferred=False``) gets them at once; its local
-take path reads two counts per lookup, as the reference's does.
+them (on a process group they are summed over the ranks by an
+``all_reduce`` on the device).  An eager ledger (``deferred=False``) gets
+them at once; its local take path reads two counts per lookup, as the
+reference's does, the router one record.
 """
 from __future__ import annotations
 
@@ -39,6 +50,7 @@ from typing import Mapping, Tuple
 
 import torch
 
+from ..devices import axis_group, is_device_mesh
 from .rounds import to_host
 
 INT_MAX = 2**31 - 1
@@ -62,6 +74,32 @@ def make_mesh(n_shards: int, axis_name: str = "dht") -> DhtMesh:
     if n_shards < 1:
         raise ValueError(f"a mesh needs at least one shard, got {n_shards}")
     return DhtMesh({axis_name: int(n_shards)})
+
+
+def mesh_axis_names(mesh) -> Tuple[str, ...]:
+    """The axis names of a :class:`DhtMesh` or a ``DeviceMesh``."""
+    if is_device_mesh(mesh):
+        return tuple(mesh.mesh_dim_names or ())
+    return mesh.axis_names
+
+
+def group_key(mesh, axis_name: str):
+    """A hashable name of the ranks that the ``axis_name`` dimension of a
+    ``DeviceMesh`` spans: its device type, the axis and the ranks."""
+    group = axis_group(mesh, axis_name, "a DeviceMesh DHT")[0]
+    return ("group", mesh.device_type, axis_name,
+            tuple(torch.distributed.get_process_group_ranks(group)))
+
+
+def _group_of(mesh, axis_name, values: torch.Tensor):
+    """(group, P, rank) of the router's dimension of a ``DeviceMesh``;
+    raises, never falls back, where the mesh's device type is not the
+    values'."""
+    group = axis_group(mesh, axis_name, "the DHT router")
+    if mesh.device_type != values.device.type:
+        raise ValueError(f"the DHT router's mesh is on {mesh.device_type!r} "
+                         f"and its values on {values.device.type!r}")
+    return group
 
 
 def dedup_keys(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
@@ -198,45 +236,32 @@ def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[shard, idx]
 
 
-def routed_lookup(values: torch.Tensor, keys: torch.Tensor, mesh,
-                  axis_name: str, capacity: int | None = None,
-                  dedup: bool = True):
-    """Explicit DHT router: dedup -> bucket by owner -> all-to-all ->
-    answer -> all-to-all back -> un-dedup, for every shard at once.
+def _bucket(k: torch.Tensor, P: int, shard_size: int, cap: int,
+            dedup: bool):
+    """Bucket each row of a (R, q) int32 key batch (one shard's run a row)
+    by owner into ``cap`` slots an owner.
 
-    ``values``: (n, ...) rows, shard ``p`` owning the contiguous block
-    ``[p * n / P, (p + 1) * n / P)``; ``keys``: (Q,) int32, shard ``p``
-    sending the ``p``-th run of Q / P of them; -1 = padding.  ``capacity``
-    is the slots a shard has for each owner; keys past it in their owner's
-    bucket overflow, are not answered and read 0, as padding does.  The
-    default, Q / P, is exact.  Returns (gathered (Q, ...), n_unique,
-    overflow_count) with the counts as 0-d device tensors: n_unique sums
-    the shards' own distinct counts.  Nothing here syncs with the host.
+    Each run's keys go in owner order with each key's slot in its owner's
+    bucket.  Dedup leaves a row ascending, and the owner grows with the
+    key, so its keys are in owner order already; without dedup a stable
+    sort keeps the caller's order within an owner.  Returns (send (R, P *
+    cap) int32, INT_MAX in empty slots; owner and slot (R, q) of each
+    sorted key, clamped into the buffer; valid (R, q), the keys sent;
+    undo, the dedup's inverse or the owner sort's permutation; n_unique
+    (R,); overflow (R,)).
     """
-    P = mesh.shape[axis_name]
-    n, Q = values.shape[0], keys.shape[0]
-    if n % P or Q % P:
-        raise ValueError(f"value rows ({n}) and keys ({Q}) must divide "
-                         f"evenly across {P} shards")
-    shard_size, q_local = n // P, Q // P
-    cap = capacity or q_local
-    dev = values.device
-    shard = torch.arange(P, device=dev)[:, None]
-    k = keys.to(torch.int32).reshape(P, q_local)
-    # each shard's keys in owner order, and each key's slot within its
-    # owner's bucket.  Dedup leaves a row ascending, and the owner grows
-    # with the key, so its keys are in owner order already; without dedup
-    # a stable sort keeps the caller's order within an owner
+    R, q_local = k.shape
+    dev = k.device
     if dedup:
-        sk, inv, n_unique = _dedup_rows(k)
+        sk, undo, n_unique = _dedup_rows(k)
     else:
         safe = torch.where(k < 0, INT_MAX, k)
-        order = torch.sort(_owner(safe, shard_size), dim=1,
-                           stable=True).indices
-        sk = safe.gather(1, order)
+        undo = torch.sort(_owner(safe, shard_size), dim=1,
+                          stable=True).indices
+        sk = safe.gather(1, undo)
         n_unique = (k >= 0).sum(1)
     so = _owner(sk, shard_size).long()
-    owners = torch.arange(P, dtype=torch.int64, device=dev).expand(P, P)
+    owners = torch.arange(P, dtype=torch.int64, device=dev).expand(R, P)
     start = torch.searchsorted(so.contiguous(), owners.contiguous())
     slot = torch.arange(q_local, device=dev) - start.gather(
         1, so.clamp(0, P - 1))
@@ -246,11 +271,73 @@ def routed_lookup(values: torch.Tensor, keys: torch.Tensor, mesh,
     # the send buffer: (P destinations x cap slots) and one drop slot,
     # where every padding and overflowed key lands
     flat_pos = torch.where(valid, so * cap + slot, P * cap)
-    send = torch.full((P, P * cap + 1), INT_MAX, dtype=torch.int32,
+    send = torch.full((R, P * cap + 1), INT_MAX, dtype=torch.int32,
                       device=dev)
     send.scatter_(1, flat_pos, torch.where(valid, sk, INT_MAX))
+    return (send[:, :-1], so.clamp(0, P - 1), slot.clamp(0, cap - 1), valid,
+            undo, n_unique, overflow)
+
+
+def _unbucket(back, owner, slot, valid, undo, dedup: bool):
+    """The answers to each run's sorted keys, ``back`` (R, P, cap, ...),
+    read at their owner and slot, 0 where a key was not sent, and put back
+    in the run's own order: through the dedup's inverse, or the owner
+    sort's permutation.  Returns (R, q, ...)."""
+    shard = torch.arange(valid.shape[0], device=valid.device)[:, None]
+    got = back[shard, owner, slot]
+    got.masked_fill_((~valid).reshape(valid.shape + (1,) * (got.dim() - 2)),
+                     0)
+    if dedup:
+        return _rows(got, undo)
+    out = torch.empty_like(got)
+    out[shard, undo] = got
+    return out
+
+
+def routed_lookup(values: torch.Tensor, keys: torch.Tensor, mesh,
+                  axis_name: str, capacity: int | None = None,
+                  dedup: bool = True):
+    """Explicit DHT router: dedup -> bucket by owner -> all-to-all ->
+    answer -> all-to-all back -> un-dedup.
+
+    On a :class:`DhtMesh`, for every shard at once: ``values`` is (n, ...)
+    rows, shard ``p`` owning the contiguous block ``[p * n / P, (p + 1) *
+    n / P)``; ``keys`` is (Q,) int32, shard ``p`` sending the ``p``-th run
+    of Q / P of them; the result is (Q, ...).
+
+    On a ``DeviceMesh`` (its dimension ``axis_name``, P ranks), each rank
+    passes what the reference's ``shard_map`` body gets: ``values`` its
+    own block of rows (the same count on every rank) and ``keys`` its own
+    run (the same length on every rank), and gets its run's answers.  The
+    keys go out in one ``all_to_all_single`` of a (P, cap) int32 buffer and
+    the answers come back in a second, of (P * cap, ...) rows in the
+    values' type; the shapes are fixed, so every rank issues the same
+    collectives.  Raises where ``torch.distributed`` is not initialized or
+    the mesh is on another device type than the values.
+
+    -1 keys are padding.  ``capacity`` is the slots a shard has for each
+    owner; keys past it in their owner's bucket overflow, are not answered
+    and read 0, as padding does.  The default, the run's length, is exact.
+    Returns (gathered, n_unique, overflow_count) with the counts as 0-d
+    device tensors summed over the shards (each shard counts its own
+    distinct keys; on a process group one ``all_reduce``).  Nothing here
+    syncs with the host.
+    """
+    if is_device_mesh(mesh):
+        return _group_routed_lookup(values, keys, mesh, axis_name, capacity,
+                                    dedup)
+    P = mesh.shape[axis_name]
+    n, Q = values.shape[0], keys.shape[0]
+    if n % P or Q % P:
+        raise ValueError(f"value rows ({n}) and keys ({Q}) must divide "
+                         f"evenly across {P} shards")
+    shard_size, q_local = n // P, Q // P
+    cap = capacity or q_local
+    shard = torch.arange(P, device=values.device)[:, None]
+    send, owner, slot, valid, undo, n_unique, overflow = _bucket(
+        keys.to(torch.int32).reshape(P, q_local), P, shard_size, cap, dedup)
     # all-to-all: recv[d, s] is what shard s sent to shard d
-    recv = send[:, :-1].reshape(P, P, cap).transpose(0, 1)
+    recv = send.reshape(P, P, cap).transpose(0, 1)
     # each shard answers from its own block of rows (an empty slot reads
     # the block's row 0: it is never read back)
     local_idx = torch.where(recv == INT_MAX, 0,
@@ -260,18 +347,35 @@ def routed_lookup(values: torch.Tensor, keys: torch.Tensor, mesh,
     ans = _rows(blocks, local_idx)
     # and the answers go back the same way: back[s, d] came from shard d
     back = ans.reshape((P, P, cap) + tuple(ans.shape[2:])).transpose(0, 1)
-    got = back[shard, so.clamp(0, P - 1), slot.clamp(0, cap - 1)]
-    got.masked_fill_((~valid).reshape(valid.shape + (1,) * (got.dim() - 2)),
-                     0)
-    # back to the caller's order: through the dedup's inverse, or the
-    # owner sort's permutation
-    if dedup:
-        out = _rows(got, inv)
-    else:
-        out = torch.empty_like(got)
-        out[shard, order] = got
+    out = _unbucket(back, owner, slot, valid, undo, dedup)
     return (out.reshape((Q,) + tuple(values.shape[1:])), n_unique.sum(),
             overflow.sum())
+
+
+def _group_routed_lookup(block, keys, mesh, axis_name, capacity, dedup):
+    """One rank's part of ``routed_lookup`` on a ``DeviceMesh``: the body
+    of the reference's ``shard_map``, its two ``all_to_all``s on the
+    process group."""
+    import torch.distributed as dist
+    group, P, rank = _group_of(mesh, axis_name, block)
+    shard_size, q_local = block.shape[0], keys.shape[0]
+    cap = capacity or q_local
+    send, owner, slot, valid, undo, n_unique, overflow = _bucket(
+        keys.to(torch.int32).reshape(1, q_local), P, shard_size, cap, dedup)
+    # recv[s * cap:(s + 1) * cap] are the keys rank s sent here
+    recv = torch.empty(P * cap, dtype=torch.int32, device=block.device)
+    dist.all_to_all_single(recv, send[0], group=group)
+    # answer from this rank's own block (an empty slot reads its row 0:
+    # it is never read back), then route the answers back
+    local_idx = torch.where(recv == INT_MAX, 0, recv - rank * shard_size)
+    ans = block[local_idx.clamp(0, shard_size - 1).long()]
+    back = torch.empty_like(ans)
+    dist.all_to_all_single(back, ans, group=group)
+    out = _unbucket(back.reshape((1, P, cap) + tuple(back.shape[1:])),
+                    owner, slot, valid, undo, dedup)
+    counts = torch.stack([n_unique.sum(), overflow.sum()])
+    dist.all_reduce(counts, group=group)
+    return out[0], counts[0], counts[1]
 
 
 def _fused_local_lookup(values, keys, row_bytes: int, dedup: bool):
@@ -292,9 +396,16 @@ class ShardedDHT:
     Without a ``mesh`` every lookup takes the local gather path, served by
     ``impl`` (``None`` picks ``"cuda"`` for CUDA values and ``"take"``
     otherwise); with a ``mesh`` it takes the router (``routed_lookup``)
-    over ``mesh.shape[axis_name]`` shards, each with ``capacity`` slots an
-    owner.  Both report query / byte / dedup / overflow counters through
-    the same ledger calls, so AMPC accounting is backend-independent.
+    over the shards of the mesh's ``axis_name`` dimension, each with
+    ``capacity`` slots an owner.  Both report query / byte / dedup /
+    overflow counters through the same ledger calls, so AMPC accounting is
+    backend-independent.
+
+    On a ``DeviceMesh`` every rank builds the snapshot from the same
+    ``values`` and looks up the same keys: it keeps a view of its own
+    block of the padded rows, routes its own run of the keys, and
+    all-gathers the runs' answers, so every rank gets the whole (Q, ...)
+    result (the reference's sharded output, read whole).
     """
 
     def __init__(self, values: torch.Tensor, ledger=None,
@@ -314,28 +425,54 @@ class ShardedDHT:
         if impl not in ("take", "cuda"):
             raise ValueError(f"impl must be 'take' or 'cuda', got {impl!r}")
         self.impl = impl
-        # routed path: pad the rows to the shard grid once a snapshot
+        # routed path: pad the rows to the shard grid once a snapshot; on a
+        # process group keep a view of this rank's block
+        self._group = None
         if mesh is not None:
-            pad_rows = (-values.shape[0]) % mesh.shape[axis_name]
+            if is_device_mesh(mesh):
+                self._group = _group_of(mesh, axis_name, values)
+                self._shards = self._group[1]
+            else:
+                self._shards = mesh.shape[axis_name]
+            pad_rows = (-values.shape[0]) % self._shards
             self._padded_values = values
             if pad_rows:
                 fill = values.new_zeros((pad_rows,) + tuple(values.shape[1:]))
                 self._padded_values = torch.cat([values, fill])
+            if self._group is not None:
+                size = self._padded_values.shape[0] // self._shards
+                rank = self._group[2]
+                self._padded_values = self._padded_values[
+                    rank * size:(rank + 1) * size]
 
     @property
     def backend(self) -> str:
         return "local" if self.mesh is None else "routed"
 
     def _routed(self, keys, dedup: bool):
-        """Pad the keys to the shard grid with -1, route, slice back."""
+        """Pad the keys to the shard grid with -1, route, slice back.  On
+        a process group route this rank's run and all-gather the runs."""
         q = keys.numel()
-        pad_q = (-q) % self.mesh.shape[self.axis_name]
+        pad_q = (-q) % self._shards
         k = keys
         if pad_q:
             k = torch.cat([k, k.new_full((pad_q,), -1)])
-        out, n_unique, overflow = routed_lookup(
-            self._padded_values, k, self.mesh, self.axis_name,
-            capacity=self.capacity, dedup=dedup)
+        if self._group is None:
+            out, n_unique, overflow = routed_lookup(
+                self._padded_values, k, self.mesh, self.axis_name,
+                capacity=self.capacity, dedup=dedup)
+            return out[:q], n_unique, overflow
+        import torch.distributed as dist
+        group, P, rank = self._group
+        q_local = k.numel() // P
+        run, n_unique, overflow = routed_lookup(
+            self._padded_values, k[rank * q_local:(rank + 1) * q_local],
+            self.mesh, self.axis_name, capacity=self.capacity, dedup=dedup)
+        out = run.new_empty((P * q_local,) + tuple(run.shape[1:]))
+        # all_gather_single is all_gather_into_tensor's newer name
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(out, run, group=group)
         return out[:q], n_unique, overflow
 
     def _cuda_gather(self, keys):

@@ -1,7 +1,8 @@
 """The port's one rule for where its entry points run: on CUDA unless the
 caller asks for another device (``"cpu"``, or ``"meta"`` to build a model
-with no storage, as the dry-run does), and the parameter draws that
-follow it."""
+with no storage, as the dry-run does), the parameter draws that follow
+it, and the process groups a run spans (one rank a card: a
+``DeviceMesh`` dimension or the default group)."""
 from __future__ import annotations
 
 import torch
@@ -25,6 +26,48 @@ def is_dtensor(x) -> bool:
         return False
     from torch.distributed.tensor import DTensor
     return isinstance(x, DTensor)
+
+
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``torch.distributed`` ``DeviceMesh``."""
+    if mesh is None or not torch.distributed.is_available():
+        return False
+    from torch.distributed.device_mesh import DeviceMesh
+    return isinstance(mesh, DeviceMesh)
+
+
+def axis_group(mesh, axis_name, what: str):
+    """(group, size, rank) of one dimension of a ``DeviceMesh``: the one
+    named ``axis_name``, or the only one of a 1-D mesh when ``axis_name``
+    is None or the mesh names none.  ``mesh=None`` is the default group
+    (group ``None``).  Raises where ``torch.distributed`` is not
+    initialized; ``what`` names the caller in the message."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(f"{what} runs over a process group and "
+                           "torch.distributed is not initialized")
+    if mesh is None:
+        return None, dist.get_world_size(), dist.get_rank()
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis_name is not None and axis_name in names:
+        dim = names.index(axis_name)
+    elif mesh.ndim == 1 and (axis_name is None or not names):
+        dim = 0
+    else:
+        raise ValueError(f"{what}: the mesh has no dimension {axis_name!r} "
+                         f"(its dimensions: {names})")
+    return mesh.get_group(dim), mesh.size(dim), mesh.get_local_rank(dim)
+
+
+def world_mesh(axis_name: str = "dht"):
+    """A 1-D ``DeviceMesh`` named ``axis_name`` over every rank of the
+    default process group: on ``cuda`` where the group runs NCCL, on
+    ``cpu`` otherwise (gloo)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    dist = torch.distributed
+    device_type = "cuda" if "nccl" in str(dist.get_backend()) else "cpu"
+    return init_device_mesh(device_type, (dist.get_world_size(),),
+                            mesh_dim_names=(axis_name,))
 
 
 def whole(x):

@@ -8,9 +8,10 @@ the quantization residual becomes the next feedback (EF-SGD, Karimireddy
 et al.), so SGD and Adam stay convergent.  A tree is a tensor or nested dicts and lists of tensors (the
 port's name -> tensor dicts).
 
-``compressed_psum``, the reference's all-reduce of the int8 gradients
-across data-parallel devices, needs a process group: it is ROADMAP queue
-1, item 12, and raises.
+``compressed_psum`` is the reference's data-parallel all-reduce of the
+int8 gradients under one shared scale a tensor, over a
+``torch.distributed`` process group (one rank a card, NCCL; gloo on the
+CPU) where the reference's runs over a ``shard_map`` axis.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from typing import Any, Tuple
 
 import torch
 
-_COLLECTIVES = "multi-card collectives (ROADMAP queue 1, item 12)"
+from ..devices import axis_group
 
 
 def _map(fn, *trees):
@@ -37,15 +38,26 @@ def init_feedback(params) -> Any:
                                       device=p.device), params)
 
 
+def _scale(corrected: torch.Tensor) -> torch.Tensor:
+    """The f32 scale of a corrected gradient: its largest magnitude over
+    127."""
+    amax = torch.clamp(corrected.abs().max(), min=1e-12)
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python
+    # scalar one, which may round otherwise than the division
+    return amax / torch.full_like(amax, 127.0)
+
+
+def _quantize(corrected: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(corrected / scale), -127,
+                       127).to(torch.int8)
+
+
 def compress(g: torch.Tensor, feedback: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (q int8, scale f32 scalar, new_feedback f32)."""
     corrected = g.float() + feedback
-    amax = torch.clamp(corrected.abs().max(), min=1e-12)
-    # a tensor divisor: CUDA multiplies by the reciprocal of a Python
-    # scalar one, which may round otherwise than the division
-    scale = amax / torch.full_like(amax, 127.0)
-    q = torch.clamp(torch.round(corrected / scale), -127, 127).to(torch.int8)
+    scale = _scale(corrected)
+    q = _quantize(corrected, scale)
     return q, scale, corrected - q.float() * scale
 
 
@@ -63,8 +75,43 @@ def decompress_tree(q, s):
     return _map(decompress, q, s)
 
 
-def compressed_psum(grads, feedback, axis_name: str):
-    """The reference's data-parallel all-reduce of int8 gradients under a
-    shared scale; not ported."""
-    raise NotImplementedError(f"compressed_psum all-reduces across "
-                              f"devices: {_COLLECTIVES}")
+def compressed_psum(grads, feedback, axis_name: str | None = None, *,
+                    mesh=None):
+    """The mean of every rank's gradients, all-reduced as int8 under one
+    shared scale a tensor, and this rank's new feedback: (avg tree,
+    feedback tree).
+
+    Every rank of the group calls it with a tree of one layout.  The
+    group is ``mesh``'s dimension ``axis_name`` (a ``DeviceMesh``, as the
+    reference's ``axis_name`` names a ``shard_map`` axis), or the default
+    group where ``mesh`` is None.  The reference's steps, in its order:
+    the scales ``compress_tree`` gives; their maximum over the ranks; each
+    gradient plus its feedback quantized again against that maximum
+    (rounded half to even); the feedback ``g + fb - q * s_max``; the int8
+    values summed over the ranks as int32; the sum dequantized and divided
+    by the group's size.  Raises where ``torch.distributed`` is not
+    initialized.  Leaf by leaf, so no whole tree of int32 sums or of
+    ``compress_tree``'s values and feedback is held at once.
+    """
+    import torch.distributed as dist
+    group, n, _ = axis_group(mesh, axis_name, "compressed_psum")
+
+    def shared_scale(g, fb):
+        scale = _scale(g.float() + fb)
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        return scale
+
+    s_max = _map(shared_scale, grads, feedback)
+    q2 = _map(lambda g, fb, sm: _quantize(g.float() + fb, sm),
+              grads, feedback, s_max)
+    fb2 = _map(lambda g, fb, q, sm: g.float() + fb - q.float() * sm,
+               grads, feedback, q2, s_max)
+
+    def mean(q, sm):
+        total = q.to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        # the group's size as a tensor divisor: CUDA multiplies by the
+        # reciprocal of a Python scalar one
+        return total.float() * sm / torch.full_like(sm, n)
+
+    return _map(mean, q2, s_max), fb2

@@ -1313,6 +1313,88 @@ def test_cuda_compress_is_bit_equal_to_cpu(card):
             assert torch.equal(got[k].cpu(), want[k]), k
 
 
+@pytest.fixture
+def nccl_mesh(card):
+    """A 1-D ("dht",) cuda DeviceMesh over one NCCL rank; the process
+    group is torn down after the test if the test made it."""
+    import socket
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    made = not dist.is_initialized()
+    if made:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+    try:
+        yield init_device_mesh("cuda", (1,), mesh_dim_names=("dht",))
+    finally:
+        if made:
+            dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dtype", [torch.bool, torch.int8, torch.int32,
+                                   torch.int64, torch.float32,
+                                   torch.bfloat16])
+def test_group_router_on_one_nccl_rank(card, nccl_mesh, dtype):
+    """``ShardedDHT`` on a one-rank NCCL mesh (both exchanges through
+    ``all_to_all_single`` to itself) equals the one-process router at one
+    shard on the card and on the CPU, rows and counters, with dedup on and
+    off and a starved capacity; a mesh on another device type raises."""
+    from repro_torch.core.dht import ShardedDHT, make_mesh
+    from repro_torch.core.rounds import RoundLedger
+    rng = np.random.default_rng(3)
+    raw = torch.from_numpy(rng.integers(-1000, 1000, (29, 3)))
+    values = (raw > 0 if dtype == torch.bool else raw.to(dtype))
+    keys = torch.from_numpy(rng.integers(-1, 29, 45).astype(np.int32))
+    keys[:10] = keys[10:20]
+    for dedup in (True, False):
+        for cap in (None, 1):
+            got, want = [], []
+            for mesh, dev, out in ((nccl_mesh, card, got),
+                                   (make_mesh(1), card, want),
+                                   (make_mesh(1), "cpu", want)):
+                led = RoundLedger("x")
+                rows = ShardedDHT(values.to(dev), ledger=led, mesh=mesh,
+                                  capacity=cap).lookup(keys.to(dev),
+                                                       dedup=dedup)
+                out.append((rows.cpu(), led.summary()))
+            for rows, summary in want:
+                assert torch.equal(got[0][0], rows), (dedup, cap)
+                assert got[0][1] == summary | {
+                    "wall_time_s": got[0][1]["wall_time_s"]}
+    with pytest.raises(ValueError, match="mesh is on 'cuda'"):
+        ShardedDHT(values, mesh=nccl_mesh)
+
+
+def test_group_engine_and_psum_on_one_nccl_rank(card, nccl_mesh):
+    """The engine on a one-rank NCCL mesh solves as the local engine on
+    the CPU for mis and connectivity (outputs and counters), and
+    ``compressed_psum`` at one rank is ``decompress`` of ``compress``, bit
+    for bit."""
+    from repro_torch.optim import grad_compression as gc
+    g = gen.erdos_renyi(300, 4.0, seed=5)
+    group = AmpcEngine(mesh=nccl_mesh, dht_backend="routed", seed=0,
+                       metrics=False)
+    local = AmpcEngine(seed=0, device="cpu", metrics=False)
+    for problem in ("mis", "connectivity"):
+        got, want = group.solve(g, problem), local.solve(g, problem)
+        np.testing.assert_array_equal(got.output, want.output)
+        for key in ("shuffles", "dht_queries", "dht_bytes",
+                    "dedup_savings", "dht_overflows"):
+            assert got.ledger[key] == want.ledger[key], (problem, key)
+    gen_ = torch.Generator().manual_seed(7)
+    grads = {f"g{i}": (torch.randn(1000 + i, generator=gen_)
+                       * 10 ** (i % 5 - 2)).to(card) for i in range(16)}
+    fb = gc.init_feedback(grads)
+    avg, new_fb = gc.compressed_psum(grads, fb, "dht", mesh=nccl_mesh)
+    for k in grads:
+        q, s, want_fb = gc.compress(grads[k], fb[k])
+        assert torch.equal(avg[k], gc.decompress(q, s)), k
+        assert torch.equal(new_fb[k], want_fb), k
+
+
 if __name__ == "__main__":
     import json
     print(json.dumps(flash_fwd_digests()))

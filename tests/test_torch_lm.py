@@ -337,11 +337,11 @@ def test_unported_paths_raise():
     """Every LM path runs, MoE configs included (their values are held
     against the JAX package's in ``tests/test_torch_moe.py``, the chunked
     forward's, ``prefill``'s and ``decode_step``'s in
-    ``tests/test_torch_lm_serving.py``); what stays unported raises,
-    naming its ROADMAP item: ``compressed_psum`` (item 12, collectives
-    across cards).  A ``TrainRunner`` given shardings (item 11, ported)
-    builds, and refuses only ill-formed ones
-    (``tests/test_torch_runtime.py``)."""
+    ``tests/test_torch_lm_serving.py``); what needs what is missing
+    raises: ``compressed_psum`` (item 12, ported; its values are held in
+    ``tests/test_torch_dht_group.py``) without a process group.  A
+    ``TrainRunner`` given shardings (item 11, ported) builds, and refuses
+    only ill-formed ones (``tests/test_torch_runtime.py``)."""
     from repro_torch.optim import grad_compression
     from repro_torch.runtime.fault_tolerance import (RunnerConfig,
                                                      TrainRunner)
@@ -350,7 +350,7 @@ def test_unported_paths_raise():
         model = TransformerLM(cfg, device="cpu")
         assert len(model.layers[0].moe.w_gate) == cfg.moe_experts
     g = {"w": torch.ones(3)}
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(RuntimeError, match="process group"):
         grad_compression.compressed_psum(
             g, grad_compression.init_feedback(g), "data")
     runner = TrainRunner(RunnerConfig("unused"), dict, lambda s, i: s,
