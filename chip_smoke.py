@@ -313,14 +313,36 @@ CUDA toolkit.  It:
    sharded step preempted and resumed, bit-equal to an uninterrupted run;
    (d) the four ``examples/torch_*.py`` on the card; (e) SDPA's backward
    at G 5 and 6 (40/8 and 48/8 heads, (1, 4096, H, 128) bf16, causal);
-17. prints one ``{"kernels": [...]}`` line (dht_gather: the first
+17. the ``launch_mesh`` phase, one device of the 16x16 mesh: (a) ``python
+   -m repro_torch.launch.dryrun --all --mesh both`` on the host (4 worker
+   processes, no card, started before the LM serving phase, within 900
+   s), every LM cell traced as rank 0 of a 256- or 512-rank group whose
+   collectives move no data, one line a record: 34 records ok (llama4
+   and mixtral at full depth), the GNN and SASRec records skipped with
+   the dry-run's reason, the registry's skips with its own; each record's
+   per-device parameter and AdamW bytes equal to the count of the same
+   placements from the mesh's shape, every group across nodes; and
+   mixtral's train_4k with ``moe_local_dispatch`` at 18 and 19 layers
+   (the registry's config fits 80 GB at no depth: 18 layers is the
+   deepest cut the trace fits); (b) on the card, as rank 0 of 256 (the
+   "fake" backend, a 16x16 mesh; ``FilledCollectives`` writes every
+   collective's output from this rank's data): qwen3-4b train_4k at full
+   depth, then mixtral's train_4k at full depth if its record fits 80 GB,
+   else that cut, each built on ``meta``, placed by ``place_lm``, its
+   shards drawn from a seed on the card: ``memory_allocated`` of the state
+   equal to the trace's ``state_alloc_bytes``, one step's
+   ``max_memory_allocated`` beside the trace's peak, 3 warm steps'
+   CUDA-event ms beside the roofline's max(compute, memory) (no
+   collective term: nothing moves), flash launches all wgmma, finite
+   losses;
+18. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
    (the engine's solves, the serving phases, the routed phase's 0, the
    eager phase's 2, the SASRec cells); the
    flash forward: the first layer's own q, k, v, its kernel route and the
    SIMT kernel's time there, with its launches by phase (the qwen3-4b
    forward and step, the MoE forwards and mixtral's steps, the sharded
-   step); dq and dk/dv:
+   step, the mesh rank's steps); dq and dk/dv:
    the training path's shape, their route and the SIMT kernels' time
    there, with their launches by phase;
    segment_matmul: GIN layer 0's own inputs in the
@@ -4690,6 +4712,288 @@ def launch_phase():
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase: one device of the 16x16 mesh (the sharded dry-run on the host, then
+# rank 0 of a 256-rank group on the card)
+# --------------------------------------------------------------------------
+# the mesh dry-run's worker processes (CPU only), started in the background
+# of the LM serving, MoE, GNN, SASRec and launch phases
+MESH_DRYRUN_JOBS, MESH_DRYRUN_TIMEOUT_S = 4, 900
+MESH_LM_CELLS = 34      # 17 LM cells not skipped x (16x16, 2x16x16)
+# mixtral's train_4k as its registry config has it (the global dispatch:
+# every rank dispatches all 1,048,576 tokens) fits 80 GB at no depth; the
+# per-shard dispatch does, to MESH_MOE_LAYERS layers by the trace
+MESH_MOE_ARCH = "mixtral-8x22b"
+MESH_MOE_LAYERS = 18
+MESH_MOE_OVERRIDES = {"moe_local_dispatch": True}
+MESH_WARM_STEPS = 3
+MESH_SEED = 5
+
+
+def stop(procs):
+    for proc, _ in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def mesh_dryrun_start():
+    """Start on the host (no card: ``CUDA_VISIBLE_DEVICES`` empty) the
+    sharded dry-run of every cell (``--mesh both``) and MESH_MOE_ARCH's
+    train_4k at 16x16 with MESH_MOE_OVERRIDES at MESH_MOE_LAYERS layers
+    and one more, each into ``build/``; stopped at exit if still
+    running."""
+    import atexit
+    out = ROOT / "build"
+    out.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    runs = {"mesh": ["--all", "--mesh", "both", "--jobs",
+                     str(MESH_DRYRUN_JOBS)]}
+    for n in (MESH_MOE_LAYERS, MESH_MOE_LAYERS + 1):
+        runs[f"moe_{n}"] = ["--arch", MESH_MOE_ARCH, "--shape", "train_4k",
+                            "--mesh", "single", "--overrides", json.dumps(
+                                {**MESH_MOE_OVERRIDES, "n_layers": n})]
+    procs = {}
+    for name, args in runs.items():
+        path = out / f"dryrun_{name}.jsonl"
+        path.unlink(missing_ok=True)
+        # their lines go to files: a pipe left unread until the end fills
+        with open(path.with_suffix(".log"), "w") as log, \
+                open(path.with_suffix(".err"), "w") as err:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+                 "--out", str(path)], cwd=ROOT, env=env, stdout=log,
+                stderr=err)
+        procs[name] = (proc, path)
+    atexit.register(stop, procs)
+    return procs, time.perf_counter()
+
+
+def mesh_dryrun_finish(procs, t0):
+    """Wait for the sharded dry-runs and hold their records: 34 LM
+    records ok at 16x16 and 2x16x16 (llama4 and mixtral at full depth),
+    the GNN and SASRec records skipped with ``MESH_SKIP``, the registry's
+    skips with its reasons; each ok record's per-device parameter and
+    AdamW bytes equal to ``_device_bytes``' count of the same placements
+    from the mesh's shape, every collective's group a mesh
+    dimension across nodes (the NIC's rate).  Returns ({(arch, shape, mesh):
+    record}, {layers: the MoE cut's record})."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    out = {}
+    for name, (proc, path) in procs.items():
+        try:
+            proc.wait(timeout=max(
+                1, MESH_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"the mesh dry-run {name} ran past "
+                               f"{MESH_DRYRUN_TIMEOUT_S} s")
+        for line in path.with_suffix(".log").read_text().splitlines():
+            print(f"[dryrun {name}] {line}", flush=True)
+        check(proc.returncode == 0, f"the mesh dry-run {name} exited "
+              f"{proc.returncode}: "
+              f"{path.with_suffix('.err').read_text()[-2000:]}")
+        out[name] = [json.loads(line) for line in
+                     path.read_text().splitlines()]
+    recs = out.pop("mesh")
+    want = [(a, s, m, reason) for a, s, reason in registry.all_cells()
+            for m in ("16x16", "2x16x16")]
+    check([(r["arch"], r["shape"], r["mesh"]) for r in recs]
+          == [w[:3] for w in want], "mesh dry-run records out of order")
+    for r, (arch, shape, mesh, reason) in zip(recs, want):
+        lm = registry.get(arch).family == "lm"
+        status = "ok" if lm and not reason else "skipped"
+        check(r["status"] == status and r.get("reason") == (
+            reason or (None if lm else dryrun.MESH_SKIP)),
+            f"mesh dry-run {arch} {shape} {mesh}: {r['status']} "
+            f"{r.get('reason')} {r.get('error')}")
+    ok = [r for r in recs if r["status"] == "ok"]
+    check(len(ok) == MESH_LM_CELLS, f"{len(ok)} mesh records ok")
+    for r in ok:
+        placed = r["placement_bytes"]
+        check(r["param_bytes"] == placed["param_bytes"]
+              and r["opt_bytes"] == placed["opt_bytes"],
+              f"{r['arch']} {r['shape']} {r['mesh']}: traced state "
+              f"{r['param_bytes']}/{r['opt_bytes']} bytes, placements "
+              f"{placed}")
+        check(r["chips"] == (256 if r["mesh"] == "16x16" else 512)
+              and all(g["link"] == "nic" and g["size"] == (
+                  2 if name == "pod" else 16) for name, g in
+                  r["collectives"]["groups"].items()),
+              f"{r['arch']} {r['shape']} {r['mesh']}: groups "
+              f"{r['collectives']['groups']}")
+    emit({"phase": "launch_mesh_dryrun", "ok": len(ok),
+          "skipped": len(recs) - len(ok),
+          "fits_h100_80gb": [f"{r['arch']}/{r['shape']}/{r['mesh']}"
+                             for r in ok if r["fits_h100_80gb"]],
+          "records": {f"{r['arch']}/{r['shape']}/{r['mesh']}": {
+              "peak_gb": r["peak_bytes"] / 1e9,
+              "tflops": r["flops"] / 1e12,
+              "wire_gb": r["collectives"]["wire_bytes"] / 1e9,
+              "dominant": r["roofline"]["dominant"],
+              "t_s": [r["roofline"][k] for k in (
+                  "t_compute_s", "t_memory_s", "t_collective_s")]}
+              for r in ok},
+          "moe_cut": {name: {"peak_gb": rs[0]["peak_bytes"] / 1e9,
+                             "fits_h100_80gb": rs[0]["fits_h100_80gb"]}
+                      for name, rs in out.items()},
+          "seconds": time.perf_counter() - t0})
+    return ({(r["arch"], r["shape"], r["mesh"]): r for r in ok},
+            {int(name.split("_")[1]): rs[0] for name, rs in out.items()})
+
+
+def draw_local_shards(model, seed):
+    """Each of ``model``'s parameters (DTensors over ``meta`` shards after
+    ``place_lm``) given this rank's shard on the card: 1 for a norm's
+    scale (1-D), N(0, 0.02) else, from ``seed``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name, p in list(model.named_parameters()):
+        owner_name, _, leaf = name.rpartition(".")
+        owner = model.get_submodule(owner_name)
+        local = p._local_tensor
+        if p.dim() == 1:
+            x = torch.ones(local.shape, dtype=local.dtype, device="cuda")
+        else:
+            x = (torch.randn(local.shape, generator=g, device="cuda",
+                             dtype=torch.float32) * 0.02).to(local.dtype)
+        owner._parameters[leaf] = torch.nn.Parameter(DTensor.from_local(
+            x, p.device_mesh, p.placements, run_check=False, shape=p.shape,
+            stride=p.stride()), requires_grad=p.requires_grad)
+
+
+def mesh_rank_run(mesh, arch, overrides, rec):
+    """Rank 0 of ``mesh`` (16x16 over a 256-rank fake group) on the card:
+    the train_4k cell's model built on ``meta``, placed by ``place_lm``,
+    its shards drawn on the card and AdamW's state made on them; their
+    ``memory_allocated`` equal to the trace's ``state_alloc_bytes``; one
+    step's ``max_memory_allocated`` beside the trace's peak and
+    MESH_WARM_STEPS warm steps' CUDA-event ms beside the roofline's
+    max(compute, memory) (the collectives move no data: no collective
+    term); the flash launches all on the wgmma route; finite losses."""
+    import gc
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import FilledCollectives
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.models.transformer import ShardCtx
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cell = build_cell(arch, "train_4k", mesh, overrides=overrides)
+    model = cell.args[0]
+    sctx = ShardCtx(mesh, "data")
+    steps.place_lm(model, None, sctx)
+    draw_local_shards(model, MESH_SEED)
+    opt = adamw.init_state(model, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    check(state == rec["state_alloc_bytes"], f"{arch}: the card allocated "
+          f"{state} bytes of state, the trace counts "
+          f"{rec['state_alloc_bytes']}")
+    shape = registry.get(arch).shapes["train_4k"]
+    batches = [tuple(torch.as_tensor(t, device="cuda") for t in batch_at_step(
+        TokenStreamConfig(model.cfg.vocab, shape.seq_len, shape.global_batch,
+                          seed=LM_DATA_SEED), i))
+        for i in range(1 + MESH_WARM_STEPS)]
+    del cell
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    with FilledCollectives():
+        for i, (tok, lab) in enumerate(batches):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            met = steps.lm_train_step(
+                model, adamw.AdamWConfig(), opt, tok, lab, sctx=sctx)
+            end.record()
+            torch.cuda.synchronize()
+            losses.append(float(met["loss"]))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+                launches = launch_counts()
+            else:
+                ms.append(start.elapsed_time(end))
+    check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    check(launches["fwd"] > 0 and launches["dq"] > 0 and launches["dkv"] > 0
+          and launches["fwd_simt"] == 0 and launches["dq_simt"] == 0
+          and launches["dkv_simt"] == 0,
+          f"{arch}: the step's flash launches {launches}")
+    roof = rec["roofline"]
+    line = {"phase": "launch_mesh", "arch": arch, "shape": "train_4k",
+            "mesh": "16x16", "rank": 0, "ranks": 256,
+            "n_layers": model.cfg.n_layers, "overrides": overrides,
+            "heads_a_rank": model.cfg.n_heads // 16,
+            "state_bytes": state,
+            "trace_state_alloc_bytes": rec["state_alloc_bytes"],
+            "peak_bytes": peak, "trace_peak_bytes": rec["peak_bytes"],
+            "warm_ms": ms,
+            "bound_ms": 1e3 * max(roof["t_compute_s"], roof["t_memory_s"]),
+            "bound_by": "operations" if roof["t_compute_s"]
+            >= roof["t_memory_s"] else "bytes",
+            "collective_term": "absent: the group's collectives move no "
+                               "data (the trace's t_collective_s is "
+                               f"{roof['t_collective_s']})",
+            "trace_flops": rec["flops"], "trace_hbm_bytes": rec["hbm_bytes"],
+            "launches": launches, "losses": losses,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    del model, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def launch_mesh_phase(procs, t_dry):
+    """One device of the 16x16 mesh: (a) the sharded dry-run's records
+    (started on the host earlier); (b) qwen3-4b train_4k at full depth,
+    then mixtral train_4k at full depth if its record fits 80 GB, else
+    the MoE cut that does (MESH_MOE_OVERRIDES at MESH_MOE_LAYERS layers,
+    the deepest the trace fits: one layer more does not), each as rank 0
+    of a 256-rank group whose collectives move no data, on the card.
+    Returns the launches of the two steps."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.dryrun import fake_group
+    from repro_torch.launch.mesh import make_mesh, production_mesh_shape
+    t0 = time.perf_counter()
+    # what earlier phases left in reference cycles (launch_moe's patched
+    # model) goes before the rank takes the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    recs, moe_cut = mesh_dryrun_finish(procs, t_dry)
+    full = recs[(MESH_MOE_ARCH, "train_4k", "16x16")]
+    if full["fits_h100_80gb"]:
+        moe_overrides, moe_rec = None, full
+    else:
+        check(moe_cut[MESH_MOE_LAYERS]["fits_h100_80gb"]
+              and not moe_cut[MESH_MOE_LAYERS + 1]["fits_h100_80gb"],
+              f"the MoE cut at {MESH_MOE_LAYERS} layers is not the deepest "
+              f"the trace fits: {[(n, r['peak_bytes']) for n, r in moe_cut.items()]}")
+        moe_overrides = {**MESH_MOE_OVERRIDES, "n_layers": MESH_MOE_LAYERS}
+        moe_rec = moe_cut[MESH_MOE_LAYERS]
+    fake_group(256)
+    try:
+        mesh = make_mesh(production_mesh_shape(), "cuda")
+        lines = [mesh_rank_run(mesh, LM_ARCH, None,
+                               recs[(LM_ARCH, "train_4k", "16x16")]),
+                 mesh_rank_run(mesh, MESH_MOE_ARCH, moe_overrides, moe_rec)]
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "launch_mesh_seconds", "seconds": time.perf_counter() - t0,
+          "allocated_before": left,
+          "moe_full_depth_peak_gb": full["peak_bytes"] / 1e9})
+    return {k: sum(line["launches"][k] for line in lines)
+            for k in lines[0]["launches"]}
+
+
 def build_kernels():
     """Build every kernel from its source: one ``nvcc`` each, all started
     together."""
@@ -4822,6 +5126,7 @@ def main() -> int:
           "the training path launched no backward kernel")
     lm_train_vs_xla_phase()
     bwd_row = bwd_rows[0]   # the training path's shape
+    mesh_procs, t_mesh = mesh_dryrun_start()
     t0 = time.perf_counter()
     lm_serve_phase()
     serve_s = time.perf_counter() - t0
@@ -4865,6 +5170,7 @@ def main() -> int:
     launch = launch_phase()
     check(launch["fwd"] > 0 and launch["dq"] > 0 and launch["dkv"] > 0,
           "the sharded step launched no flash kernel")
+    mesh = launch_mesh_phase(mesh_procs, t_mesh)
 
     main_row = rows[0]   # the first cc solve's root-label read
     flash_row = flash_rows[0]   # the first layer's own q, k, v
@@ -4886,18 +5192,20 @@ def main() -> int:
         "source": flash_source("fwd", flash_row["kernel_route"]),
         "replaces": "src/repro/kernels/flash_attention/kernel.py:25",
         "launches": flash_launches + train_launches["fwd"] + moe_fwd
-        + moe_train["fwd"] + launch["fwd"],
+        + moe_train["fwd"] + launch["fwd"] + mesh["fwd"],
         "launches_by_phase": {"lm_forward": flash_launches,
                               "lm_train": train_launches["fwd"],
                               "moe_forward": moe_fwd,
                               "moe_train": moe_train["fwd"],
-                              "launch_sharded": launch["fwd"]},
+                              "launch_sharded": launch["fwd"],
+                              "launch_mesh": mesh["fwd"]},
         "launches_by_route": {"wgmma": flash_launches + moe_fwd
                               + train_launches["fwd_wgmma"]
                               + moe_train["fwd_wgmma"]
-                              + launch["fwd_wgmma"],
+                              + launch["fwd_wgmma"] + mesh["fwd_wgmma"],
                               "simt": train_launches["fwd_simt"]
-                              + moe_train["fwd_simt"] + launch["fwd_simt"]},
+                              + moe_train["fwd_simt"] + launch["fwd_simt"]
+                              + mesh["fwd_simt"]},
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "max_err_over_limit": max(
             [r["err_over_limit"] for r in flash_rows]
@@ -4915,13 +5223,15 @@ def main() -> int:
         "source": flash_source("bwd", bwd_row["kernel_route"]),
         "replaces": f"src/repro/kernels/flash_attention/bwd.py:{line}",
         "launches": train_launches[kname] + moe_train[kname]
-        + launch[kname],
+        + launch[kname] + mesh[kname],
         "launches_by_phase": {"lm_train": train_launches[kname],
                               "moe_train": moe_train[kname],
-                              "launch_sharded": launch[kname]},
+                              "launch_sharded": launch[kname],
+                              "launch_mesh": mesh[kname]},
         "launches_by_route": {r: train_launches[f"{kname}_{r}"]
                               + moe_train[f"{kname}_{r}"]
                               + launch[f"{kname}_{r}"]
+                              + mesh[f"{kname}_{r}"]
                               for r in ("wgmma", "simt")},
         "max_abs_err": max(r[f"{g}_max_abs_err"] for r in bwd_rows
                            for g in grads),

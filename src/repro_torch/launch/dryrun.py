@@ -1,14 +1,14 @@
 """Dry-run of every (arch x shape) cell on the ``meta`` device: no card, no
-storage.  The counterpart of the JAX package's ``launch/dryrun.py`` and of
-``launch/hlo.py``'s ``roofline_terms``.
+storage.  The counterpart of the JAX package's ``launch/dryrun.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
-        --shape train_4k
+        --shape train_4k [--mesh one|single|multi|both] \\
+        [--overrides '{"n_layers": 2}']
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
-        --out dryrun.jsonl [--jobs 4]
+        --out dryrun.jsonl [--jobs 4] [--mesh both]
 
-For each cell the step of ``specs.build_cell`` runs once on ``meta``, the
-whole cell on one card, recording:
+``--mesh one`` (the default): the step of ``specs.build_cell`` runs once
+on ``meta``, the whole cell on one card, recording:
   * parameter, gradient and optimizer bytes, and each tensor rounded up to
     the CUDA caching allocator's 512-byte blocks (``state_alloc_bytes``,
     what ``torch.cuda.memory_allocated`` shows once the model and the
@@ -27,11 +27,29 @@ whole cell on one card, recording:
   * a roofline at the H100's published peaks: 989e12 bf16 FLOP/s (the
     LMs) or 67e12 f32 FLOP/s (the GNNs, SASRec), 3.35e12 B/s.
 
+``--mesh single`` (16x16, 256 chips), ``multi`` (2x16x16, 512) or
+``both``: the LM cell as ONE DEVICE of that mesh, the reference's
+records.  The cell is built on a ``DeviceMesh`` over a process group of
+256 or 512 ranks whose collectives move no data (the "fake" backend),
+this process rank 0; the state is placed once by ``steps.place_lm`` (and
+a decode cell's cache by its placements) and the step runs under
+``ShardCtx(mesh, data_axes(mesh))`` inside ``collectives.LocalCounter``,
+which records rank 0's own work: its state bytes, its peak live bytes and
+whether they fit 80 GB, its FLOPs (plus the kernels' ``meta_flops`` on
+its local shards), its HBM bytes, its collectives (ops by kind, wire and
+payload bytes, the top sites, the link and rate each group took) and a
+roofline with a collective term.  The placements divide evenly or fall
+back to replicated, so every rank runs the same program.  A fake group is
+process-wide: each (cell, mesh) runs in a process of its own under
+``--jobs``, and :func:`run_cell` starts and ends the group around one
+record.  A decode cell runs as the port runs it under a context: every
+rank gathers the parameters and the cache (its ``notes`` say so).  The
+GNN and SASRec cells are ``skipped`` on a mesh: their steps take no
+``ShardCtx``.
+
 A cell that fails writes an ``error`` record; the command exits 1 if any
-cell that is not skipped errs.  The reference's HLO parser (``hlo.py``'s
-``parse_hlo`` and ``analyze_hlo``, the collective schedule) has no
-counterpart here: the sharded step's collectives are counted by
-``torch.distributed.tensor.debug.CommDebugMode`` in the sharding tests.
+cell that is not skipped errs.  The reference's HLO parser
+(``hlo.parse_hlo``) has no counterpart: there is no HLO.
 """
 from __future__ import annotations
 
@@ -48,11 +66,19 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-# NVIDIA's H100 SXM data sheet: dense peaks, HBM rate and size
+from .collectives import (ALLOC_BLOCK, LINK_BYTES_PER_S, LocalCounter,
+                          roofline_terms)
+
+# NVIDIA's H100 SXM data sheet: dense peaks and HBM size
 H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
-H100_HBM_BYTES_PER_S = 3.35e12
 H100_HBM_BYTES = 80e9
-ALLOC_BLOCK = 512   # the CUDA caching allocator rounds a block up to this
+MESHES = {"one": ("one",), "single": ("16x16",), "multi": ("2x16x16",),
+          "both": ("16x16", "2x16x16")}
+MESH_SKIP = ("their steps take no ShardCtx; sharded trace is ROADMAP "
+             "queue 1")
+DECODE_NOTE = ("decode under a ShardCtx gathers the parameters and the "
+               "cache on every rank (not yet sharded, ROADMAP item 11)")
+TOP_SITES = 12
 
 
 def _leaves(tree):
@@ -107,29 +133,18 @@ def _kernel_counters():
             "attention_xla_chunked": attention_xla_chunked}
 
 
-def roofline_terms(flops: float, hbm_bytes: float, model_flops: float,
-                   peak_flops: float, chips: int = 1) -> dict:
-    """The compute and memory terms in seconds at the H100's peaks (no
-    collective term: one card), the dominant one, and the share of the
-    bound the model's useful FLOPs would take at peak."""
-    t_compute = flops / peak_flops
-    t_memory = hbm_bytes / H100_HBM_BYTES_PER_S
-    bound = max(t_compute, t_memory)
-    ideal = model_flops / chips / peak_flops
-    return {"t_compute_s": t_compute, "t_memory_s": t_memory,
-            "dominant": "compute" if t_compute >= t_memory else "memory",
-            "flops_per_device": flops, "bytes_per_device": hbm_bytes,
-            "peak_flops": peak_flops, "model_flops": model_flops,
-            "useful_flops_fraction": model_flops / max(flops * chips, 1.0),
-            "roofline_fraction": ideal / bound if bound > 0 else 0.0}
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor itself."""
+    return getattr(t, "_local_tensor", t)
 
 
 def _state_bytes(cell) -> dict:
-    """Parameter, gradient and optimizer bytes of a cell's arguments."""
-    params = _leaves(cell.args[0])
+    """Parameter, gradient and optimizer bytes of a cell's arguments (of
+    their local shards, where they are placed)."""
+    params = [_local(p) for p in _leaves(cell.args[0])]
     train = cell.kind in ("train", "gnn_full", "gnn_sampled", "gnn_batched",
                           "rec_train")
-    opt = _leaves(cell.args[1]) if train else []
+    opt = [_local(t) for t in _leaves(cell.args[1])] if train else []
     return {"params": sum(p.numel() for p in params),
             "param_bytes": sum(_nbytes(p) for p in params),
             "grad_bytes": sum(_nbytes(p) for p in params) if train else 0,
@@ -137,10 +152,13 @@ def _state_bytes(cell) -> dict:
             "state_alloc_bytes": sum(_alloc_bytes(t) for t in params + opt)}
 
 
-def _device_bytes(cell) -> int:
-    """The cell's arguments' bytes on one device under their placements."""
+def _device_bytes(cell, argnums=None) -> int:
+    """The cell's arguments' (those of ``argnums``, all by default) bytes
+    on one device under their placements."""
     total = 0
-    for arg, pl in zip(cell.args, cell.placements):
+    for i, (arg, pl) in enumerate(zip(cell.args, cell.placements)):
+        if argnums is not None and i not in argnums:
+            continue
         if isinstance(arg, torch.nn.Module):
             arg = dict(arg.named_parameters())
         if isinstance(arg, torch.Tensor):
@@ -181,9 +199,7 @@ def measure(cell) -> dict:
                if op.meta_flops}
     counted = float(flop_counter.get_total_flops())
     flops = counted + sum(kernels.values())
-    dtype = next(iter(_leaves(cell.args[0]))).dtype
-    peak_flops = H100_FLOPS["bfloat16" if dtype == torch.bfloat16
-                            else "float32"]
+    peak_flops = _peak_flops(cell)
     return {"run_s": seconds, **_state_bytes(cell),
             "peak_bytes": peak, "fits_h100_80gb": peak < H100_HBM_BYTES,
             "flops_counted": counted, "flops_kernels": kernels,
@@ -192,31 +208,163 @@ def measure(cell) -> dict:
                                        cell.model_flops, peak_flops)}
 
 
+def _peak_flops(cell) -> float:
+    dtype = next(iter(_leaves(cell.args[0]))).dtype
+    return H100_FLOPS["bfloat16" if dtype == torch.bfloat16 else "float32"]
+
+
+def fake_group(world: int) -> None:
+    """This process as rank 0 of a ``world``-rank group whose collectives
+    move no data (``torch.distributed``'s "fake" backend)."""
+    import torch.distributed as dist
+    # registers the "fake" backend
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    if dist.is_initialized():
+        raise RuntimeError("a process group is up: a mesh record needs a "
+                           "process of its own")
+    dist.init_process_group("fake", rank=0, world_size=world,
+                            store=dist.HashStore())
+
+
+def _place(cell, mesh):
+    """``cell``'s state placed once on ``mesh`` (a ``DeviceMesh``), and
+    the ``ShardCtx`` its step runs under: the parameters and AdamW's
+    moments by ``steps.place_lm``, a decode cell's cache by its
+    placements.  The batch stays global: each data rank takes its block."""
+    from ..models.transformer import ShardCtx
+    from . import steps
+    from .mesh import data_axes
+    from .sharding import place_tensors
+    dp = data_axes(mesh)
+    sctx = ShardCtx(mesh, dp if len(dp) > 1 else dp[0])
+    steps.place_lm(cell.args[0], cell.args[1] if cell.kind == "train"
+                   else None, sctx)
+    if cell.kind == "decode":
+        cache = place_tensors(cell.args[1], cell.placements[1])
+        cell.args[1].update(cache)
+    return sctx
+
+
+def _groups(stats, mesh) -> dict:
+    """{group: {size, link, bytes_per_s, ops by kind, wire_bytes}} of the
+    groups rank 0's collectives named, each under its mesh dimension's
+    name."""
+    names = {mesh.get_group(d).group_name: d for d in mesh.mesh_dim_names}
+    out = {}
+    for d in stats.details:
+        key = names.get(d["group"], f"{d['group_size']} ranks")
+        g = out.setdefault(key, {"size": d["group_size"], "link": d["link"],
+                                 "bytes_per_s": LINK_BYTES_PER_S[d["link"]],
+                                 "ops": {}, "wire_bytes": 0.0})
+        g["ops"][d["kind"]] = g["ops"].get(d["kind"], 0) + 1
+        g["wire_bytes"] += d["wire_bytes"]
+    return out
+
+
+def measure_mesh(cell, mesh) -> dict:
+    """Place ``cell`` on ``mesh`` and run its step once as rank 0 under
+    ``LocalCounter``: one device's bytes, peak, FLOPs, collectives and
+    roofline."""
+    from .mesh import n_chips
+    sctx = _place(cell, mesh)
+    counters = _kernel_counters()
+    for op in counters.values():
+        op.meta_flops = 0
+    counter = LocalCounter()
+    counter.track(*cell.args)
+    state = _state_bytes(cell)
+    t0 = time.perf_counter()
+    with counter:
+        cell.step(*cell.args, sctx=sctx)
+    seconds = time.perf_counter() - t0
+    kernels = {name: op.meta_flops for name, op in counters.items()
+               if op.meta_flops}
+    a = counter.analysis(sum(kernels.values()))
+    stats = a.collectives
+    chips = n_chips(mesh)
+    return {"trace_s": seconds, "chips": chips, "rank": 0, **state,
+            "peak_bytes": a.peak_bytes,
+            "fits_h100_80gb": a.peak_bytes < H100_HBM_BYTES,
+            "flops_counted": counter.flops, "flops_kernels": kernels,
+            "flops": a.flops, "hbm_bytes": a.hbm_bytes,
+            "model_flops": cell.model_flops,
+            "collectives": {
+                "ops": stats.ops, "wire_bytes": stats.wire_bytes,
+                "payload_bytes": stats.payload_bytes,
+                "wire_bytes_by_link": stats.wire_bytes_by_link,
+                "groups": _groups(stats, mesh),
+                "top_sites": a.top_collective_sites(TOP_SITES)},
+            "top_byte_ops": a.top_byte_ops(TOP_SITES),
+            "roofline": roofline_terms(a.flops, a.hbm_bytes,
+                                       cell.model_flops, _peak_flops(cell),
+                                       chips, collectives=stats)}
+
+
+def _mesh_record(rec: dict, arch: str, shape: str, shape_of,
+                 kw: dict) -> None:
+    """Fill ``rec`` with the cell's record as one device of a mesh of
+    ``shape_of`` (a ``MeshShape``)."""
+    import torch.distributed as dist
+    from ..configs.registry import get
+    from .mesh import make_mesh
+    from .specs import build_cell
+    if get(arch).family != "lm":
+        rec.update(status="skipped", reason=MESH_SKIP)
+        return
+    fake_group(math.prod(shape_of.sizes))
+    try:
+        mesh = make_mesh(shape_of, "cpu")
+        cell = build_cell(arch, shape, mesh, **kw)
+        notes = [n for n in (cell.notes,) if n]
+        if cell.kind == "decode":
+            notes.append(DECODE_NOTE)
+        rec.update(status="ok", kind=cell.kind, notes="; ".join(notes),
+                   **measure_mesh(cell, mesh))
+        del cell
+        # the same placements reckoned from the mesh's shape alone
+        cell = build_cell(arch, shape, shape_of, **kw)
+        rec["placement_bytes"] = {
+            "param_bytes": _device_bytes(cell, (0,)),
+            "opt_bytes": (_device_bytes(cell, (1,)) if cell.kind == "train"
+                          else 0)}
+    finally:
+        dist.destroy_process_group()
+
+
 def run_cell(arch: str, shape: str, skip_reason: Optional[str] = None, *,
              overrides: Optional[dict] = None,
-             shape_overrides: Optional[dict] = None) -> dict:
-    """One cell's record: ``status`` "ok", "skipped" (with the registry's
-    ``reason``) or "error" (with the exception and its traceback)."""
+             shape_overrides: Optional[dict] = None,
+             mesh="one") -> dict:
+    """One cell's record on one card (``mesh`` "one") or as one device of
+    the "16x16" or "2x16x16" mesh (or of any ``MeshShape`` of axes
+    ("data", "model") or ("pod", "data", "model")): ``status`` "ok",
+    "skipped" (with the registry's ``reason``, or ``MESH_SKIP``) or
+    "error" (with the exception and its traceback)."""
     from .mesh import MeshShape, production_mesh_shape
     from .specs import build_cell
     rec = {"arch": arch, "shape": shape, "device": "meta",
-           "mesh": "1 (one H100)"}
+           "mesh": "1 (one H100)" if mesh == "one" else str(mesh)}
     if skip_reason:
         rec.update(status="skipped", reason=skip_reason)
         return rec
     t0 = time.perf_counter()
+    kw = dict(overrides=overrides, shape_overrides=shape_overrides)
     try:
-        kw = dict(overrides=overrides, shape_overrides=shape_overrides)
-        cell = build_cell(arch, shape, MeshShape((1, 1), ("data", "model")),
-                          **kw)
-        rec.update(status="ok", kind=cell.kind, notes=cell.notes,
-                   **measure(cell))
-        del cell
-        rec["device_bytes"] = {}
-        for multi in (False, True):
-            mesh = production_mesh_shape(multi_pod=multi)
-            rec["device_bytes"][str(mesh)] = _device_bytes(
-                build_cell(arch, shape, mesh, **kw))
+        if mesh == "one":
+            cell = build_cell(arch, shape,
+                              MeshShape((1, 1), ("data", "model")), **kw)
+            rec.update(status="ok", kind=cell.kind, notes=cell.notes,
+                       **measure(cell))
+            del cell
+            rec["device_bytes"] = {}
+            for multi in (False, True):
+                placed = production_mesh_shape(multi_pod=multi)
+                rec["device_bytes"][str(placed)] = _device_bytes(
+                    build_cell(arch, shape, placed, **kw))
+        else:
+            if not isinstance(mesh, MeshShape):
+                mesh = production_mesh_shape(multi_pod=mesh == "2x16x16")
+            _mesh_record(rec, arch, shape, mesh, kw)
     except Exception as e:  # noqa: BLE001 - record the failure verbatim
         rec.update(status="error", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])
@@ -225,10 +373,21 @@ def run_cell(arch: str, shape: str, skip_reason: Optional[str] = None, *,
 
 
 def summary(rec: dict) -> str:
-    """One line a cell."""
+    """One line a record."""
     if rec["status"] != "ok":
         return json.dumps({k: v for k, v in rec.items() if k != "traceback"})
     gb = 1e9
+    if "chips" in rec:
+        state = rec["param_bytes"] + rec["grad_bytes"] + rec["opt_bytes"]
+        return (f"OK {rec['arch']} {rec['shape']} {rec['mesh']} "
+                f"state={state / gb:.3f}GB "
+                f"peak={rec['peak_bytes'] / gb:.2f}GB "
+                f"fits_h100_80gb={rec['fits_h100_80gb']} "
+                f"tflops={rec['flops'] / 1e12:.2f} "
+                f"wire={rec['collectives']['wire_bytes'] / gb:.2f}GB "
+                f"dom={rec['roofline']['dominant']} "
+                f"roofline={rec['roofline']['roofline_fraction']:.3f} "
+                f"{rec['seconds']:.1f}s")
     state = rec["param_bytes"] + rec["grad_bytes"] + rec["opt_bytes"]
     return (f"OK {rec['arch']} {rec['shape']} params={rec['params']} "
             f"state={state / gb:.2f}GB "
@@ -241,8 +400,9 @@ def summary(rec: dict) -> str:
             f"{rec['seconds']:.1f}s")
 
 
-def _run_one(cell) -> dict:
-    return run_cell(*cell)
+def _run_one(task) -> dict:
+    arch, shape, skip, mesh, overrides = task
+    return run_cell(arch, shape, skip, mesh=mesh, overrides=overrides)
 
 
 def cells_of(args) -> list:
@@ -264,17 +424,27 @@ def main(argv=None) -> int:
                     help="the dry-run builds every cell on meta: no card")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells run at once, each in its own process")
+    ap.add_argument("--mesh", default="one", choices=list(MESHES),
+                    help="one card (one), or one device of 16x16 (single), "
+                         "2x16x16 (multi) or both")
+    ap.add_argument("--overrides", type=json.loads, default=None,
+                    help='an LM config\'s fields as JSON, e.g. '
+                         '\'{"n_layers": 2}\'')
     args = ap.parse_args(argv)
     if not args.all and not args.arch:
         ap.error("give --all or --arch")
-    cells = cells_of(args)
+    meshes = MESHES[args.mesh]
+    tasks = [(a, s, skip, m, args.overrides) for a, s, skip in cells_of(args)
+             for m in meshes]
     if args.jobs > 1:
         import multiprocessing
         ctx = multiprocessing.get_context("spawn")
-        with ctx.Pool(args.jobs) as pool:
-            records = pool.map(_run_one, cells, chunksize=1)
+        # a fake group is process-wide: one mesh record a child
+        per_child = None if meshes == ("one",) else 1
+        with ctx.Pool(args.jobs, maxtasksperchild=per_child) as pool:
+            records = pool.map(_run_one, tasks, chunksize=1)
     else:
-        records = map(_run_one, cells)
+        records = map(_run_one, tasks)
     out_f = open(args.out, "a") if args.out else None
     failed = 0
     try:

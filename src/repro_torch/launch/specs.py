@@ -71,8 +71,8 @@ def _opt_cfg() -> adamw.AdamWConfig:
 def _with_opt(step, opt_cfg):
     """``step(model, *args)`` for a training step that takes the AdamW
     config second."""
-    def run(model, *args):
-        return step(model, opt_cfg, *args)
+    def run(model, *args, **kwargs):
+        return step(model, opt_cfg, *args, **kwargs)
     return run
 
 

@@ -335,10 +335,13 @@ def attn_qkv(params, x: torch.Tensor, spec: AttnParamsSpec,
     return q, k, v
 
 
-def attn_project(params, x: torch.Tensor, spec: AttnParamsSpec):
+def attn_project(params, x: torch.Tensor, spec: AttnParamsSpec,
+                 heads_cs=None):
     """q (B, S, H, hd), k and v (B, S, Hkv, hd) before RoPE: the
     projections, their biases and the qk-norm.  Every op has a DTensor
-    rule, so a sharded layer runs it on DTensors."""
+    rule, so a sharded layer runs it on DTensors; ``heads_cs(t, heads)``
+    (a sharding context's constraint) places each (B, S, heads·hd)
+    projection before it splits into heads, identity when None."""
     B, S, _ = x.shape
     H, Hkv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
     q = x @ params["wq"].to(x.dtype)
@@ -348,6 +351,8 @@ def attn_project(params, x: torch.Tensor, spec: AttnParamsSpec):
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
+    if heads_cs is not None:
+        q, k, v = heads_cs(q, H), heads_cs(k, Hkv), heads_cs(v, Hkv)
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)

@@ -524,7 +524,15 @@ class TransformerLM(nn.Module):
             out, aux = self._ffn(layer, rms_norm(x, layer.ln2))
             return x + out, aux, k, v
         dp, mdl = sctx.dp, sctx.model
-        q, k, v = attn_project(layer.attn, h, self.cfg.attn_spec)
+
+        def heads_cs(t, heads):
+            # a projection whose heads do not split over the model axis
+            # is gathered whole on it before it splits into heads
+            if heads % mesh_axes(sctx.mesh)[mdl]:
+                return sctx.cs(t, dp, None, None)
+            return t
+
+        q, k, v = attn_project(layer.attn, h, self.cfg.attn_spec, heads_cs)
         q = self._rope(sctx, sctx.cs(q, dp, None, mdl, None))
         k = self._rope(sctx, sctx.cs(k, dp, None, mdl, None))
         v = sctx.cs(v, dp, None, mdl, None)
@@ -757,26 +765,88 @@ class _NextTokenNLL(torch.autograd.Function):
         return grad.reshape(logits.shape), None
 
 
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    f = torch.ops._c10d_functional
+    return f.wait_tensor(f.all_reduce(t, op, group.group_name))
+
+
+class _VocabShardNLL(torch.autograd.Function):
+    """:class:`_NextTokenNLL` of logits whose vocabulary is split over a
+    group (this rank's slice starting at ``v0``), as GSPMD computes the
+    reference's ``logsumexp`` and ``take_along_axis`` on vocab-split
+    logits: the row maxima, the sums of exponentials and the gold logits
+    are each all-reduced over the group, and each rank's gradient is its
+    own slice of (softmax - onehot) / N.  The whole vocabulary is never
+    gathered."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, group, v0):
+        Vl = logits.shape[-1]
+        flat, lab = logits.reshape(-1, Vl), labels.reshape(-1) - v0
+        mine = (lab >= 0) & (lab < Vl)
+        idx = torch.where(mine, lab, 0)[:, None]
+        rows = max(1, LOSS_CHUNK_ELEMENTS // Vl)
+        top = torch.empty(flat.shape[0], dtype=torch.float32,
+                          device=logits.device)
+        for r in range(0, flat.shape[0], rows):
+            top[r:r + rows] = flat[r:r + rows].float().amax(-1)
+        top = _all_reduce(top, "max", group)
+        sums, gold = torch.empty_like(top), torch.empty_like(top)
+        for r in range(0, flat.shape[0], rows):
+            x = flat[r:r + rows].float()
+            sums[r:r + rows] = torch.exp(x - top[r:r + rows, None]).sum(-1)
+            gold[r:r + rows] = torch.gather(x, -1, idx[r:r + rows])[:, 0]
+        gold = _all_reduce(torch.where(mine, gold, 0.0), "sum", group)
+        logz = top + torch.log(_all_reduce(sums, "sum", group))
+        ctx.save_for_backward(logits, idx, mine, logz)
+        return (logz - gold).mean()
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, idx, mine, logz = ctx.saved_tensors
+        Vl = logits.shape[-1]
+        flat = logits.reshape(-1, Vl)
+        rows = max(1, LOSS_CHUNK_ELEMENTS // Vl)
+        scale = g / flat.shape[0]
+        grad = torch.empty_like(flat)
+        for r in range(0, flat.shape[0], rows):
+            p = torch.exp(flat[r:r + rows].float() - logz[r:r + rows, None])
+            p.scatter_add_(-1, idx[r:r + rows],
+                           -mine[r:r + rows, None].float())
+            grad[r:r + rows] = p.mul_(scale)
+        return grad.reshape(logits.shape), None, None, None
+
+
 def lm_loss(logits: torch.Tensor, aux: torch.Tensor, labels,
             aux_weight: float = 0.01, sctx: Optional[ShardCtx] = None):
     """The reference ``loss_fn``'s loss from ``forward``'s outputs: mean
-    next-token NLL in f32, plus ``aux_weight * aux``.  Under ``sctx`` the
-    logits are gathered over the vocabulary, each rank takes the NLL of
-    its rows, weighted by its share of the batch, and the sum over the
-    data axes is replicated: the loss and its parts are replicated
-    DTensors."""
+    next-token NLL in f32, plus ``aux_weight * aux``.  Under ``sctx`` each
+    rank takes the NLL of its rows, weighted by its share of the batch,
+    and the sum over the data axes is replicated: the loss and its parts
+    are replicated DTensors.  Logits whose vocabulary splits over more
+    than one rank of the model axis stay split (:class:`_VocabShardNLL`);
+    others are gathered over the vocabulary first."""
     labels = torch.as_tensor(labels, device=logits.device).long()
     if sctx is None:
         nll = _NextTokenNLL.apply(logits, labels)
         return nll + aux_weight * aux, {"nll": nll, "aux": aux}
     labels = sctx.batch(labels)
-    logits = sctx.cs(logits, sctx.dp, None, None)
-    pl, B = tuple(logits.placements), logits.shape[0]
+    B, V = logits.shape[0], logits.shape[-1]
+    m = list(mesh_axes(sctx.mesh)).index(sctx.model)
+    split = sctx.mesh.size(m) > 1 and logits.placements[m].is_shard(2)
+    if split:
+        group = sctx.mesh.get_group(sctx.model)
+        v0 = sctx.mesh.get_local_rank(sctx.model) * (V // sctx.mesh.size(m))
+    else:
+        logits = sctx.cs(logits, sctx.dp, None, None)
+    pl, lpl = tuple(logits.placements), tuple(labels.placements)
 
     def fn(lg, lb):
-        return _NextTokenNLL.apply(lg, lb) * (lg.shape[0] / B)
+        nll = (_VocabShardNLL.apply(lg, lb, group, v0) if split
+               else _NextTokenNLL.apply(lg, lb))
+        return nll * (lg.shape[0] / B)
 
-    nll = sctx.local(fn, [sctx.grad_placements(pl)], [pl, pl])(logits,
-                                                               labels)
+    nll = sctx.local(fn, [sctx.grad_placements(lpl)], [pl, lpl])(logits,
+                                                                  labels)
     nll = sctx.replicate(nll)
     return nll + aux_weight * aux, {"nll": nll, "aux": aux}

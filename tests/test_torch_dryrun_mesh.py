@@ -1,0 +1,461 @@
+"""The sharded dry-run: one device of a mesh traced as rank 0 of a process
+group whose collectives move no data (``launch/collectives.py``, the
+counterpart of the JAX package's ``launch/hlo.py``, and the mesh half of
+``launch/dryrun.py``).
+
+  (a) ``collective_wire`` and ``roofline_terms`` equal the reference's
+      ``hlo._collective_wire`` and ``hlo.roofline_terms``, given the
+      reference's TPU rates;
+  (b) ``LocalCounter`` over a 4-rank fake group on ``meta`` records what it
+      records in every rank of a real 4-process ``gloo`` run of the same
+      step: the same collectives (kind, group size, result bytes, in
+      order) and the same FLOPs and bytes; rank 0's and rank 3's traces
+      are equal.  The smoke configs run in f32 with the plain attention
+      (``attention_impl="xla"``, masked below 2048 positions) on both
+      sides: the flash op's ``meta`` branch counts its FLOPs by formula
+      where its CPU version runs matmuls the counter sees, so with it the
+      two op streams would differ by construction;
+  (c) against the reference's ``analyze_hlo`` of the same cell compiled
+      for a (2, 2) mesh of host devices: per-device FLOPs;
+  (d) at a (1, 1) mesh the trace's FLOPs are the one-card ``measure``'s;
+      at 16x16 the state bytes are ``_device_bytes``'s;
+  (e) ``run_cell`` at 16x16 and 2x16x16 and the ``--mesh`` CLI;
+  and ``FilledCollectives`` writes every collective's output.
+
+A fake group is process-wide, so every trace runs in a spawned process of
+its own; the ``gloo`` ranks are spawned with a join timeout.
+"""
+import dataclasses
+import json
+import multiprocessing
+import os
+import re
+import socket
+import subprocess
+import sys
+import textwrap
+import time
+from concurrent.futures import ProcessPoolExecutor
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.launch import collectives as col
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import MeshShape
+
+JOIN_TIMEOUT_S = 300
+BATCH = (4, 16)
+AXES = ("data", "model")
+# (mesh sizes, arch) of (b)
+RUNS = [(sizes, arch) for arch in ("qwen3-4b", "mixtral-8x22b")
+        for sizes in ((2, 2), (1, 4), (4, 1))]
+# (c): the port's per-device FLOPs outside attention against the
+# reference's.  Prefill computes the same products on both sides (equal to
+# REL_PREFILL).  In training the port's DTensor plan gathers the weight of
+# two backward products over the model axis (the gradients through the
+# SwiGLU down projection and the attention output projection), each rank
+# computing them whole, where GSPMD keeps them split: the port counts some
+# 5% more (REL_TRAIN).
+REL_PREFILL, REL_TRAIN = 1e-6, 0.06
+
+
+# ------------------------------------------------------------- (a) formulas
+@pytest.mark.parametrize("p", [2, 4, 16, 256, 512])
+@pytest.mark.parametrize("kind", ["all-gather", "all-reduce",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute"])
+def test_collective_wire_equals_the_reference(kind, p):
+    from repro.launch import hlo
+    for nbytes in (0, 1, 4096, 12_345_678_912):
+        assert col.collective_wire(kind, nbytes, p) \
+            == hlo._collective_wire(kind, nbytes, p)
+
+
+@pytest.mark.parametrize("flops,hbm,wire", [
+    (4e15, 1e12, 1e10), (1e12, 5e12, 1e10), (1e12, 1e11, 5e12),
+    (0.0, 0.0, 0.0)], ids=["compute", "memory", "collective", "zero"])
+def test_roofline_terms_equal_the_reference(flops, hbm, wire):
+    """Given the reference's TPU rates (one link rate for every group) and
+    the same FLOPs, bytes and wire bytes, every term and ratio is the
+    reference's; the port names the FLOPs and bytes ``flops_per_device``
+    and ``bytes_per_device`` and has no ``unknown_trip_whiles``."""
+    from repro.launch import hlo
+    ops = {"all-gather": 3, "all-reduce": 2}
+    ref = hlo.roofline_terms(hlo.HloAnalysis(
+        flops, hbm, hlo.CollectiveStats(dict(ops), wire, wire / 2)), 256,
+        6.0e15)
+    got = col.roofline_terms(
+        flops, hbm, 6.0e15, hlo.PEAK_FLOPS, 256,
+        collectives=col.CollectiveStats(dict(ops), wire, wire / 2,
+                                        wire_bytes_by_link={"nic": wire}),
+        hbm_bytes_per_s=hlo.HBM_BW,
+        link_bytes_per_s={"nvlink": hlo.ICI_BW, "nic": hlo.ICI_BW})
+    names = {"hlo_flops_per_device": "flops_per_device",
+             "hlo_bytes_per_device": "bytes_per_device"}
+    for key, want in ref.items():
+        if key == "unknown_trip_whiles":
+            continue
+        assert got[names.get(key, key)] == want, key
+
+
+def test_one_card_roofline_has_no_collective_term():
+    got = col.roofline_terms(2e15, 1e12, 1e12, 989e12)
+    assert got["t_collective_s"] == 0.0
+    assert got["coll_wire_bytes_per_device"] == 0.0
+    assert got["collective_ops"] == {}
+    assert got["dominant"] == "compute"
+
+
+def test_links_follow_nodes_of_eight_ranks():
+    assert col.link_of(range(8)) == "nvlink"
+    assert col.link_of([8, 9, 15]) == "nvlink"
+    assert col.link_of([0, 8]) == "nic"
+    assert col.link_of(range(0, 256, 16)) == "nic"
+    assert col.link_of(range(16, 32)) == "nic"
+
+
+# ------------------------------------------- (b) the trace and a real run
+def _cfg(arch):
+    from repro_torch.configs import registry
+    return dataclasses.replace(registry.get(arch).smoke_config,
+                               dtype=torch.float32, attention_impl="xla")
+
+
+def _trace(sizes, arch, device, sites=False, **cfg_fields):
+    """One train step of ``arch``'s smoke config on ``sizes`` under
+    ``LocalCounter``: (collectives as (kind, group size, bytes), flops,
+    hbm bytes), or with ``sites`` their sites."""
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw
+    mesh = lmesh.make_mesh(MeshShape(sizes, AXES), "cpu")
+    cfg = dataclasses.replace(_cfg(arch), **cfg_fields)
+    model = tr.TransformerLM(cfg, device=device)
+    opt = adamw.init_state(model)
+    sctx = tr.ShardCtx(mesh, "data")
+    steps.place_lm(model, opt, sctx)
+    rng = np.random.default_rng(0)
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab, BATCH)
+                                       .astype(np.int32)).to(device)
+                      for _ in range(2))
+    counter = col.LocalCounter()
+    counter.track(model, opt)
+    with counter:
+        steps.lm_train_step(model, adamw.AdamWConfig(), opt, tokens, labels,
+                            sctx=sctx)
+    if sites:
+        return sorted({d["site"] for d in counter.details})
+    return ([(d["kind"], d["group_size"], d["bytes"])
+             for d in counter.details], counter.flops, counter.hbm_bytes)
+
+
+def _fake_side():
+    """(b)'s traces on ``meta``, then the FilledCollectives check, over
+    one 4-rank fake group."""
+    dryrun.fake_group(4)
+    traces = {f"{s}-{a}": _trace(s, a, "meta") for s, a in RUNS}
+    traces["sites"] = _trace((2, 2), "mixtral-8x22b", "meta", sites=True,
+                             n_microbatches=2, remat="dots")
+    return json.loads(json.dumps(traces)), _filled_run()
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _gloo_worker(rank, world, port, out_dir):
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    dist.init_process_group("gloo", rank=rank, world_size=world)
+    try:
+        traces = {f"{s}-{a}": _trace(s, a, "cpu") for s, a in RUNS}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"gloo-{rank}.json"), "w") as f:
+        json.dump(traces, f)
+
+
+def _spawn_gloo(out_dir, world=4):
+    ctx = mp.start_processes(_gloo_worker, args=(world, _free_port(),
+                                                 out_dir),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            pytest.fail(f"the gloo ranks hung past {JOIN_TIMEOUT_S} s")
+    return [json.load(open(os.path.join(out_dir, f"gloo-{r}.json")))
+            for r in range(world)]
+
+
+@pytest.mark.parametrize("run", RUNS, ids=lambda r: f"{r[0][0]}x{r[0][1]}-"
+                         f"{r[1]}")
+def test_fake_group_trace_equals_a_real_gloo_run(work, run):
+    fake, gloo = work["fake"], work["gloo"]
+    key = f"{run[0]}-{run[1]}"
+    got, want = fake[key], gloo[0][key]
+    assert got[0], "no collective recorded"
+    assert got[0] == want[0]
+    assert got[1] == want[1] and got[2] == want[2]
+    assert gloo[3][key] == gloo[0][key], "rank 3's trace differs from 0's"
+    sizes = run[0]
+    assert {g for _, g, _ in got[0]} <= {sizes[0], sizes[1], 4}
+
+
+def test_sites_follow_microbatches_and_recomputation(work):
+    """A step of two microbatches with the "dots" recomputation: each
+    collective's site names the model's module, " (bw)" in the backward,
+    and the function of the port or the autograd node behind it."""
+    sites = work["fake"]["sites"]
+    assert any(s.startswith("TransformerLM:TransformerLM._sharded_moe")
+               for s in sites), sites
+    assert any(s.startswith("TransformerLM (bw):") and "/" in s
+               for s in sites), sites
+    assert any(s.startswith("Global:") for s in sites), sites
+
+
+# --------------------------------------------------- (c) against the reference
+# the reference's cell compiled for a (2, 2) mesh of 4 host devices and
+# ``analyze_hlo``d; its attention products (the only dots with batch
+# dimensions) counted apart: the same text analysed with them made
+# custom calls
+REFERENCE_SCRIPT = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import json, re, sys
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+    from repro.launch.hlo import analyze_hlo
+    from repro.launch.specs import build_lowerable
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    batched = re.compile(r"(=\\s*\\S+\\s+)dot(\\(.*lhs_batch_dims=\\{\\d)")
+    out = {}
+    for shape in sys.argv[1:]:
+        low = build_lowerable("qwen3-4b", shape, mesh,
+                              overrides={"n_layers": 2})
+        text = low.lower(mesh).compile().as_text()
+        a = analyze_hlo(text)
+        b = analyze_hlo(batched.sub(r"\\1custom-call\\2", text))
+        out[shape] = {"flops": a.flops, "attention": a.flops - b.flops,
+                      "ops": a.collectives.ops,
+                      "wire": a.collectives.wire_bytes}
+    print(json.dumps(out))
+""")
+REF_SHAPES = ("train_4k", "prefill_32k")
+
+
+def _port_records(cells):
+    """The records of ``cells`` in turn, in this process."""
+    return {key: dryrun.run_cell(arch, shape, mesh=mesh, overrides=ov)
+            for key, (arch, shape, mesh, ov) in cells.items()}
+
+
+TWO = {"n_layers": 2}
+# the port's records of (c), (d) and (e), in two processes of about the
+# same work
+RECORD_GROUPS = (
+    {("ref", "train_4k"): ("qwen3-4b", "train_4k", MeshShape((2, 2), AXES),
+                           TWO),
+     ("2x16x16",): ("qwen3-4b", "train_4k", "2x16x16", TWO),
+     ("one-mesh",): ("qwen3-4b", "train_4k", MeshShape((1, 1), AXES), TWO),
+     ("one",): ("qwen3-4b", "train_4k", "one", TWO)},
+    {("ref", "prefill_32k"): ("qwen3-4b", "prefill_32k",
+                              MeshShape((2, 2), AXES), TWO),
+     **{("16x16", a, s): (a, s, "16x16", TWO)
+        for a in ("qwen3-4b", "mixtral-8x22b")
+        for s in ("train_4k", "prefill_32k")}})
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    """Everything the process tests read, started together: the
+    reference's analysis of (c) in a subprocess, the fake side of (b) and
+    the port's records in spawned processes, the gloo world of (b)."""
+    out = str(tmp_path_factory.mktemp("dryrun_mesh"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in [env.get("PYTHONPATH")] if p])
+    ref = subprocess.Popen([sys.executable, "-c", REFERENCE_SCRIPT,
+                            *REF_SHAPES], env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        with ProcessPoolExecutor(1 + len(RECORD_GROUPS), mp_context=(
+                multiprocessing.get_context("spawn")),
+                max_tasks_per_child=1) as pool:
+            fake = pool.submit(_fake_side)
+            groups = [pool.submit(_port_records, g) for g in RECORD_GROUPS]
+            got = {"gloo": _spawn_gloo(out)}
+            got["fake"], got["filled"] = fake.result(timeout=JOIN_TIMEOUT_S)
+            for g in groups:
+                got.update(g.result(timeout=JOIN_TIMEOUT_S))
+        stdout, stderr = ref.communicate(timeout=JOIN_TIMEOUT_S)
+    finally:
+        if ref.poll() is None:
+            ref.kill()
+            ref.communicate()
+    assert ref.returncode == 0, stderr[-3000:]
+    for group in RECORD_GROUPS:
+        for k in group:
+            assert got[k]["status"] == "ok", (k, got[k].get("traceback"))
+    got["reference"] = json.loads(stdout.strip().splitlines()[-1])
+    return got
+
+
+@pytest.mark.parametrize("shape", REF_SHAPES)
+def test_per_device_flops_agree_with_the_reference(work, shape):
+    """Outside attention the per-device FLOPs agree within ``REL_PREFILL``
+    or ``REL_TRAIN``.  Attention is set apart on each side: the port's
+    flash kernels (training) and chunked attention (prefill) count their
+    FLOPs by formula (``flops_kernels``), the reference's XLA attention is
+    its batched dots.  Prefill runs the same chunked attention on both
+    sides, so there the whole counts agree too; in training the flash
+    kernels compute the causal pairs, XLA all of them.  Both sides'
+    collectives are printed: XLA and DTensor choose different ones."""
+    ref, port = work["reference"][shape], work[("ref", shape)]
+    attention = sum(port["flops_kernels"].values())
+    port_rest = port["flops"] - attention
+    ref_rest = ref["flops"] - ref["attention"]
+    print(json.dumps({
+        "shape": shape, "port_flops": port["flops"],
+        "port_attention": attention, "ref_flops": ref["flops"],
+        "ref_attention": ref["attention"], "rest_ratio": port_rest / ref_rest,
+        "port_collectives": port["collectives"]["ops"],
+        "port_wire": port["collectives"]["wire_bytes"],
+        "ref_collectives": ref["ops"], "ref_wire": ref["wire"],
+        "wire_ratio": port["collectives"]["wire_bytes"] / ref["wire"]}))
+    rel = REL_PREFILL if shape == "prefill_32k" else REL_TRAIN
+    assert abs(port_rest - ref_rest) <= rel * ref_rest
+    if shape == "prefill_32k":
+        assert abs(port["flops"] - ref["flops"]) <= rel * ref["flops"]
+        assert attention == ref["attention"]
+
+
+# ---------------------------------------------------------- (d) consistency
+def test_one_device_mesh_counts_the_one_card_flops(work):
+    mesh, one = work[("one-mesh",)], work[("one",)]
+    assert mesh["flops"] == one["flops"]
+    assert mesh["flops_kernels"] == one["flops_kernels"]
+    assert mesh["state_alloc_bytes"] == one["state_alloc_bytes"]
+    assert mesh["collectives"]["ops"] == {}
+    assert mesh["roofline"]["t_collective_s"] == 0.0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "mixtral-8x22b"])
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
+def test_state_bytes_equal_the_placements_count(work, arch, shape):
+    """The traced rank's parameter and AdamW bytes (its local shards) are
+    ``_device_bytes`` of the same placements reckoned from the mesh's
+    shape alone."""
+    rec = work[("16x16", arch, shape)]
+    assert rec["param_bytes"] == rec["placement_bytes"]["param_bytes"] > 0
+    assert rec["opt_bytes"] == rec["placement_bytes"]["opt_bytes"]
+    assert (rec["opt_bytes"] > 0) == (shape == "train_4k")
+    assert rec["chips"] == 256 and rec["rank"] == 0
+
+
+# ----------------------------------------------------- (e) production meshes
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+def test_production_meshes_trace_ok(work, mesh):
+    rec = (work[("16x16", "qwen3-4b", "train_4k")] if mesh == "16x16"
+           else work[("2x16x16",)])
+    assert rec["mesh"] == mesh
+    assert rec["chips"] == (256 if mesh == "16x16" else 512)
+    groups = rec["collectives"]["groups"]
+    assert groups["data"]["ops"].get("all-gather", 0) > 0
+    assert set(groups) <= {"pod", "data", "model"}
+    assert all(g["link"] == "nic" for g in groups.values())
+    assert rec["collectives"]["wire_bytes"] > 0
+    roof = rec["roofline"]
+    assert roof["t_collective_s"] > 0 and roof["collective_ops"]
+    assert rec["peak_bytes"] >= rec["state_alloc_bytes"] > 0
+    assert len(rec["collectives"]["top_sites"]) == dryrun.TOP_SITES
+
+
+@pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
+@pytest.mark.parametrize("arch", ["gcn-cora", "sasrec"])
+def test_gnn_and_sasrec_cells_are_skipped_on_a_mesh(arch, mesh):
+    from repro_torch.configs import registry
+    for shape in registry.get(arch).shapes:
+        rec = dryrun.run_cell(arch, shape, mesh=mesh)
+        assert rec["status"] == "skipped" and rec["mesh"] == mesh
+        assert rec["reason"] == dryrun.MESH_SKIP
+
+
+def test_mesh_cli_runs_an_lm_cell(tmp_path, capsys):
+    """``--mesh multi`` with ``--overrides``, in this process: the fake
+    group is made and ended around the record."""
+    import torch.distributed as dist
+    out = tmp_path / "mesh.jsonl"
+    assert dryrun.main(["--arch", "qwen3-4b", "--shape", "prefill_32k",
+                        "--mesh", "multi", "--overrides", '{"n_layers": 1}',
+                        "--out", str(out)]) == 0
+    assert not dist.is_initialized()
+    rec, = [json.loads(line) for line in out.read_text().splitlines()]
+    assert rec["status"] == "ok" and rec["chips"] == 512
+    assert rec["mesh"] == "2x16x16"
+    assert re.search(r"^OK qwen3-4b prefill_32k 2x16x16 ",
+                     capsys.readouterr().out, re.M)
+
+
+# ------------------------------------------------------- FilledCollectives
+def _filled_run():
+    """Each functional collective under ``FilledCollectives`` on real
+    tensors, then two sharded mixtral steps (the fake group is up)."""
+    from torch.distributed import _functional_collectives as funcol
+    from repro_torch.launch import mesh as lmesh
+    mesh = lmesh.make_mesh(MeshShape((2, 2), AXES), "cpu")
+    name = mesh.get_group("model").group_name
+    x = torch.arange(6.0).reshape(2, 3)
+    f = torch.ops._c10d_functional
+    with col.FilledCollectives():
+        outs = [funcol.wait_tensor(t) for t in (
+            f.all_gather_into_tensor(x, 2, name),
+            f.all_reduce(x, "sum", name),
+            f.reduce_scatter_tensor(x, "sum", 2, name),
+            f.all_to_all_single(x, [1, 1], [1, 1], name),
+            f.broadcast(x, 0, name))]
+        metrics = [float(_trace_metrics()) for _ in range(2)]
+    return [t.tolist() for t in outs], metrics
+
+
+def _trace_metrics():
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tr
+    from repro_torch.optim import adamw
+    mesh = lmesh.make_mesh(MeshShape((2, 2), AXES), "cpu")
+    cfg = _cfg("mixtral-8x22b")
+    model = tr.TransformerLM(cfg, device="cpu")
+    opt = adamw.init_state(model)
+    sctx = tr.ShardCtx(mesh, "data")
+    steps.place_lm(model, opt, sctx)
+    tok = torch.zeros(BATCH, dtype=torch.int32)
+    met = steps.lm_train_step(model, adamw.AdamWConfig(), opt, tok, tok,
+                              sctx=sctx)
+    assert all(torch.isfinite(p.to_local()).all()
+               for p in model.parameters())
+    return met["loss"]
+
+
+def test_filled_collectives_write_their_outputs(work):
+    """On real tensors over the fake group every functional collective
+    writes the output it would give if each rank of its group held this
+    rank's data, and a sharded mixtral step gives finite metrics and
+    parameters."""
+    (gathered, reduced, scattered, a2a, broadcast), metrics = work["filled"]
+    x = np.arange(6.0).reshape(2, 3)
+    assert gathered == np.concatenate([x, x]).tolist()
+    assert reduced == a2a == broadcast == x.tolist()
+    assert scattered == x[:1].tolist()
+    assert all(np.isfinite(metrics))

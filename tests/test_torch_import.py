@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.moe, repro_torch.runtime.fault_tolerance, "
             "repro_torch.optim.grad_compression, repro_torch.launch.mesh, "
             "repro_torch.launch.sharding, repro_torch.launch.specs, "
-            "repro_torch.launch.dryrun, repro_torch.devices, "
+            "repro_torch.launch.dryrun, repro_torch.launch.collectives, "
+            "repro_torch.devices, "
             "repro_torch.placement; "
             "from repro_torch.ampc import RoutedDht; "
             "from repro_torch.core.dht import DhtMesh, make_mesh, "
