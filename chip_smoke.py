@@ -316,10 +316,10 @@ CUDA toolkit.  It:
 17. the ``launch_mesh`` phase, one device of the 16x16 mesh: (a) ``python
    -m repro_torch.launch.dryrun --all --mesh both`` on the host (4 worker
    processes, no card, started before the LM serving phase, within 900
-   s), every LM cell traced as rank 0 of a 256- or 512-rank group whose
-   collectives move no data, one line a record: 34 records ok (llama4
-   and mixtral at full depth), the GNN and SASRec records skipped with
-   the dry-run's reason, the registry's skips with its own; each record's
+   s), every cell traced as rank 0 of a 256- or 512-rank group whose
+   collectives move no data, one line a record: 74 records ok (34 LM,
+   llama4 and mixtral at full depth; 40 GNN and SASRec, their steps under
+   a ``ShardCtx``), the registry's skips with its reasons; each record's
    per-device parameter and AdamW bytes equal to the count of the same
    placements from the mesh's shape, every group across nodes; and
    mixtral's train_4k with ``moe_local_dispatch`` at 18 and 19 layers
@@ -334,11 +334,19 @@ CUDA toolkit.  It:
    ``max_memory_allocated`` beside the trace's peak, 3 warm steps'
    CUDA-event ms beside the roofline's max(compute, memory) (no
    collective term: nothing moves), flash launches all wgmma, finite
-   losses;
+   losses; then gin-tu × ogb_products and sasrec × train_batch the same
+   way (placed by ``place_gnn`` and ``place_rec``, the graph's and the
+   histories' shards drawn on the card): state bytes equal to the
+   trace's, peak and warm ms beside the trace's, finite losses,
+   ``segment_matmul`` launched 5 times a GIN step and ``dht_gather`` 3
+   times a SASRec step (counted from 0 around each step), and first one
+   region call of each kernel on the rank's own shards against its plain
+   version on the same shards (``segment_matmul`` within
+   ``ref.product_limit``, ``dht_gather`` bit-equal; uncounted);
 18. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
    (the engine's solves, the serving phases, the routed phase's 0, the
-   eager phase's 2, the SASRec cells); the
+   eager phase's 2, the SASRec cells, the mesh rank's SASRec steps); the
    flash forward: the first layer's own q, k, v, its kernel route and the
    SIMT kernel's time there, with its launches by phase (the qwen3-4b
    forward and step, the MoE forwards and mixtral's steps, the sharded
@@ -346,8 +354,10 @@ CUDA toolkit.  It:
    the training path's shape, their route and the SIMT kernels' time
    there, with their launches by phase;
    segment_matmul: GIN layer 0's own inputs in the
-   forward, with its launches by phase (the gin phase's and the
-   ``gnn_models`` GIN cells'); embedding_bag: the trained item table and step 0's histories)
+   forward, with its launches by phase (the gin phase's, the
+   ``gnn_models`` GIN cells' and the mesh rank's GIN steps); both with
+   their ``launch_mesh`` region check; embedding_bag: the trained item
+   table and step 0's histories)
    and as its last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the exit code is nonzero and the last line is
@@ -4719,7 +4729,15 @@ def launch_phase():
 # the mesh dry-run's worker processes (CPU only), started in the background
 # of the LM serving, MoE, GNN, SASRec and launch phases
 MESH_DRYRUN_JOBS, MESH_DRYRUN_TIMEOUT_S = 4, 900
-MESH_LM_CELLS = 34      # 17 LM cells not skipped x (16x16, 2x16x16)
+# 17 LM and 20 GNN and SASRec cells not skipped x (16x16, 2x16x16)
+MESH_OK_CELLS = 74
+# the GNN and SASRec cells run as rank 0 of 256 on the card, and the
+# kernel launches a step of each implies: segment_matmul once a GIN layer
+# (its backward is plain torch), dht_gather for the history, the
+# positives and the negatives
+MESH_GRAPH_CELLS = (("gin-tu", "ogb_products"), ("sasrec", "train_batch"))
+MESH_STEP_LAUNCHES = {"gin-tu": ("segment_matmul", 5),
+                      "sasrec": ("dht_gather", 3)}
 # mixtral's train_4k as its registry config has it (the global dispatch:
 # every rank dispatches all 1,048,576 tokens) fits 80 GB at no depth; the
 # per-shard dispatch does, to MESH_MOE_LAYERS layers by the trace
@@ -4770,14 +4788,14 @@ def mesh_dryrun_start():
 
 
 def mesh_dryrun_finish(procs, t0):
-    """Wait for the sharded dry-runs and hold their records: 34 LM
-    records ok at 16x16 and 2x16x16 (llama4 and mixtral at full depth),
-    the GNN and SASRec records skipped with ``MESH_SKIP``, the registry's
-    skips with its reasons; each ok record's per-device parameter and
-    AdamW bytes equal to ``_device_bytes``' count of the same placements
-    from the mesh's shape, every collective's group a mesh
-    dimension across nodes (the NIC's rate).  Returns ({(arch, shape, mesh):
-    record}, {layers: the MoE cut's record})."""
+    """Wait for the sharded dry-runs and hold their records: 74 records
+    ok at 16x16 and 2x16x16 (34 LM, llama4 and mixtral at full depth, and
+    40 GNN and SASRec), the registry's skips with its reasons; each ok
+    record's per-device parameter and AdamW bytes equal to
+    ``_device_bytes``' count of the same placements from the mesh's
+    shape, every collective's group a mesh dimension across nodes (the
+    NIC's rate).  Returns ({(arch, shape, mesh): record}, {layers: the
+    MoE cut's record})."""
     from repro_torch.configs import registry
     from repro_torch.launch import dryrun
     out = {}
@@ -4801,14 +4819,12 @@ def mesh_dryrun_finish(procs, t0):
     check([(r["arch"], r["shape"], r["mesh"]) for r in recs]
           == [w[:3] for w in want], "mesh dry-run records out of order")
     for r, (arch, shape, mesh, reason) in zip(recs, want):
-        lm = registry.get(arch).family == "lm"
-        status = "ok" if lm and not reason else "skipped"
-        check(r["status"] == status and r.get("reason") == (
-            reason or (None if lm else dryrun.MESH_SKIP)),
-            f"mesh dry-run {arch} {shape} {mesh}: {r['status']} "
-            f"{r.get('reason')} {r.get('error')}")
+        check(r["status"] == ("skipped" if reason else "ok")
+              and r.get("reason") == reason,
+              f"mesh dry-run {arch} {shape} {mesh}: {r['status']} "
+              f"{r.get('reason')} {r.get('error')}")
     ok = [r for r in recs if r["status"] == "ok"]
-    check(len(ok) == MESH_LM_CELLS, f"{len(ok)} mesh records ok")
+    check(len(ok) == MESH_OK_CELLS, f"{len(ok)} mesh records ok")
     for r in ok:
         placed = r["placement_bytes"]
         check(r["param_bytes"] == placed["param_bytes"]
@@ -4823,6 +4839,8 @@ def mesh_dryrun_finish(procs, t0):
               f"{r['arch']} {r['shape']} {r['mesh']}: groups "
               f"{r['collectives']['groups']}")
     emit({"phase": "launch_mesh_dryrun", "ok": len(ok),
+          "ok_graph": sum(registry.get(r["arch"]).family != "lm"
+                          for r in ok),
           "skipped": len(recs) - len(ok),
           "fits_h100_80gb": [f"{r['arch']}/{r['shape']}/{r['mesh']}"
                              for r in ok if r["fits_h100_80gb"]],
@@ -4842,10 +4860,12 @@ def mesh_dryrun_finish(procs, t0):
             {int(name.split("_")[1]): rs[0] for name, rs in out.items()})
 
 
-def draw_local_shards(model, seed):
+def draw_local_shards(model, seed, vector=1.0):
     """Each of ``model``'s parameters (DTensors over ``meta`` shards after
-    ``place_lm``) given this rank's shard on the card: 1 for a norm's
-    scale (1-D), N(0, 0.02) else, from ``seed``."""
+    ``place_lm``, ``place_gnn`` or ``place_rec``) given this rank's shard
+    on the card: ``vector`` for one of at most one dimension (an LM norm's
+    scale 1; a GNN's bias and eps, SASRec's LN offsets 0), N(0, 0.02)
+    else, from ``seed``."""
     import torch
     from torch.distributed.tensor import DTensor
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -4853,8 +4873,9 @@ def draw_local_shards(model, seed):
         owner_name, _, leaf = name.rpartition(".")
         owner = model.get_submodule(owner_name)
         local = p._local_tensor
-        if p.dim() == 1:
-            x = torch.ones(local.shape, dtype=local.dtype, device="cuda")
+        if p.dim() <= 1:
+            x = torch.full(local.shape, vector, dtype=local.dtype,
+                           device="cuda")
         else:
             x = (torch.randn(local.shape, generator=g, device="cuda",
                              dtype=torch.float32) * 0.02).to(local.dtype)
@@ -4949,6 +4970,229 @@ def mesh_rank_run(mesh, arch, overrides, rec):
     return line
 
 
+def mesh_shard(sctx, local, shape, placements=None):
+    """A DTensor of global ``shape`` from this rank's ``local`` block, its
+    rows over every axis unless ``placements`` says otherwise."""
+    from torch.distributed.tensor import DTensor
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(local, sctx.mesh, placements or sctx.rows_pl,
+                              run_check=False, shape=tuple(shape),
+                              stride=tuple(stride))
+
+
+def mesh_graph_batch(batch, sctx, seed):
+    """The cell's batch (global shapes on ``meta``) as this rank's shards,
+    drawn from ``seed`` on the card: node and edge rows over every axis,
+    global node ids anywhere in [0, N) (the all-gathered rows have N under
+    ``FilledCollectives``), every node and edge unmasked, one graph, x
+    standard normal, the table's slots in [-1, N), the overflow edges'
+    hubs every node (the dry-run's sizing: every overflow edge its own
+    hub, at most N)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n = batch.n_nodes
+    P = sctx.mesh.size()
+
+    def ids(shape, low, high, dtype):
+        local = (shape[0] // P,) + tuple(shape[1:])
+        return mesh_shard(sctx, torch.randint(
+            low, high, local, generator=g, device="cuda", dtype=dtype),
+            shape)
+
+    def full(t, value):
+        local = (t.shape[0] // P,) + tuple(t.shape[1:])
+        return mesh_shard(sctx, torch.full(local, value, dtype=t.dtype,
+                                           device="cuda"), t.shape)
+
+    x = batch.node_feat
+    fields = dict(
+        senders=ids(batch.senders.shape, 0, n, torch.int32),
+        receivers=ids(batch.receivers.shape, 0, n, torch.int32),
+        node_mask=full(batch.node_mask, True),
+        edge_mask=full(batch.edge_mask, True),
+        graph_ids=full(batch.graph_ids, 0),
+        node_feat=mesh_shard(sctx, torch.randn(
+            (x.shape[0] // P, x.shape[1]), generator=g, device="cuda"),
+            x.shape),
+        labels=mesh_shard(sctx, torch.zeros(batch.labels.shape,
+                                            dtype=batch.labels.dtype,
+                                            device="cuda"),
+                          batch.labels.shape, sctx.replicated_pl),
+        nbr=ids(batch.nbr.shape, -1, n, torch.int32))
+    if batch.overflow is not None:
+        over_s, hub_of, hubs = batch.overflow
+        fields["overflow"] = (
+            ids(over_s.shape, 0, n, torch.int64),
+            ids(hub_of.shape, 0, hubs.shape[0], torch.int64),
+            mesh_shard(sctx, torch.arange(hubs.shape[0], device="cuda"),
+                       hubs.shape, sctx.replicated_pl))
+    return dataclasses.replace(batch, **fields)
+
+
+def mesh_rec_batches(sctx, n_items, shape, steps_n):
+    """``steps_n`` training batches of ``batch_at_step`` (seed
+    REC_DATA_SEED), each this data rank's contiguous block of rows on the
+    card, as DTensors over the data axes."""
+    import torch
+    from repro_torch.data.recsys import RecStreamConfig, batch_at_step
+    B = shape.global_batch
+    rows = B // sctx.dp_size
+    r = sctx.data_rank()
+    out = []
+    for i in range(steps_n):
+        arrays = batch_at_step(RecStreamConfig(n_items, 50, B,
+                                               seed=REC_DATA_SEED), i)
+        out.append(tuple(mesh_shard(sctx, torch.from_numpy(
+            a[r * rows:(r + 1) * rows].copy()).cuda(), a.shape,
+            sctx.placements(a.shape, sctx.dp, None)) for a in arrays))
+    return out
+
+
+def mesh_region_case(name, sctx, model, batch):
+    """One region call of the cell's kernel on this rank's own shards,
+    held against its plain version on the same shards on the card:
+    ``segment_matmul`` (GIN layer 0: x all-gathered, this rank's table
+    rows, W1) per element within ``ref.product_limit``; ``dedup_gather``
+    (this rank's slice of the item table, its block of histories)
+    bit-equal to the plain gather's."""
+    import torch
+    from repro_torch.core.dht import dedup_gather
+    from repro_torch.kernels.segment_matmul.ops import segment_matmul
+    from repro_torch.kernels.segment_matmul.ref import (
+        neighbor_sum, product_limit, segment_matmul_ref)
+    from repro_torch.launch.collectives import FilledCollectives
+    with torch.no_grad(), FilledCollectives():
+        if name == "segment_matmul":
+            xs = sctx.replicate(batch.node_feat)
+            w = model.layers[0].mlp["l1"]["w"]
+            got = segment_matmul(xs, batch.nbr, w, sctx=sctx).to_local()
+            x, nbr, wl = xs.to_local(), batch.nbr.to_local(), w.to_local()
+            want = segment_matmul_ref(x, nbr, wl)
+            limit = product_limit(neighbor_sum(x, nbr), wl, x.dtype)
+            diff = (got.float() - want.float()).abs()
+            over = int((diff > limit).sum())
+            row = {"max_abs_err": float(diff.max()),
+                   "err_over_limit": float((diff / limit.clamp(
+                       min=1e-30)).max()), "rows": int(nbr.shape[0]),
+                   "K": int(nbr.shape[1]), "N": int(x.shape[0]),
+                   "D": int(x.shape[1])}
+            check(over == 0, f"segment_matmul's region differs from its "
+                  f"plain version in {over} elements")
+        else:
+            keys = batch[0]
+            got = dedup_gather(model.item_embed, keys, sctx).to_local()
+            with plain_item_reads():
+                want = dedup_gather(model.item_embed, keys,
+                                    sctx).to_local()
+            row = {"max_abs_err": float((got - want).abs().max()),
+                   "bit_equal": bool(torch.equal(got, want)),
+                   "table_rows": int(model.item_embed.to_local().shape[0]),
+                   "keys": int(keys.to_local().numel())}
+            check(row["bit_equal"], "dht_gather's region differs from the "
+                  "plain gather on the same shards")
+    torch.cuda.synchronize()
+    return {"region": name, **row}
+
+
+def mesh_graph_run(mesh, arch, shape_name, rec):
+    """Rank 0 of ``mesh`` (16x16 over a 256-rank fake group) on the
+    card for a GNN or SASRec cell: built on ``meta``, placed by
+    ``place_gnn`` or ``place_rec``, its parameter shards drawn on the card
+    and AdamW's state made on them; ``memory_allocated`` of that state
+    equal to the trace's ``state_alloc_bytes``; its batch's shards drawn
+    from MESH_SEED; one region call of its kernel against the plain
+    version (uncounted); then 1 + MESH_WARM_STEPS steps under
+    ``FilledCollectives``, the launch counts set to 0 just before each and
+    read just after (MESH_STEP_LAUNCHES), the first step's
+    ``max_memory_allocated`` beside the trace's peak, the warm steps'
+    CUDA-event ms beside the roofline's max(compute, memory); finite
+    losses."""
+    import gc
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import FilledCollectives
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.optim import adamw
+    from repro_torch.placement import ShardCtx
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cell = build_cell(arch, shape_name, mesh)
+    model = cell.args[0]
+    sctx = ShardCtx(mesh, "data")
+    gnn = registry.get(arch).family == "gnn"
+    (steps.place_gnn if gnn else steps.place_rec)(model, None, sctx)
+    draw_local_shards(model, MESH_SEED, vector=0.0)
+    opt = adamw.init_state(model)
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    check(state == rec["state_alloc_bytes"], f"{arch} {shape_name}: the "
+          f"card allocated {state} bytes of state, the trace counts "
+          f"{rec['state_alloc_bytes']}")
+    if gnn:
+        batches = [mesh_graph_batch(cell.args[2], sctx, MESH_SEED)] * (
+            1 + MESH_WARM_STEPS)
+    else:
+        batches = mesh_rec_batches(sctx, model.cfg.n_items,
+                                   registry.get(arch).shapes[shape_name],
+                                   1 + MESH_WARM_STEPS)
+    del cell
+    kname, per_step = MESH_STEP_LAUNCHES[arch]
+    region = mesh_region_case(kname, sctx, model, batches[0])
+    opt_cfg = adamw.AdamWConfig()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms, launches = [], [], []
+    with FilledCollectives():
+        for i, batch in enumerate(batches):
+            zero_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if gnn:
+                met = steps.gnn_train_step(model, opt_cfg, opt, batch,
+                                           sctx=sctx)
+            else:
+                met = steps.rec_train_step(model, opt_cfg, opt, *batch,
+                                           sctx=sctx)
+            end.record()
+            torch.cuda.synchronize()
+            launches.append(launch_counts()[kname])
+            losses.append(float(met["loss"]))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            else:
+                ms.append(start.elapsed_time(end))
+    check(all(math.isfinite(x) for x in losses),
+          f"{arch} {shape_name}: losses {losses}")
+    check(launches == [per_step] * len(batches), f"{arch} {shape_name}: "
+          f"{kname} launched {launches} times a step, {per_step} expected")
+    roof = rec["roofline"]
+    line = {"phase": "launch_mesh", "arch": arch, "shape": shape_name,
+            "mesh": "16x16", "rank": 0, "ranks": 256,
+            "state_bytes": state,
+            "trace_state_alloc_bytes": rec["state_alloc_bytes"],
+            "peak_bytes": peak, "trace_peak_bytes": rec["peak_bytes"],
+            "warm_ms": ms,
+            "bound_ms": 1e3 * max(roof["t_compute_s"], roof["t_memory_s"]),
+            "bound_by": "operations" if roof["t_compute_s"]
+            >= roof["t_memory_s"] else "bytes",
+            "collective_term": "absent: the group's collectives move no "
+                               "data (the trace's t_collective_s is "
+                               f"{roof['t_collective_s']})",
+            "trace_flops": rec["flops"], "trace_hbm_bytes": rec["hbm_bytes"],
+            "kernel": kname, "launches_a_step": launches,
+            "region_check": region, "losses": losses,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    del model, opt, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def launch_mesh_phase(procs, t_dry):
     """One device of the 16x16 mesh: (a) the sharded dry-run's records
     (started on the host earlier); (b) qwen3-4b train_4k at full depth,
@@ -4985,13 +5229,21 @@ def launch_mesh_phase(procs, t_dry):
         lines = [mesh_rank_run(mesh, LM_ARCH, None,
                                recs[(LM_ARCH, "train_4k", "16x16")]),
                  mesh_rank_run(mesh, MESH_MOE_ARCH, moe_overrides, moe_rec)]
+        graph = [mesh_graph_run(mesh, arch, shape,
+                                recs[(arch, shape, "16x16")])
+                 for arch, shape in MESH_GRAPH_CELLS]
     finally:
         dist.destroy_process_group()
     emit({"phase": "launch_mesh_seconds", "seconds": time.perf_counter() - t0,
           "allocated_before": left,
           "moe_full_depth_peak_gb": full["peak_bytes"] / 1e9})
-    return {k: sum(line["launches"][k] for line in lines)
-            for k in lines[0]["launches"]}
+    launches = {k: sum(line["launches"][k] for line in lines)
+                for k in lines[0]["launches"]}
+    for line in graph:
+        launches[line["kernel"]] += sum(line["launches_a_step"])
+    launches["regions"] = {line["kernel"]: line["region_check"]
+                           for line in graph}
+    return launches
 
 
 def build_kernels():
@@ -5179,10 +5431,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/dht_gather/csrc/dht_gather.cu",
         "replaces": "src/repro/kernels/dht_gather/kernel.py:28",
         "launches": launches + sum(serving_launches.values())
-        + sum(rec_launches.values()),
+        + sum(rec_launches.values()) + mesh["dht_gather"],
         "launches_by_phase": {"ampc_solves": launches, **serving_launches,
-                              **rec_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in rows + rec_rows),
+                              **rec_launches,
+                              "launch_mesh": mesh["dht_gather"]},
+        "max_abs_err": max(r["max_abs_err"] for r in rows + rec_rows
+                           + [mesh["regions"]["dht_gather"]]),
+        "launch_mesh_region": mesh["regions"]["dht_gather"],
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": "bytes",
         "library_ms": main_row["library_ms"], "library": main_row["library"],
@@ -5256,12 +5511,17 @@ def main() -> int:
         "source": "src/repro_torch/kernels/segment_matmul/csrc/"
                   "segment_matmul.cu",
         "replaces": "src/repro/kernels/segment_matmul/kernel.py:22",
-        "launches": gnn_launches["segment_matmul"] + models_launches,
+        "launches": gnn_launches["segment_matmul"] + models_launches
+        + mesh["segment_matmul"],
         "launches_by_phase": {"gnn_minibatch_lg":
                               gnn_launches["segment_matmul"],
-                              "gnn_models": models_launches},
-        "max_abs_err": max(r["max_abs_err"] for r in seg_rows),
-        "max_err_over_limit": max(r["err_over_limit"] for r in seg_rows),
+                              "gnn_models": models_launches,
+                              "launch_mesh": mesh["segment_matmul"]},
+        "max_abs_err": max(r["max_abs_err"] for r in seg_rows
+                           + [mesh["regions"]["segment_matmul"]]),
+        "max_err_over_limit": max(r["err_over_limit"] for r in seg_rows
+                                  + [mesh["regions"]["segment_matmul"]]),
+        "launch_mesh_region": mesh["regions"]["segment_matmul"],
         "ms": seg_row["ms"], "plain_ms": seg_row["plain_ms"],
         "bound_ms": seg_row["bound_ms"], "bound_by": seg_row["bound_by"],
         "library_ms": seg_row["library_ms"], "library": seg_row["library"],

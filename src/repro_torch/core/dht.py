@@ -51,6 +51,7 @@ from typing import Mapping, Tuple
 import torch
 
 from ..devices import axis_group, is_device_mesh
+from ..placement import dtensor_types
 from .rounds import to_host
 
 INT_MAX = 2**31 - 1
@@ -158,10 +159,9 @@ def lookup(values: torch.Tensor, keys: torch.Tensor, dedup: bool = True):
 
 
 class DedupGather(torch.autograd.Function):
-    """``apply(values, keys)`` -> ``values[keys]`` (Q, D) for a (V, D)
-    table and (Q,) int32 keys, read as the reference's ``lookup(values,
-    keys, dedup=True)`` reads them: negative keys read row 0, keys past the
-    end read row V - 1.
+    """``apply(values, rows, zero_rows)`` -> ``values[rows]`` (Q, D) for a
+    (V, D) table and (Q,) int32 row ids in [0, V) (with ``zero_rows``, -1
+    too: a zero row that takes no gradient).
 
     The forward is ``kernels.dht_gather``'s sorted, deduplicated gather:
     the Hopper kernel on CUDA tensors, its plain version on CPU tensors.
@@ -172,15 +172,12 @@ class DedupGather(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, values, keys):
+    def forward(ctx, values, rows, zero_rows: bool):
         from ..kernels.dht_gather.ops import dht_gather
 
-        # the kernel's padding is -1 (a zero row); the reference reads row
-        # 0 for a negative key, so those keys ask for row 0
-        rows = keys.clamp(min=0)
         out, _ = dht_gather(values, rows)
         ctx.save_for_backward(rows)
-        ctx.n_rows = values.shape[0]
+        ctx.n_rows, ctx.zero_rows = values.shape[0], zero_rows
         return out
 
     @staticmethod
@@ -188,20 +185,70 @@ class DedupGather(torch.autograd.Function):
         (rows,) = ctx.saved_tensors
         grad = torch.zeros((ctx.n_rows, dout.shape[1]), dtype=dout.dtype,
                            device=dout.device)
-        grad.index_add_(0, rows.clamp(max=ctx.n_rows - 1).long(), dout)
-        return grad, None
+        if ctx.zero_rows:
+            # a -1 row adds a zero into row 0: no count is read back
+            valid = rows >= 0
+            rows = torch.where(valid, rows, 0)
+            dout = torch.where(valid[:, None], dout, 0.0)
+        grad.index_add_(0, rows.long(), dout)
+        return grad, None, None
 
 
-def dedup_gather(values: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+def dedup_gather(values: torch.Tensor, keys, sctx=None) -> torch.Tensor:
     """``values[keys]`` for a (V, D) table that may train and keys of any
-    shape: (keys.shape + (D,)), through :class:`DedupGather`."""
+    shape: (keys.shape + (D,)), read as the reference's ``lookup(values,
+    keys, dedup=True)`` reads them: negative keys read row 0, keys past
+    the end read row V - 1.  Through :class:`DedupGather`.
+
+    Under a ``ShardCtx`` (``sctx``; ``values`` a DTensor, its rows over
+    the model axis or replicated, ``keys`` a DTensor) the call is an
+    explicit region on the local shards: the keys clamped on global ids
+    first, each mapped to its row in this rank's slice of the table or to
+    -1 (the kernel's zero row) where another model rank holds it, the
+    ``dht_gather`` kernel run on the local slice, and the rows summed over
+    the model axis (an all-reduce).  The result has the keys' placements.
+    In the backward each model rank adds the gradient into the rows it
+    holds: the (V, D) gradient stays split over the model axis, a partial
+    sum over the axes that split the keys, which the step sums before
+    AdamW.  No rank gathers the table."""
     if values.dim() != 2:
         raise ValueError(f"values must be (V, D), got {tuple(values.shape)}")
     if values.shape[0] == 0:
         raise ValueError("cannot gather from a table without rows")
+    if sctx is not None:
+        return _sharded_gather(values, keys, sctx)
     keys = torch.as_tensor(keys, device=values.device).to(torch.int32)
-    out = DedupGather.apply(values, keys.reshape(-1))
+    rows = keys.reshape(-1).clamp(0, values.shape[0] - 1)
+    out = DedupGather.apply(values, rows, False)
     return out.reshape(keys.shape + (values.shape[1],))
+
+
+def _sharded_gather(values, keys, sctx):
+    _, Partial, Replicate, Shard = dtensor_types()
+    t_pl, k_pl = tuple(values.placements), tuple(keys.placements)
+    V = values.shape[0]
+    split = [p.is_shard() for p in t_pl]
+    # where the table is split a rank's rows are the rest's zeros (a
+    # partial sum), elsewhere the rows follow the keys
+    out_pl = tuple(Partial() if t else k for t, k in zip(split, k_pl))
+    grad_pl = tuple(Shard(0) if t else Partial() if k.is_shard()
+                    else Replicate() for t, k in zip(split, k_pl))
+    mesh_dims = [d for d, t in enumerate(split) if t]
+    owner = 0
+    for d in mesh_dims:
+        owner = owner * sctx.mesh.size(d) + sctx.mesh.get_local_rank(d)
+
+    def region(table, k):
+        Vl = table.shape[0]
+        rows = k.reshape(-1).to(torch.int32).clamp(0, V - 1) - owner * Vl
+        local = torch.where((rows >= 0) & (rows < Vl), rows, -1)
+        out = DedupGather.apply(table, local, True)
+        return out.reshape(k.shape + (table.shape[1],))
+
+    out = sctx.local(region, [out_pl], [t_pl, k_pl], [grad_pl, k_pl])(
+        values, keys)
+    return out.redistribute(sctx.mesh, tuple(
+        Replicate() if p.is_partial() else p for p in out_pl))
 
 
 def _dedup_rows(keys: torch.Tensor):

@@ -25,7 +25,13 @@ def dht_gather(table: torch.Tensor, keys: torch.Tensor,
     *valid* keys in sorted order, i.e. exactly ``n_valid -
     n_distinct_valid``, as a 0-d integer tensor.
 
-    ``dht_gather.launches`` counts kernel launches (CUDA tensors, Q > 0).
+    ``dht_gather.launches`` counts kernel launches (CUDA tensors, Q > 0);
+    ``dht_gather.meta_bytes`` the bytes it reads in the calls answered on
+    ``meta``: the sorted keys, their order and a row a key (its output
+    is the allocation a counter sees).  A gather does no arithmetic: its
+    ``meta_flops`` stays 0.  Inside a sharded region (``core.dht.
+    dedup_gather``) ``table`` is this rank's slice, so both count the
+    local shard.
     """
     if table.dim() != 2:
         raise ValueError(
@@ -46,6 +52,10 @@ def dht_gather(table: torch.Tensor, keys: torch.Tensor,
     if table.device.type == "cpu":
         return dht_gather_fused_ref(table, sk, order)
     if table.device.type == "meta":
+        Q = keys.shape[0]
+        dht_gather.meta_bytes += Q * (keys.itemsize + (
+            0 if order is None else order.itemsize)
+            + table.shape[1] * table.itemsize)
         return (torch.empty((keys.shape[0], table.shape[1]),
                             dtype=table.dtype, device="meta"),
                 torch.empty((), dtype=torch.int64, device="meta"))
@@ -54,3 +64,5 @@ def dht_gather(table: torch.Tensor, keys: torch.Tensor,
 
 
 dht_gather.launches = 0
+dht_gather.meta_flops = 0
+dht_gather.meta_bytes = 0

@@ -8,6 +8,15 @@ no fallback from one to the other.  ``SegmentMatmul`` is its
 ``torch.autograd.Function``: the JAX package has no backward kernel (its
 GIN gradient is ``jax.grad`` of ``take`` and ``segment_sum``), so the
 backward is plain torch on every device.
+
+Under a ``ShardCtx`` (``sctx``; ``x`` and ``nbr`` DTensors whose rows lie
+over every mesh axis, ``w`` replicated) the call is an explicit region on
+the local shards: ``x`` all-gathered (``nbr`` holds global row ids of
+it), the kernel run on this rank's rows of ``nbr`` and writing this
+rank's rows of the output, ``w`` as it is.  In the backward ``dx`` is a
+full-N partial sum, reduce-scattered back to the rows, and ``dW`` a
+partial sum, which the step all-reduces.  The counts (``launches``,
+``meta_flops``) are of the local rows.
 """
 from __future__ import annotations
 
@@ -71,16 +80,24 @@ class SegmentMatmul(torch.autograd.Function):
 
 
 def segment_matmul(x: torch.Tensor, nbr: torch.Tensor,
-                   w: torch.Tensor) -> torch.Tensor:
+                   w: torch.Tensor, sctx=None) -> torch.Tensor:
     """out[m] = (sum_k x[nbr[m, k]]) @ w for x (N, D), nbr (M, K) int32
     with -1 as padding, w (D, F); (M, F) in x's type, summed in f32.
 
     Where grad is enabled and x or w requires it, the call goes through
     :class:`SegmentMatmul`.  ``segment_matmul.launches`` counts kernel
     launches (CUDA tensors, M and F nonzero); ``segment_matmul.meta_flops``
-    the kernel's work, M·K·D additions and 2·M·D·F for the product, in
-    the calls answered on ``meta``.
+    the kernel's work, M·K·D additions and 2·M·D·F for the product, and
+    ``segment_matmul.meta_bytes`` the bytes it reads (the table, every
+    slot's row, w; its outputs are the allocations a counter sees), in
+    the calls answered on ``meta``.  Under ``sctx``, the region of the
+    module's docstring.
     """
+    if sctx is not None:
+        rows, rep = sctx.rows_pl, sctx.replicated_pl
+        return sctx.local(segment_matmul, [rows], [rep, rows, rep],
+                          [sctx.partial_pl, rows, sctx.partial_pl])(
+                              x, nbr, w)
     check_inputs(x, nbr, w)
     if not (x.device == nbr.device == w.device):
         raise ValueError("x, nbr and w must be on the same device")
@@ -91,6 +108,8 @@ def segment_matmul(x: torch.Tensor, nbr: torch.Tensor,
         M, K = nbr.shape
         segment_matmul.meta_flops += M * K * x.shape[1] \
             + 2 * M * x.shape[1] * w.shape[1]
+        segment_matmul.meta_bytes += M * K * (4 + x.shape[1] * x.itemsize) \
+            + w.numel() * w.itemsize
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         out = SegmentMatmul.apply(x, nbr, w)
     elif x.is_cuda:
@@ -106,3 +125,4 @@ def segment_matmul(x: torch.Tensor, nbr: torch.Tensor,
 
 segment_matmul.launches = 0
 segment_matmul.meta_flops = 0
+segment_matmul.meta_bytes = 0

@@ -28,11 +28,14 @@ on ``meta``, the whole cell on one card, recording:
     LMs) or 67e12 f32 FLOP/s (the GNNs, SASRec), 3.35e12 B/s.
 
 ``--mesh single`` (16x16, 256 chips), ``multi`` (2x16x16, 512) or
-``both``: the LM cell as ONE DEVICE of that mesh, the reference's
-records.  The cell is built on a ``DeviceMesh`` over a process group of
-256 or 512 ranks whose collectives move no data (the "fake" backend),
-this process rank 0; the state is placed once by ``steps.place_lm`` (and
-a decode cell's cache by its placements) and the step runs under
+``both``: the cell as ONE DEVICE of that mesh, the reference's records.
+The cell is built on a ``DeviceMesh`` over a process group of 256 or 512
+ranks whose collectives move no data (the "fake" backend), this process
+rank 0; the state is placed once (an LM's by ``steps.place_lm``, a decode
+cell's cache by its placements; a GNN's replicated by
+``steps.place_gnn``, its batch's node and edge arrays over every axis by
+``steps.place_graph_batch``; SASRec's by ``steps.place_rec``, its batch
+over the data axes) and the step runs under
 ``ShardCtx(mesh, data_axes(mesh))`` inside ``collectives.LocalCounter``,
 which records rank 0's own work: its state bytes, its peak live bytes and
 whether they fit 80 GB, its FLOPs (plus the kernels' ``meta_flops`` on
@@ -43,9 +46,11 @@ back to replicated, so every rank runs the same program.  A fake group is
 process-wide: each (cell, mesh) runs in a process of its own under
 ``--jobs``, and :func:`run_cell` starts and ends the group around one
 record.  A decode cell runs as the port runs it under a context: every
-rank gathers the parameters and the cache (its ``notes`` say so).  The
-GNN and SASRec cells are ``skipped`` on a mesh: their steps take no
-``ShardCtx``.
+rank gathers the parameters and the cache (its ``notes`` say so).  A GNN
+or SASRec record has the LM records' fields, its roofline at the f32
+peak: the kernels' regions (``segment_matmul`` on the rank's node rows,
+``dht_gather`` on its slice of the item table) count their work on the
+local shards.
 
 A cell that fails writes an ``error`` record; the command exits 1 if any
 cell that is not skipped errs.  The reference's HLO parser
@@ -74,10 +79,11 @@ H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 H100_HBM_BYTES = 80e9
 MESHES = {"one": ("one",), "single": ("16x16",), "multi": ("2x16x16",),
           "both": ("16x16", "2x16x16")}
-MESH_SKIP = ("their steps take no ShardCtx; sharded trace is ROADMAP "
-             "queue 1")
 DECODE_NOTE = ("decode under a ShardCtx gathers the parameters and the "
-               "cache on every rank (not yet sharded, ROADMAP item 11)")
+               "cache on every rank (the sharded decode is a held item of "
+               "ROADMAP queue 1)")
+TRAIN_KINDS = ("train", "gnn_full", "gnn_sampled", "gnn_batched",
+               "rec_train")
 TOP_SITES = 12
 
 
@@ -119,7 +125,10 @@ class ByteCounter(TorchDispatchMode):
 
 def _kernel_counters():
     """Each hand-written kernel's (and the chunked attention's) op whose
-    ``meta_flops`` counts the work it answered on ``meta``."""
+    ``meta_flops`` counts the work it answered on ``meta`` (and, for
+    ``segment_matmul`` and ``dht_gather``, ``meta_bytes`` the bytes it
+    reads)."""
+    from ..kernels.dht_gather.ops import dht_gather
     from ..kernels.embedding_bag.ops import embedding_bag
     from ..kernels.flash_attention.bwd import flash_bwd_dkv, flash_bwd_dq
     from ..kernels.flash_attention.ops import flash_attention
@@ -129,6 +138,7 @@ def _kernel_counters():
             "flash_attention_bwd_dq": flash_bwd_dq,
             "flash_attention_bwd_dkv": flash_bwd_dkv,
             "segment_matmul": segment_matmul,
+            "dht_gather": dht_gather,
             "embedding_bag": embedding_bag,
             "attention_xla_chunked": attention_xla_chunked}
 
@@ -142,8 +152,7 @@ def _state_bytes(cell) -> dict:
     """Parameter, gradient and optimizer bytes of a cell's arguments (of
     their local shards, where they are placed)."""
     params = [_local(p) for p in _leaves(cell.args[0])]
-    train = cell.kind in ("train", "gnn_full", "gnn_sampled", "gnn_batched",
-                          "rec_train")
+    train = cell.kind in TRAIN_KINDS
     opt = [_local(t) for t in _leaves(cell.args[1])] if train else []
     return {"params": sum(p.numel() for p in params),
             "param_bytes": sum(_nbytes(p) for p in params),
@@ -167,6 +176,8 @@ def _device_bytes(cell, argnums=None) -> int:
             arg = {k: getattr(arg, k) for k in pl}
         for key, t in arg.items():
             sh = pl[key]
+            if isinstance(t, tuple):        # gin-tu's overflow
+                t, sh = dict(enumerate(t)), dict(enumerate(sh))
             if isinstance(t, dict):
                 total += sum(x.element_size() * math.prod(
                     sh[n].local_shape(x.shape)) for n, x in t.items())
@@ -180,8 +191,7 @@ def measure(cell) -> dict:
     FLOPs and roofline."""
     from torch.distributed._tools.mem_tracker import MemTracker
     counters = _kernel_counters()
-    for op in counters.values():
-        op.meta_flops = 0
+    _zero_counts(counters)
     tracker = MemTracker()
     tracker.track_external(*[a for a in cell.args
                              if isinstance(a, torch.nn.Module)],
@@ -195,17 +205,34 @@ def measure(cell) -> dict:
     seconds = time.perf_counter() - t0
     peak = sum(v["Total"] for v in
                tracker.get_tracker_snapshot("peak").values())
-    kernels = {name: op.meta_flops for name, op in counters.items()
-               if op.meta_flops}
+    kernels, kernel_bytes = _kernel_counts(counters)
     counted = float(flop_counter.get_total_flops())
     flops = counted + sum(kernels.values())
     peak_flops = _peak_flops(cell)
     return {"run_s": seconds, **_state_bytes(cell),
             "peak_bytes": peak, "fits_h100_80gb": peak < H100_HBM_BYTES,
             "flops_counted": counted, "flops_kernels": kernels,
+            "bytes_kernels": kernel_bytes,
             "flops": flops, "model_flops": cell.model_flops,
-            "roofline": roofline_terms(flops, byte_counter.bytes,
-                                       cell.model_flops, peak_flops)}
+            "roofline": roofline_terms(
+                flops, byte_counter.bytes + sum(kernel_bytes.values()),
+                cell.model_flops, peak_flops)}
+
+
+def _zero_counts(counters) -> None:
+    for op in counters.values():
+        op.meta_flops = 0
+        if hasattr(op, "meta_bytes"):
+            op.meta_bytes = 0
+
+
+def _kernel_counts(counters):
+    """({kernel: FLOPs}, {kernel: bytes read}) the kernels counted on
+    ``meta``, the kernels without any left out."""
+    return ({name: op.meta_flops for name, op in counters.items()
+             if op.meta_flops},
+            {name: op.meta_bytes for name, op in counters.items()
+             if getattr(op, "meta_bytes", 0)})
 
 
 def _peak_flops(cell) -> float:
@@ -229,16 +256,28 @@ def fake_group(world: int) -> None:
 def _place(cell, mesh):
     """``cell``'s state placed once on ``mesh`` (a ``DeviceMesh``), and
     the ``ShardCtx`` its step runs under: the parameters and AdamW's
-    moments by ``steps.place_lm``, a decode cell's cache by its
-    placements.  The batch stays global: each data rank takes its block."""
-    from ..models.transformer import ShardCtx
+    moments by the family's rule (``steps.place_lm``, ``place_gnn``,
+    ``place_rec``), a decode cell's cache by its placements.  An LM's
+    batch stays global (each data rank takes its block); a GNN's and
+    SASRec's is placed here, so the device holds only its shards."""
+    from ..placement import ShardCtx
     from . import steps
     from .mesh import data_axes
     from .sharding import place_tensors
     dp = data_axes(mesh)
     sctx = ShardCtx(mesh, dp if len(dp) > 1 else dp[0])
-    steps.place_lm(cell.args[0], cell.args[1] if cell.kind == "train"
-                   else None, sctx)
+    opt = cell.args[1] if cell.kind in TRAIN_KINDS else None
+    if cell.kind.startswith("gnn"):
+        steps.place_gnn(cell.args[0], opt, sctx)
+        cell.args = cell.args[:2] + (
+            steps.place_graph_batch(cell.args[2], sctx),)
+    elif cell.kind.startswith("rec"):
+        steps.place_rec(cell.args[0], opt, sctx)
+        first = 2 if opt is not None else 1
+        cell.args = cell.args[:first] + tuple(
+            sctx.batch(t) for t in cell.args[first:])
+    else:
+        steps.place_lm(cell.args[0], opt, sctx)
     if cell.kind == "decode":
         cache = place_tensors(cell.args[1], cell.placements[1])
         cell.args[1].update(cache)
@@ -268,8 +307,7 @@ def measure_mesh(cell, mesh) -> dict:
     from .mesh import n_chips
     sctx = _place(cell, mesh)
     counters = _kernel_counters()
-    for op in counters.values():
-        op.meta_flops = 0
+    _zero_counts(counters)
     counter = LocalCounter()
     counter.track(*cell.args)
     state = _state_bytes(cell)
@@ -277,16 +315,17 @@ def measure_mesh(cell, mesh) -> dict:
     with counter:
         cell.step(*cell.args, sctx=sctx)
     seconds = time.perf_counter() - t0
-    kernels = {name: op.meta_flops for name, op in counters.items()
-               if op.meta_flops}
+    kernels, kernel_bytes = _kernel_counts(counters)
     a = counter.analysis(sum(kernels.values()))
+    hbm = a.hbm_bytes + sum(kernel_bytes.values())
     stats = a.collectives
     chips = n_chips(mesh)
     return {"trace_s": seconds, "chips": chips, "rank": 0, **state,
             "peak_bytes": a.peak_bytes,
             "fits_h100_80gb": a.peak_bytes < H100_HBM_BYTES,
             "flops_counted": counter.flops, "flops_kernels": kernels,
-            "flops": a.flops, "hbm_bytes": a.hbm_bytes,
+            "bytes_kernels": kernel_bytes,
+            "flops": a.flops, "hbm_bytes": hbm,
             "model_flops": cell.model_flops,
             "collectives": {
                 "ops": stats.ops, "wire_bytes": stats.wire_bytes,
@@ -295,7 +334,7 @@ def measure_mesh(cell, mesh) -> dict:
                 "groups": _groups(stats, mesh),
                 "top_sites": a.top_collective_sites(TOP_SITES)},
             "top_byte_ops": a.top_byte_ops(TOP_SITES),
-            "roofline": roofline_terms(a.flops, a.hbm_bytes,
+            "roofline": roofline_terms(a.flops, hbm,
                                        cell.model_flops, _peak_flops(cell),
                                        chips, collectives=stats)}
 
@@ -305,12 +344,8 @@ def _mesh_record(rec: dict, arch: str, shape: str, shape_of,
     """Fill ``rec`` with the cell's record as one device of a mesh of
     ``shape_of`` (a ``MeshShape``)."""
     import torch.distributed as dist
-    from ..configs.registry import get
     from .mesh import make_mesh
     from .specs import build_cell
-    if get(arch).family != "lm":
-        rec.update(status="skipped", reason=MESH_SKIP)
-        return
     fake_group(math.prod(shape_of.sizes))
     try:
         mesh = make_mesh(shape_of, "cpu")
@@ -325,8 +360,8 @@ def _mesh_record(rec: dict, arch: str, shape: str, shape_of,
         cell = build_cell(arch, shape, shape_of, **kw)
         rec["placement_bytes"] = {
             "param_bytes": _device_bytes(cell, (0,)),
-            "opt_bytes": (_device_bytes(cell, (1,)) if cell.kind == "train"
-                          else 0)}
+            "opt_bytes": (_device_bytes(cell, (1,))
+                          if cell.kind in TRAIN_KINDS else 0)}
     finally:
         dist.destroy_process_group()
 
@@ -338,8 +373,8 @@ def run_cell(arch: str, shape: str, skip_reason: Optional[str] = None, *,
     """One cell's record on one card (``mesh`` "one") or as one device of
     the "16x16" or "2x16x16" mesh (or of any ``MeshShape`` of axes
     ("data", "model") or ("pod", "data", "model")): ``status`` "ok",
-    "skipped" (with the registry's ``reason``, or ``MESH_SKIP``) or
-    "error" (with the exception and its traceback)."""
+    "skipped" (with the registry's ``reason``) or "error" (with the
+    exception and its traceback)."""
     from .mesh import MeshShape, production_mesh_shape
     from .specs import build_cell
     rec = {"arch": arch, "shape": shape, "device": "meta",

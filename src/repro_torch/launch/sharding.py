@@ -160,6 +160,33 @@ def flat_shard(mesh, ndim: int, axis: int = 0) -> Sharding:
     return Sharding(mesh, tuple(spec))
 
 
+# a GraphBatch's tensor fields, the overflow triple apart
+GRAPH_FIELDS = ("senders", "receivers", "node_mask", "edge_mask",
+                "graph_ids", "node_feat", "positions", "species", "labels",
+                "nbr")
+
+
+def graph_batch_shardings(mesh, batch) -> Dict[str, Any]:
+    """{field: Sharding} of a GNN batch (the port's ``GraphBatch``, its
+    tensors or anything with ``shape``): every node and edge array over all
+    axes (:func:`flat_shard`), the node labels too, per-graph labels (a
+    first dimension other than N) replicated; ``nbr`` with the node rows;
+    the ``overflow`` triple (senders, ``hub_of``, hubs) as a tuple: its
+    edges over all axes, the hub rows replicated."""
+    n = batch.node_mask.shape[0]
+    out = {}
+    for f in GRAPH_FIELDS:
+        t = getattr(batch, f)
+        if t is None:
+            continue
+        per_graph = f == "labels" and t.shape[0] != n
+        out[f] = Sharding(mesh) if per_graph else flat_shard(mesh, t.dim())
+    if batch.overflow is not None:
+        out["overflow"] = (flat_shard(mesh, 1), flat_shard(mesh, 1),
+                           Sharding(mesh))
+    return out
+
+
 def rec_param_shardings(mesh, params: Mapping[str, Any]
                         ) -> Dict[str, Sharding]:
     """The item table's rows over "model" where they divide; the rest

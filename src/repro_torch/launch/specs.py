@@ -18,11 +18,17 @@ What differs from the reference, all in ``notes``:
     whose width and overflow depend on the data: the cell gives them as
     explicit sizes (width ``gin.K_CAP``, the fewest edges any graph of the
     cell's sizes leaves past that width, every overflow edge its own hub).
+    On a mesh the table's rows lie with the node rows over every axis, the
+    overflow edges over every axis, the hub rows replicated.
+
+On a ``DeviceMesh`` every cell's step runs under a ``ShardCtx`` (the
+dry-run's ``measure_mesh``): each step takes ``sctx=``, and the GNN and
+SASRec placements here are those ``steps.place_gnn``,
+``steps.place_graph_batch`` and ``steps.place_rec`` give.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -37,7 +43,7 @@ from ..models.transformer import TransformerConfig, TransformerLM
 from ..optim import adamw
 from . import steps
 from .mesh import data_axes, mesh_axes, n_chips
-from .sharding import (Sharding, batch_sharding, flat_shard,
+from .sharding import (Sharding, batch_sharding, graph_batch_shardings,
                        kv_cache_shardings, lm_param_shardings,
                        rec_param_shardings, replicated)
 
@@ -182,28 +188,21 @@ def _gnn_batch_struct(entry: ArchEntry, shape: ShapeSpec, mesh
     """(batch of meta tensors, {field: Sharding})."""
     N, E, n_graphs, d_feat = _gnn_sizes(shape, n_chips(mesh))
     arch = entry.arch_id
-    fs = functools.partial(flat_shard, mesh)
-    rep = Sharding(mesh)
-    sh = {"senders": fs(1), "receivers": fs(1), "node_mask": fs(1),
-          "edge_mask": fs(1), "graph_ids": fs(1)}
     fields = {}
     if arch in ("gcn-cora", "gin-tu"):
         fields["node_feat"] = _meta((N, d_feat), torch.float32)
-        sh["node_feat"] = fs(2)
     else:   # schnet / mace read positions and species
         fields["positions"] = _meta((N, 3), torch.float32)
         fields["species"] = _meta((N,), torch.int32)
-        sh["positions"], sh["species"] = fs(2), fs(1)
     if arch == "gcn-cora":       # node classification
-        fields["labels"], sh["labels"] = _meta((N,), torch.int32), fs(1)
+        fields["labels"] = _meta((N,), torch.int32)
     elif arch == "gin-tu":       # graph classification
-        fields["labels"], sh["labels"] = _meta((n_graphs,), torch.int32), rep
+        fields["labels"] = _meta((n_graphs,), torch.int32)
     else:                        # energies per graph
-        fields["labels"], sh["labels"] = (_meta((n_graphs,), torch.float32),
-                                          rep)
+        fields["labels"] = _meta((n_graphs,), torch.float32)
     if arch == "gin-tu":
         width, over, hubs = gin_table_sizes(N, E)
-        fields["nbr"], sh["nbr"] = _meta((N, width), torch.int32), fs(2)
+        fields["nbr"] = _meta((N, width), torch.int32)
         if over:
             fields["overflow"] = (_meta((over,), torch.int64),
                                   _meta((over,), torch.int64),
@@ -212,7 +211,7 @@ def _gnn_batch_struct(entry: ArchEntry, shape: ShapeSpec, mesh
         senders=_meta((E,), torch.int32), receivers=_meta((E,), torch.int32),
         node_mask=_meta((N,), torch.bool), edge_mask=_meta((E,), torch.bool),
         graph_ids=_meta((N,), torch.int32), n_graphs=n_graphs, **fields)
-    return batch, sh
+    return batch, graph_batch_shardings(mesh, batch)
 
 
 def _gnn_flops(entry: ArchEntry, cfg, batch: GraphBatch) -> float:

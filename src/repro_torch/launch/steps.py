@@ -12,11 +12,18 @@ A parameter that the loss never reads (MACE's ``mix_v`` and ``mix_t``)
 has no autograd gradient; the steps give it a zero one, as ``jax.grad``
 does, so AdamW's weight decay still moves it.
 
-The LM steps take a ``ShardCtx`` (``sctx``): the caller places the
-parameters and AdamW's moments once by ``sharding.lm_param_shardings`` on
-its mesh (:func:`place_lm`), as the reference's ``in_shardings`` do, and
-each data rank computes on its contiguous block of the global batch, as
-GSPMD splits it.
+Every step takes a ``ShardCtx`` (``sctx``), and the caller places the
+state once on its mesh, as the reference's ``in_shardings`` do: the LM's
+parameters and AdamW's moments by ``sharding.lm_param_shardings``
+(:func:`place_lm`), each data rank computing on its contiguous block of
+the global batch, as GSPMD splits it; a GNN's replicated
+(:func:`place_gnn`), its batch's node and edge arrays split over every
+mesh axis (:func:`place_graph_batch`, which the GNN steps run on a batch
+of plain tensors); SASRec's by ``sharding.rec_param_shardings``, the item
+table's rows over the model axis (:func:`place_rec`), the batch over the
+data axes.  Under a context a replicated parameter's gradient, a partial
+sum over the ranks that split its activations, is all-reduced before
+AdamW's global norm, so every rank clips alike.
 """
 from __future__ import annotations
 
@@ -32,7 +39,10 @@ from ..models.gnn.common import GraphBatch
 from ..models.sasrec import SASRec
 from ..models.transformer import ShardCtx, TransformerConfig, TransformerLM
 from ..optim import adamw
-from .sharding import lm_param_shardings, place_params, place_tensors
+from ..placement import maybe_implicit
+from .sharding import (graph_batch_shardings, lm_param_shardings,
+                       place_params, place_tensors, rec_param_shardings,
+                       replicated)
 
 GNN_MODULES = {"gcn-cora": gcn, "gin-tu": gin, "schnet": schnet, "mace": mace}
 # each arch's model: ``GNN_MODELS[arch](cfg, params=None, *, device=None,
@@ -55,27 +65,67 @@ def _grads(named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return grads
 
 
-def place_lm(model: TransformerLM, opt_state: Optional[Dict],
-             sctx: ShardCtx) -> None:
-    """Place ``model``'s parameters and ``opt_state``'s moments (in
-    place) by ``lm_param_shardings`` on ``sctx.mesh``: ZeRO-sharded state,
-    Megatron-split projections.  The step counter stays a plain tensor,
-    the same on every rank.  Called once, before the steps."""
-    shardings = lm_param_shardings(sctx.mesh, dict(model.named_parameters()))
+def _place(model: nn.Module, opt_state: Optional[Dict], rule,
+           sctx: ShardCtx) -> None:
+    shardings = rule(sctx.mesh, dict(model.named_parameters()))
     place_params(model, shardings)
     if opt_state is not None:
         for key in ("m", "v"):
             opt_state[key] = place_tensors(opt_state[key], shardings)
 
 
-def _check_placed(model: TransformerLM, sctx: ShardCtx) -> None:
+def place_lm(model: TransformerLM, opt_state: Optional[Dict],
+             sctx: ShardCtx) -> None:
+    """Place ``model``'s parameters and ``opt_state``'s moments (in
+    place) by ``lm_param_shardings`` on ``sctx.mesh``: ZeRO-sharded state,
+    Megatron-split projections.  The step counter stays a plain tensor,
+    the same on every rank.  Called once, before the steps."""
+    _place(model, opt_state, lm_param_shardings, sctx)
+
+
+def place_gnn(model: nn.Module, opt_state: Optional[Dict],
+              sctx: ShardCtx) -> None:
+    """Place a GNN's parameters and ``opt_state``'s moments (in place)
+    replicated on ``sctx.mesh``, as the reference's GNN cells do.  Called
+    once, before the steps."""
+    _place(model, opt_state, replicated, sctx)
+
+
+def place_rec(model: SASRec, opt_state: Optional[Dict],
+              sctx: ShardCtx) -> None:
+    """Place SASRec's parameters and ``opt_state``'s moments (in place) by
+    ``rec_param_shardings``: the item table's rows over the model axis,
+    the rest replicated.  Called once, before the steps."""
+    _place(model, opt_state, rec_param_shardings, sctx)
+
+
+def _check_placed(model: nn.Module, sctx: ShardCtx, place: str) -> None:
     """Raise unless ``model``'s parameters are on ``sctx.mesh`` (its first
     one checked): a step under a context runs on a placed state."""
-    p = model.embed
+    p = next(model.parameters())
     if not is_dtensor(p) or p.device_mesh != sctx.mesh:
-        raise ValueError("the parameters are not placed on the context's "
-                         "mesh: call place_lm(model, opt_state, sctx) once "
-                         "before the steps")
+        raise ValueError(f"the parameters are not placed on the context's "
+                         f"mesh: call {place}(model, opt_state, sctx) once "
+                         f"before the steps")
+
+
+def place_graph_batch(batch: GraphBatch, sctx: ShardCtx) -> GraphBatch:
+    """``batch`` (global tensors, the same on every rank) placed by
+    ``sharding.graph_batch_shardings``, the reference's ``flat_shard``:
+    each rank keeps its block of every node and edge array, with no
+    communication.  A field that is a DTensor already (a rank's own
+    shard, say) stays."""
+    import dataclasses
+
+    def place(t, sh):
+        return t if is_dtensor(t) else sh.distribute(t)
+
+    out = {}
+    for f, sh in graph_batch_shardings(sctx.mesh, batch).items():
+        t = getattr(batch, f)
+        out[f] = (tuple(map(place, t, sh)) if f == "overflow"
+                  else place(t, sh))
+    return dataclasses.replace(batch, **out)
 
 
 def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
@@ -104,7 +154,7 @@ def lm_train_step(model: TransformerLM, opt_cfg: adamw.AdamWConfig,
     n_micro = max(cfg.n_microbatches, 1)
     n_data = 1
     if sctx is not None:
-        _check_placed(model, sctx)
+        _check_placed(model, sctx, "place_lm")
         n_data = sctx.dp_size
     tokens = torch.as_tensor(tokens, device=model.device).long()
     labels = torch.as_tensor(labels, device=model.device).long()
@@ -147,7 +197,7 @@ def lm_prefill_step(model: TransformerLM, tokens,
     placed by :func:`place_lm`) data rank r prefills the r-th contiguous
     block of rows; the logits and k, v are DTensors."""
     if sctx is not None:
-        _check_placed(model, sctx)
+        _check_placed(model, sctx, "place_lm")
     return model.prefill(tokens, sctx=sctx)
 
 
@@ -158,7 +208,7 @@ def lm_decode_step(model: TransformerLM, cache, token,
     ``sctx``, the parameters placed by :func:`place_lm`: gathered,
     decoded and placed back)."""
     if sctx is not None:
-        _check_placed(model, sctx)
+        _check_placed(model, sctx, "place_lm")
     return model.decode_step(cache, token, sctx=sctx)
 
 
@@ -176,64 +226,98 @@ def lm_cache_shape(cfg: TransformerConfig, batch: int, seq_len: int):
     return (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
 
 
+def _train(model: nn.Module, opt_cfg: adamw.AdamWConfig, opt_state: Dict,
+           loss_fn, sctx: Optional[ShardCtx]) -> Dict[str, torch.Tensor]:
+    """``loss_fn()``'s backward and AdamW, in place; the metrics as
+    tensors (plain tensors, the same on every rank, under ``sctx``)."""
+    named = dict(model.named_parameters())
+    for p in named.values():
+        p.grad = None
+    with maybe_implicit(sctx):
+        loss, metrics = loss_fn()
+        loss.backward()
+    grads = _grads(named)
+    _, opt_metrics = adamw.apply_updates(opt_cfg, named, grads, opt_state)
+    for p in named.values():
+        p.grad = None
+    return {"loss": whole(loss.detach()),
+            **{k: whole(v.detach()) for k, v in metrics.items()},
+            **opt_metrics}
+
+
 def gnn_train_step(model: nn.Module, opt_cfg: adamw.AdamWConfig,
-                   opt_state: Dict, batch: GraphBatch
+                   opt_state: Dict, batch: GraphBatch,
+                   sctx: Optional[ShardCtx] = None
                    ) -> Dict[str, torch.Tensor]:
     """One step of any of the four GNN models (``GNN_MODELS``): loss,
     backward and AdamW, in place on ``model``'s parameters and
     ``opt_state``.  Returns the metrics ``loss``, the model's own
-    (``nll`` or ``mse``), ``lr`` and ``grad_norm`` as tensors."""
-    named = dict(model.named_parameters())
-    for p in named.values():
-        p.grad = None
-    loss, metrics = model.loss_fn(batch)
-    loss.backward()
-    grads = _grads(named)
-    _, opt_metrics = adamw.apply_updates(opt_cfg, named, grads, opt_state)
-    for p in named.values():
-        p.grad = None
-    return {"loss": loss.detach(),
-            **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}
+    (``nll`` or ``mse``), ``lr`` and ``grad_norm`` as tensors.
+
+    Under ``sctx`` (the state placed by :func:`place_gnn`) the batch is
+    placed by :func:`place_graph_batch` (every rank given the same global
+    batch, or its own shards as DTensors) and each rank computes on its
+    node and edge rows; the gradients are the whole graph's."""
+    if sctx is not None:
+        _check_placed(model, sctx, "place_gnn")
+        batch = place_graph_batch(batch, sctx)
+    return _train(model, opt_cfg, opt_state,
+                  lambda: model.loss_fn(batch, sctx=sctx), sctx)
 
 
 @torch.no_grad()
-def gnn_forward_step(model: nn.Module, batch: GraphBatch) -> torch.Tensor:
+def gnn_forward_step(model: nn.Module, batch: GraphBatch,
+                     sctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """The model's output on one batch, without gradients: GIN's logits
     (n_graphs, n_classes), GCN's (N, n_classes), SchNet's and MACE's
-    energies (n_graphs,)."""
-    return model(batch)
+    energies (n_graphs,).  Under ``sctx`` as :func:`gnn_train_step`: a
+    DTensor (GCN's logits node rows, the rest replicated)."""
+    if sctx is None:
+        return model(batch)
+    _check_placed(model, sctx, "place_gnn")
+    with sctx.implicit():
+        return model(place_graph_batch(batch, sctx), sctx=sctx)
 
 
 def rec_train_step(model: SASRec, opt_cfg: adamw.AdamWConfig,
-                   opt_state: Dict, item_seq, pos_items,
-                   neg_items) -> Dict[str, torch.Tensor]:
+                   opt_state: Dict, item_seq, pos_items, neg_items,
+                   sctx: Optional[ShardCtx] = None
+                   ) -> Dict[str, torch.Tensor]:
     """One step: the BPR loss, backward and AdamW, in place on ``model``'s
     parameters and ``opt_state``.  The item table's gradient is dense, as
     ``jax.grad`` gives it.  Returns the metrics ``loss``, ``bpr``, ``lr``
-    and ``grad_norm`` as tensors."""
-    named = dict(model.named_parameters())
-    for p in named.values():
-        p.grad = None
-    loss, metrics = model.loss_fn(item_seq, pos_items, neg_items)
-    loss.backward()
-    grads = _grads(named)
-    _, opt_metrics = adamw.apply_updates(opt_cfg, named, grads, opt_state)
-    for p in named.values():
-        p.grad = None
-    return {"loss": loss.detach(),
-            **{k: v.detach() for k, v in metrics.items()}, **opt_metrics}
+    and ``grad_norm`` as tensors.  Under ``sctx`` (the state placed by
+    :func:`place_rec`; every rank given the same global batch) data rank r
+    computes on the r-th contiguous block of rows, and the table's
+    gradient stays split over the model axis, summed over the data
+    axes."""
+    if sctx is not None:
+        _check_placed(model, sctx, "place_rec")
+    return _train(model, opt_cfg, opt_state, lambda: model.loss_fn(
+        item_seq, pos_items, neg_items, sctx=sctx), sctx)
 
 
 @torch.no_grad()
-def rec_serve_step(model: SASRec, item_seq, candidates) -> torch.Tensor:
+def rec_serve_step(model: SASRec, item_seq, candidates,
+                   sctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Scores (B, C) of each user's candidates, from the state at the last
-    position of their (B, S) history."""
-    states = model.encode(item_seq)
-    return model.score_candidates(states[:, -1], candidates)
+    position of their (B, S) history (under ``sctx`` a DTensor of rows
+    over the data axes, or replicated where B does not divide)."""
+    if sctx is not None:
+        _check_placed(model, sctx, "place_rec")
+    with maybe_implicit(sctx):
+        states = model.encode(item_seq, sctx)
+        return model.score_candidates(states[:, -1], candidates, sctx)
 
 
 @torch.no_grad()
-def rec_retrieval_step(model: SASRec, item_seq) -> torch.Tensor:
-    """Scores (B, n_items) of each user against the whole item table."""
-    states = model.encode(item_seq)
-    return model.retrieval_scores(states[:, -1])
+def rec_retrieval_step(model: SASRec, item_seq,
+                       sctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """Scores (B, n_items) of each user against the whole item table
+    (under ``sctx`` a DTensor split over the model axis on the item
+    dimension: the table is never gathered)."""
+    if sctx is not None:
+        _check_placed(model, sctx, "place_rec")
+    with maybe_implicit(sctx):
+        states = model.encode(item_seq, sctx)
+        return model.retrieval_scores(states[:, -1], sctx)

@@ -8,6 +8,26 @@ table that the ``segment_matmul`` kernel reads; :func:`split_neighbors`
 builds it from the edge list, no wider than a cap, with the edges past the
 cap apart.  It adds no feature: a sum over ``nbr`` and the overflow equals
 the edge list's ``scatter_sum`` up to f32 summation order.
+
+Sharding: :func:`scatter_sum`, :func:`gather`, :func:`degree` and
+:func:`graph_readout` take a :class:`~repro_torch.placement.ShardCtx`
+(``sctx``).  Under it the node and edge arrays are DTensors whose rows
+lie over every mesh axis (``sctx.rows_pl``, the reference's
+``flat_shard``), senders and receivers hold global node ids, and each op
+is an explicit region on the local shards (``sctx.local``), never
+DTensor's default rules for ``index_select`` and ``index_add_``:
+  * gather: the node values all-gathered, then this rank's edges read
+    from them; its backward adds each edge's gradient into a full-N
+    partial sum, reduce-scattered back to node rows;
+  * scatter: this rank's edges added into a full-N partial sum, then
+    reduce-scattered to node rows (GSPMD all-reduces there; a
+    reduce-scatter moves half the bytes and leaves the rows where the
+    node arrays live); its backward all-gathers the node gradient;
+  * readout: this rank's (n_graphs, ...) partial sum, all-reduced.
+A replicated table gathered by node rows (the species embeddings) takes
+no all-gather; its gradient is a partial sum that the step all-reduces.
+The models' forwards under a context run in ``ShardCtx.implicit()``, and
+so do their backwards (``launch.steps`` does both).
 """
 from __future__ import annotations
 
@@ -62,7 +82,18 @@ def _mask_rows(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                        torch.zeros((), dtype=vals.dtype, device=vals.device))
 
 
-def scatter_sum(edge_vals, receivers, n_nodes, edge_mask=None):
+def scatter_sum(edge_vals, receivers, n_nodes, edge_mask=None, sctx=None):
+    """(n_nodes, ...) sums of the (unmasked) edge rows into their
+    receivers; under ``sctx`` node rows over every axis (see the
+    module's docstring)."""
+    if sctx is not None:
+        rows = sctx.rows_pl
+        args = (edge_vals, receivers) + (
+            () if edge_mask is None else (edge_mask,))
+        part = sctx.local(
+            lambda v, r, *m: scatter_sum(v, r, n_nodes, *m),
+            [sctx.partial_pl], [rows] * len(args))(*args)
+        return part.redistribute(sctx.mesh, rows)
     if edge_mask is not None:
         edge_vals = _mask_rows(edge_vals, edge_mask)
     out = torch.zeros((n_nodes,) + tuple(edge_vals.shape[1:]),
@@ -70,17 +101,24 @@ def scatter_sum(edge_vals, receivers, n_nodes, edge_mask=None):
     return out.index_add_(0, receivers.long(), edge_vals)
 
 
-def gather(node_vals, idx):
+def gather(node_vals, idx, sctx=None):
+    """``node_vals[idx]``; under ``sctx`` ``idx`` (rows over every axis)
+    holds global row ids of ``node_vals`` (node rows, or replicated)."""
+    if sctx is not None:
+        rows = sctx.rows_pl
+        return sctx.local(lambda v, i: gather(v, i), [rows],
+                          [sctx.replicated_pl, rows],
+                          [sctx.partial_pl, rows])(node_vals, idx)
     return node_vals.index_select(0, idx.long())
 
 
-def degree(receivers, n_nodes, edge_mask=None):
-    ones = torch.ones(receivers.shape[0], dtype=torch.float32,
-                      device=receivers.device)
-    return scatter_sum(ones, receivers, n_nodes, edge_mask)
+def degree(receivers, n_nodes, edge_mask=None, sctx=None):
+    ones = torch.ones_like(receivers, dtype=torch.float32)
+    return scatter_sum(ones, receivers, n_nodes, edge_mask, sctx)
 
 
-def graph_readout(node_vals, graph_ids, n_graphs, node_mask, op="sum"):
+def graph_readout(node_vals, graph_ids, n_graphs, node_mask, op="sum",
+                  sctx=None):
     """Per-graph sum (or mean) of the unmasked node rows.
 
     On the CPU the sum is ``scatter_sum``'s ``index_add_``, which adds the
@@ -89,7 +127,24 @@ def graph_readout(node_vals, graph_ids, n_graphs, node_mask, op="sum"):
     run to run, so the sum is a one-hot (n_graphs, N) product instead: a
     fixed order, the same bits every run, and its gradient through the
     matmul.  (It follows the matmul settings, e.g. TF32, as every linear
-    layer of the model does.)"""
+    layer of the model does.)  Under ``sctx`` each rank sums its node
+    rows and the partial sums are all-reduced: the result is
+    replicated."""
+    if sctx is not None:
+        rows = sctx.rows_pl
+
+        def region(fn, *args):
+            part = sctx.local(fn, [sctx.partial_pl], [rows] * len(args))(
+                *args)
+            return part.redistribute(sctx.mesh, sctx.replicated_pl)
+
+        s = region(lambda v, g, m: graph_readout(v, g, n_graphs, m),
+                   node_vals, graph_ids, node_mask)
+        if op == "sum":
+            return s
+        cnt = region(lambda m, g: scatter_sum(m.float(), g, n_graphs),
+                     node_mask, graph_ids)
+        return s / torch.clamp(cnt[:, None], min=1.0)
     vals = _mask_rows(node_vals, node_mask)
     if vals.is_cuda:
         ids = torch.arange(n_graphs, device=vals.device)

@@ -7,6 +7,11 @@ A layer keeps the reference's order: the linear first, then the gather
 and ``index_add_`` scatter of the d_out-wide ``h * dinv`` rows.  No kernel
 runs: ``segment_matmul`` would gather the layer's input rows (64 to 1433
 wide at GCN's cells) where this gathers 16-wide ones.
+
+Under a ``ShardCtx`` (``sctx``) the node and edge arrays, the labels
+among them, lie over every mesh axis (``common``'s regions), and the
+loss's masked mean takes its two sums over the global mask, each
+all-reduced.
 """
 from __future__ import annotations
 
@@ -40,31 +45,35 @@ class GCN(GraphModel):
     """GCN on one device (see :class:`~.common.GraphModel`)."""
     init = staticmethod(init_params)
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
+    def forward(self, batch: GraphBatch, sctx=None) -> torch.Tensor:
         """Logits (N, n_classes) in ``cfg.dtype``."""
         self._check_device(batch.node_feat)
         n = batch.n_nodes
         # symmetric normalization with self-loops: deg includes self
-        deg = degree(batch.receivers, n, batch.edge_mask) + 1.0
+        deg = degree(batch.receivers, n, batch.edge_mask, sctx) + 1.0
         dinv = torch.rsqrt(torch.clamp(deg, min=1e-9))[:, None]
         x = batch.node_feat.to(self.cfg.dtype)
         for i, layer in enumerate(self["layers"]):
             h = linear(layer, x)
-            msg = gather(h * dinv, batch.senders)
-            agg = scatter_sum(msg, batch.receivers, n, batch.edge_mask)
+            msg = gather(h * dinv, batch.senders, sctx)
+            agg = scatter_sum(msg, batch.receivers, n, batch.edge_mask,
+                              sctx)
             x = (agg + h * dinv) * dinv   # includes the self-loop
             if i < self.cfg.n_layers - 1:
                 x = torch.relu(x)
         return x
 
-    def loss_fn(self, batch: GraphBatch):
+    def loss_fn(self, batch: GraphBatch, sctx=None):
         """Mean cross-entropy of the (N,) labels over the unmasked nodes,
         in f32: (nll, {"nll": nll})."""
-        logits = self(batch).float()
+        logits = self(batch, sctx=sctx).float()
         labels = batch.labels.long()
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[:, None])[:, 0]
         mask = batch.node_mask
-        nll = torch.where(mask, logz - gold, 0.0).sum() / torch.clamp(
-            mask.sum(), min=1)
+        total = torch.where(mask, logz - gold, 0.0).sum()
+        count = mask.sum()
+        if sctx is not None:
+            total, count = sctx.replicate(total), sctx.replicate(count)
+        nll = total / torch.clamp(count, min=1)
         return nll, {"nll": nll}

@@ -25,6 +25,19 @@ list for its backward (:class:`_HubSum`): on ogb_products' RMAT stand-in
 autograd, would take 35 GiB a layer.  Which
 layout a batch takes follows from its shape, never from a failed build or
 launch.
+
+Under a ``ShardCtx`` (``sctx``) the batch carries its table and its
+overflow, built for the global graph (``split_neighbors`` has
+data-dependent sizes, so a sharded step takes them as given): ``nbr``'s
+rows lie with the node rows over every mesh axis and hold global sender
+ids into the gathered ``x`` (``segment_matmul``'s region).  The overflow
+edges (senders and ``hub_of``) lie over every axis too, in blocks of any
+size, and ``hubs`` is replicated: each rank adds the gathered rows of its
+own overflow edges into an f32 full-N partial sum (each into its hub's
+node row), reduce-scattered to the node rows, and multiplies its rows by
+W1 (a row with no overflow edge adds an exact zero), so the hub product
+runs on the rank's rows, never on every hub on every rank.  The sum
+readout is all-reduced, so the logits and the loss are replicated.
 """
 from __future__ import annotations
 
@@ -81,6 +94,27 @@ class _HubSum(torch.autograd.Function):
         for c in range(0, senders.numel(), step):
             gx.index_add_(0, senders[c:c + step], grad[hub_of[c:c + step]])
         return gx.to(ctx.x_dtype), None, None, None
+
+
+def _add_hubs(h, x, w1, over_s, hub_of, hubs, sctx):
+    """``h`` with each hub row's overflow sum times W1 added (see the
+    module's docstring for the sharded form)."""
+    if sctx is None:
+        agg = _HubSum.apply(x, over_s, hub_of, hubs.shape[0])
+        return h.index_add(0, hubs, (agg @ w1.float()).to(h.dtype))
+    n = h.shape[0]
+
+    def hub_rows(v, s, j, hb):
+        # each overflow edge into its hub's node row: a full-N partial
+        return _HubSum.apply(v, s, hb[j], n)
+
+    rows, rep = sctx.rows_pl, sctx.replicated_pl
+    part = sctx.local(hub_rows, [sctx.partial_pl], [rep, rows, rows, rep],
+                      [sctx.partial_pl, rows, rows, rep])(
+                          x, over_s, hub_of, hubs)
+    agg = part.redistribute(sctx.mesh, rows)
+    # a row without overflow edges adds an exact zero
+    return h + (agg @ w1.float()).to(h.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,13 +190,17 @@ class GIN(nn.Module):
     def device(self) -> torch.device:
         return self.readout["w"].device
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
-        """Logits (n_graphs, n_classes) in ``cfg.dtype``."""
+    def forward(self, batch: GraphBatch, sctx=None) -> torch.Tensor:
+        """Logits (n_graphs, n_classes) in ``cfg.dtype`` (under ``sctx``
+        replicated)."""
         if batch.node_feat.device != self.device:
             raise ValueError(f"batch on {batch.node_feat.device}, model on "
                              f"{self.device}")
         x = batch.node_feat.to(self.cfg.dtype)
         nbr, hubs = batch.nbr, None
+        if sctx is not None and nbr is None:
+            raise ValueError("a sharded GIN batch carries its neighbour "
+                             "table (nbr, and overflow where it has one)")
         if nbr is not None and batch.overflow is not None:
             over_s, hub_of, hubs = batch.overflow
         elif nbr is None:
@@ -175,20 +213,22 @@ class GIN(nn.Module):
         for layer in self.layers:
             l1 = layer.mlp["l1"]
             w1 = l1["w"].to(x.dtype)
+            # under a context the rows gathered once for both sums
+            xs, kw = (x, {}) if sctx is None else (sctx.replicate(x),
+                                                   {"sctx": sctx})
             h = ((1.0 + layer.eps.to(x.dtype)) * (x @ w1)
-                 + segment_matmul(x, nbr, w1) + l1["b"].to(x.dtype))
+                 + segment_matmul(xs, nbr, w1, **kw) + l1["b"].to(x.dtype))
             if hubs is not None:
-                agg = _HubSum.apply(x, over_s, hub_of, hubs.shape[0])
-                h = h.index_add(0, hubs, (agg @ w1.float()).to(h.dtype))
+                h = _add_hubs(h, xs, w1, over_s, hub_of, hubs, sctx)
             x = linear(layer.mlp["l2"], torch.relu(h))
         pooled = graph_readout(x, batch.graph_ids, batch.n_graphs,
-                               batch.node_mask, op="sum")
+                               batch.node_mask, op="sum", sctx=sctx)
         return linear(self.readout, pooled)
 
-    def loss_fn(self, batch: GraphBatch):
+    def loss_fn(self, batch: GraphBatch, sctx=None):
         """Mean cross-entropy of the (n_graphs,) labels, in f32: (nll,
         {"nll": nll})."""
-        logits = self(batch).float()
+        logits = self(batch, sctx=sctx).float()
         labels = batch.labels.long()
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, labels[:, None])[:, 0]

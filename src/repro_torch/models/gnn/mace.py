@@ -16,6 +16,11 @@ Bessel functions with a polynomial cutoff (p = 6).  No kernel runs.
 the reference (its ``forward`` keeps them "exercised" only in a comment):
 their gradient is zero and weight decay still moves them
 (``launch/steps.py`` gives a parameter without a gradient a zero one).
+
+Under a ``ShardCtx`` (``sctx``) the radial MLPs and the edge tensors run on
+this rank's edges (positions and channel-mixed features gathered by
+``common``'s region), the moments A0-A2 scatter through its region into
+node rows, and the energies are replicated.
 """
 from __future__ import annotations
 
@@ -55,8 +60,11 @@ def bessel_rbf(dist, n_rbf: int, cutoff: float):
 
 
 def _traceless(m):
-    tr = torch.diagonal(m, dim1=-2, dim2=-1).sum(-1)
+    # the trace as a masked sum: DTensor shards it by the rules of a
+    # product and a sum, where torch 2.11 has none for the backward of
+    # ``torch.diagonal``
     eye = torch.eye(3, dtype=m.dtype, device=m.device)
+    tr = (m * eye).sum((-2, -1))
     return m - tr[..., None, None] / 3.0 * eye
 
 
@@ -96,16 +104,17 @@ class MACE(GraphModel):
     """MACE on one device (see :class:`~.common.GraphModel`)."""
     init = staticmethod(init_params)
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
+    def forward(self, batch: GraphBatch, sctx=None) -> torch.Tensor:
         """Per-graph energies (n_graphs,) in ``cfg.dtype``; equivariant
         internals."""
         cfg = self.cfg
         self._check_device(batch.positions)
         n = batch.n_nodes
         recv, mask = batch.receivers, batch.edge_mask
-        h = self["embed"].to(cfg.dtype)[batch.species.long()]   # (N, C)
-        ri = gather(batch.positions, recv)
-        rj = gather(batch.positions, batch.senders)
+        h = gather(self["embed"].to(cfg.dtype), batch.species,
+                   sctx)                                 # (N, C)
+        ri = gather(batch.positions, recv, sctx)
+        rj = gather(batch.positions, batch.senders, sctx)
         rel = (rj - ri).to(cfg.dtype)                            # (E, 3)
         dist = torch.sqrt(torch.clamp((rel ** 2).sum(-1), min=1e-12))
         unit = rel / dist[:, None]
@@ -114,18 +123,18 @@ class MACE(GraphModel):
         y1 = unit                                                # (E, 3)
         y2 = _traceless(unit[:, :, None] * unit[:, None, :])     # (E, 3, 3)
 
-        energies = torch.zeros((n,), dtype=cfg.dtype, device=h.device)
+        energies = None
         for lp in self["layers"]:
-            hj = _mix_channels(lp["mix_in"], h)[batch.senders.long()]
+            hj = gather(_mix_channels(lp["mix_in"], h), batch.senders, sctx)
             r0 = mlp2(lp["R0"], rbf) * hj                        # (E, C)
             r1 = mlp2(lp["R1"], rbf) * hj
             r2 = mlp2(lp["R2"], rbf) * hj
             # A-features: aggregated equivariant moments
-            A0 = scatter_sum(r0, recv, n, mask)                  # (N, C)
+            A0 = scatter_sum(r0, recv, n, mask, sctx)            # (N, C)
             A1 = scatter_sum(r1[:, :, None] * y1[:, None, :], recv, n,
-                             mask)                               # (N, C, 3)
+                             mask, sctx)                         # (N, C, 3)
             A2 = scatter_sum(r2[:, :, None, None] * y2[:, None, :, :], recv,
-                             n, mask)                            # (N, C, 3, 3)
+                             n, mask, sctx)                      # (N, C, 3, 3)
             # B-features: invariant contractions up to correlation order 3
             b1 = A0                                              # order 1
             b2 = (A1 * A1).sum(-1)                               # 1x1->0
@@ -139,11 +148,13 @@ class MACE(GraphModel):
             B = (w_b[0] * b1 + w_b[1] * b2 + w_b[2] * b3
                  + w_b[3] * b4 + w_b[4] * b5 + w_b[5] * b6)
             h = h + mlp2(lp["update"], B)                        # scalars
-            energies = energies + mlp2(self["energy_head"], h)[:, 0]
+            e = mlp2(self["energy_head"], h)[:, 0]
+            # the reference adds each layer's energies to zeros: 0 + e = e
+            energies = e if energies is None else energies + e
         return graph_readout(energies, batch.graph_ids, batch.n_graphs,
-                             batch.node_mask, op="sum")
+                             batch.node_mask, op="sum", sctx=sctx)
 
-    def loss_fn(self, batch: GraphBatch):
+    def loss_fn(self, batch: GraphBatch, sctx=None):
         """Mean squared error of the (n_graphs,) energies, in f32: (mse,
         {"mse": mse})."""
-        return energy_mse(self(batch), batch.labels)
+        return energy_mse(self(batch, sctx=sctx), batch.labels)

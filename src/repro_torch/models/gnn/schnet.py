@@ -6,6 +6,12 @@ Continuous-filter convolution: W(r_ij) ⊙ h_j, gathered from the senders
 and scattered into the receivers by ``index_add_``, under a cosine
 envelope; per-atom energies summed per graph by ``graph_readout`` (a
 one-hot product on the card).  No kernel runs.
+
+Under a ``ShardCtx`` (``sctx``) the per-edge RBF filter runs on this
+rank's edges: the positions are gathered (all-gathered, then read) for
+its senders and its receivers, the species embeddings read from the
+replicated table, and the convolution scattered by ``common``'s regions;
+the energies are replicated.
 """
 from __future__ import annotations
 
@@ -72,30 +78,31 @@ class SchNet(GraphModel):
     init = staticmethod(init_params)
     depth = ("interactions", "n_interactions")
 
-    def forward(self, batch: GraphBatch) -> torch.Tensor:
+    def forward(self, batch: GraphBatch, sctx=None) -> torch.Tensor:
         """Per-graph energies (n_graphs,) in ``cfg.dtype``."""
         cfg = self.cfg
         self._check_device(batch.positions)
         n = batch.n_nodes
-        x = self["embed"].to(cfg.dtype)[batch.species.long()]
-        ri = gather(batch.positions, batch.receivers)
-        rj = gather(batch.positions, batch.senders)
+        x = gather(self["embed"].to(cfg.dtype), batch.species, sctx)
+        ri = gather(batch.positions, batch.receivers, sctx)
+        rj = gather(batch.positions, batch.senders, sctx)
         dist = torch.sqrt(torch.clamp(((ri - rj) ** 2).sum(-1), min=1e-12))
         rbf = rbf_expand(dist, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
         env = envelope(dist, cfg.cutoff)[:, None].to(cfg.dtype)
         for blk in self["interactions"]:
             w = mlp2(blk["filter"], rbf, act=shifted_softplus) * env
-            hj = gather(linear(blk["in_lin"], x), batch.senders)
-            agg = scatter_sum(hj * w, batch.receivers, n, batch.edge_mask)
+            hj = gather(linear(blk["in_lin"], x), batch.senders, sctx)
+            agg = scatter_sum(hj * w, batch.receivers, n, batch.edge_mask,
+                              sctx)
             x = x + mlp2(blk["out"], agg, act=shifted_softplus)
         atom_e = mlp2(self["energy_head"], x, act=shifted_softplus)[:, 0]
         return graph_readout(atom_e, batch.graph_ids, batch.n_graphs,
-                             batch.node_mask, op="sum")
+                             batch.node_mask, op="sum", sctx=sctx)
 
-    def loss_fn(self, batch: GraphBatch):
+    def loss_fn(self, batch: GraphBatch, sctx=None):
         """Mean squared error of the (n_graphs,) energies, in f32: (mse,
         {"mse": mse})."""
-        return energy_mse(self(batch), batch.labels)
+        return energy_mse(self(batch, sctx=sctx), batch.labels)
 
 
 def energy_mse(energy, target):

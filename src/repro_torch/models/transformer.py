@@ -34,26 +34,28 @@ An MoE layer routes and dispatches all the tokens of its call at once, the
 capacity counted over them (a microbatch's in training, the whole prompt's
 in ``prefill``, the batch's one token each in ``decode_step``).
 
-Sharding: ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take a
-:class:`ShardCtx` (``sctx``), the reference's GSPMD hints as DTensor
-redistributions.  Under it the parameters are DTensors placed by
-``launch.sharding.lm_param_shardings`` (``launch.steps.place_lm``), the
-batch is a DTensor of rows split over the data axes (each data rank
-keeps its contiguous block of the global batch it is given), and
-``sctx.cs`` places the activations where the reference constrains them.
-Ops with a DTensor rule (the projections, norms, SwiGLU) run on DTensors;
-RoPE, the attention (the flash kernels or the chunked attention), the MoE
-dispatch and the loss run on each rank's local shard under ``local_map``:
-the attention is local to a batch shard and a head shard.  Without
-``moe_local_dispatch`` an MoE layer gathers its tokens to every rank and
-dispatches them all (what GSPMD does implicitly); with it each data rank
-dispatches its own shard (``moe_apply_local``, the shard count taken from
-the mesh) and the aux loss is the shards' mean.  ``decode_step`` under a
-context gathers the parameters and the cache and decodes on every rank,
-as the reference's ``decode_step``, which reads no context, leaves
-placement to its inputs.  Without a context every path is the one-device
-model, unchanged; a ``moe_local_dispatch`` config without one dispatches
-globally, as the reference does.
+Sharding: ``forward``, ``loss_fn``, ``prefill`` and ``decode_step`` take
+a :class:`ShardCtx` (``sctx``; defined in ``repro_torch.placement``,
+which the GNNs and SASRec share, and re-exported here), the reference's
+GSPMD hints as DTensor redistributions.  Under it the parameters are
+DTensors placed by ``launch.sharding.lm_param_shardings``
+(``launch.steps.place_lm``), the batch is a DTensor of rows split over
+the data axes (each data rank keeps its contiguous block of the global
+batch it is given), and ``sctx.cs`` places the activations where the
+reference constrains them.  Ops with a DTensor rule (the projections,
+norms, SwiGLU) run on DTensors; RoPE, the attention (the flash kernels
+or the chunked attention), the MoE dispatch and the loss run on each
+rank's local shard under ``local_map``: the attention is local to a
+batch shard and a head shard.  Without ``moe_local_dispatch`` an MoE
+layer gathers its tokens to every rank and dispatches them all (what
+GSPMD does implicitly); with it each data rank dispatches its own shard
+(``moe_apply_local``, the shard count taken from the mesh) and the aux
+loss is the shards' mean.  ``decode_step`` under a context gathers the
+parameters and the cache and decodes on every rank, as the reference's
+``decode_step``, which reads no context, leaves placement to its inputs.
+Without a context every path is the one-device model, unchanged; a
+``moe_local_dispatch`` config without one dispatches globally, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..devices import (is_dtensor, randn, resolve_device, seeded_generator,
                        whole)
 from ..kernels.flash_attention.ops import flash_attention
-from ..placement import fix_divisibility, mesh_axes, placements
+from ..placement import ShardCtx, all_reduce, dtensor_types, mesh_axes
 from .layers import (AttnParamsSpec, apply_rope, attention_xla,
                      attention_xla_chunked, attn_project, attn_qkv,
                      init_attn, init_mlp, make_attention_mask, mlp_swiglu,
@@ -82,89 +84,7 @@ CHUNKED_ATTN_THRESHOLD = 2048
 
 
 def _dtensor_types():
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    return DTensor, Partial, Replicate
-
-
-@dataclasses.dataclass(frozen=True)
-class ShardCtx:
-    """Activation placements threaded through the model: the reference's
-    GSPMD hints as DTensor redistributions.  ``mesh`` is a ``DeviceMesh``;
-    ``dp`` the data-parallel axis name or names (("pod", "data") folds the
-    pod axis into data); ``model`` the tensor-parallel axis."""
-    mesh: Any
-    dp: Any
-    model: str = "model"
-
-    @property
-    def dp_axes(self) -> tuple:
-        return self.dp if isinstance(self.dp, tuple) else (self.dp,)
-
-    @property
-    def dp_size(self) -> int:
-        sizes = mesh_axes(self.mesh)
-        return int(np.prod([sizes[a] for a in self.dp_axes]))
-
-    def data_rank(self) -> int:
-        """This rank's index among the data shards, row-major over the
-        data axes (JAX's order)."""
-        sizes, r = mesh_axes(self.mesh), 0
-        for a in self.dp_axes:
-            r = r * sizes[a] + self.mesh.get_local_rank(a)
-        return r
-
-    def placements(self, shape, *spec) -> tuple:
-        """``spec``'s placements for ``shape``, an axis that does not
-        divide its dimension dropped (replicated), as the reference's
-        ``cs``."""
-        return placements(fix_divisibility(spec, shape, self.mesh),
-                          self.mesh)
-
-    def cs(self, x, *spec):
-        """``x`` redistributed to ``spec``'s placements; identity on a
-        plain tensor."""
-        if not is_dtensor(x):
-            return x
-        pl = self.placements(x.shape, *spec)
-        return x if tuple(x.placements) == pl else x.redistribute(
-            self.mesh, pl)
-
-    def replicate(self, x):
-        return self.cs(x, *([None] * x.dim()))
-
-    def batch(self, x: torch.Tensor):
-        """A global (B, ...) tensor, the same on every rank, as a DTensor
-        of rows over the data axes: each data rank keeps its contiguous
-        block (every rank keeps all rows when B does not divide)."""
-        pl = self.placements(x.shape, self.dp, *([None] * (x.dim() - 1)))
-        n = self.dp_size if any(p.is_shard() for p in pl) else 1
-        rows = x.shape[0] // n
-        r = self.data_rank() if n > 1 else 0
-        return _dtensor_types()[0].from_local(
-            x[r * rows:(r + 1) * rows], self.mesh, pl, run_check=False)
-
-    def grad_placements(self, act_placements) -> tuple:
-        """The placements of the gradient of a replicated parameter used
-        with activations placed ``act_placements``: partial sums over
-        every mesh dimension that splits the activations, replicated over
-        the others (where every rank computes the same gradient)."""
-        _, Partial, Replicate = _dtensor_types()
-        return tuple(Partial() if p.is_shard() else Replicate()
-                     for p in act_placements)
-
-    def local(self, fn, outs, ins, grads=None):
-        """``fn`` on each rank's local shards (``local_map``): ``outs``
-        lists the placements of each output, ``ins`` of each input (the
-        inputs are redistributed to them first) and ``grads`` of each
-        input's gradient (``ins`` when None)."""
-        from torch.distributed.tensor.experimental import local_map
-        outs = [list(p) for p in outs]
-        return local_map(
-            fn, out_placements=outs[0] if len(outs) == 1 else tuple(outs),
-            in_placements=tuple(list(p) for p in ins),
-            in_grad_placements=None if grads is None else tuple(
-                list(p) for p in grads),
-            device_mesh=self.mesh, redistribute_inputs=True)
+    return dtensor_types()[:3]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -765,11 +685,6 @@ class _NextTokenNLL(torch.autograd.Function):
         return grad.reshape(logits.shape), None
 
 
-def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
-    f = torch.ops._c10d_functional
-    return f.wait_tensor(f.all_reduce(t, op, group.group_name))
-
-
 class _VocabShardNLL(torch.autograd.Function):
     """:class:`_NextTokenNLL` of logits whose vocabulary is split over a
     group (this rank's slice starting at ``v0``), as GSPMD computes the
@@ -790,14 +705,14 @@ class _VocabShardNLL(torch.autograd.Function):
                           device=logits.device)
         for r in range(0, flat.shape[0], rows):
             top[r:r + rows] = flat[r:r + rows].float().amax(-1)
-        top = _all_reduce(top, "max", group)
+        top = all_reduce(top, "max", group)
         sums, gold = torch.empty_like(top), torch.empty_like(top)
         for r in range(0, flat.shape[0], rows):
             x = flat[r:r + rows].float()
             sums[r:r + rows] = torch.exp(x - top[r:r + rows, None]).sum(-1)
             gold[r:r + rows] = torch.gather(x, -1, idx[r:r + rows])[:, 0]
-        gold = _all_reduce(torch.where(mine, gold, 0.0), "sum", group)
-        logz = top + torch.log(_all_reduce(sums, "sum", group))
+        gold = all_reduce(torch.where(mine, gold, 0.0), "sum", group)
+        logz = top + torch.log(all_reduce(sums, "sum", group))
         ctx.save_for_backward(logits, idx, mine, logz)
         return (logz - gold).mean()
 

@@ -1,6 +1,6 @@
-"""The rule that turns a sharding spec into DTensor placements, shared by
-the models (``models.transformer.ShardCtx``) and the launch layer
-(``launch.sharding``).
+"""The rule that turns a sharding spec into DTensor placements, and the
+:class:`ShardCtx` the models run under, shared by the models (the LM, the
+GNNs, SASRec) and the launch layer (``launch.sharding``, ``launch.steps``).
 
 A *spec* has one entry a tensor dimension, as a ``PartitionSpec`` does:
 an axis name, a tuple of axis names, or None.  Its placements have one
@@ -12,11 +12,21 @@ falls back to replicated (:func:`fix_divisibility`).
 
 A mesh here is a ``DeviceMesh`` or anything with a ``shape`` mapping axis
 names to sizes (``launch.mesh.MeshShape``, when only sizes are reckoned).
+
+A dimension over every axis (the GNNs' node and edge arrays, the
+reference's ``flat_shard``) is ``Shard(0)`` on every mesh dimension:
+DTensor splits over the first mesh dimension, then each part over the
+next, so rank (d, m) of a ("data", "model") mesh holds block d·M + m,
+JAX's row-major flattening of the axes.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from typing import Any, Dict, Tuple
+
+from .devices import is_dtensor
 
 Spec = Tuple[Any, ...]
 
@@ -65,3 +75,134 @@ def placements(spec: Spec, mesh) -> tuple:
             raise ValueError(f"axis {name!r} shards dimensions {dims}")
         out.append(Shard(dims[0]) if dims else Replicate())
     return tuple(out)
+
+
+def dtensor_types():
+    """(DTensor, Partial, Replicate, Shard), imported when first needed."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    return DTensor, Partial, Replicate, Shard
+
+
+def all_reduce(t, op: str, group):
+    """``t`` reduced by ``op`` ("sum", "max") over ``group``: a functional
+    collective, which ``launch.collectives.LocalCounter`` records."""
+    import torch
+    f = torch.ops._c10d_functional
+    return f.wait_tensor(f.all_reduce(t, op, group.group_name))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Activation placements threaded through the models: the reference's
+    GSPMD hints as DTensor redistributions, and the explicit regions
+    (``local``) where an op runs on each rank's local shards.  ``mesh`` is
+    a ``DeviceMesh``; ``dp`` the data-parallel axis name or names
+    (("pod", "data") folds the pod axis into data); ``model`` the
+    tensor-parallel axis."""
+    mesh: Any
+    dp: Any
+    model: str = "model"
+
+    @property
+    def dp_axes(self) -> tuple:
+        return self.dp if isinstance(self.dp, tuple) else (self.dp,)
+
+    @property
+    def dp_size(self) -> int:
+        sizes = mesh_axes(self.mesh)
+        return math.prod(sizes[a] for a in self.dp_axes)
+
+    def data_rank(self) -> int:
+        """This rank's index among the data shards, row-major over the
+        data axes (JAX's order)."""
+        sizes, r = mesh_axes(self.mesh), 0
+        for a in self.dp_axes:
+            r = r * sizes[a] + self.mesh.get_local_rank(a)
+        return r
+
+    def placements(self, shape, *spec) -> tuple:
+        """``spec``'s placements for ``shape``, an axis that does not
+        divide its dimension dropped (replicated), as the reference's
+        ``cs``."""
+        return placements(fix_divisibility(spec, shape, self.mesh),
+                          self.mesh)
+
+    def cs(self, x, *spec):
+        """``x`` redistributed to ``spec``'s placements; identity on a
+        plain tensor."""
+        if not is_dtensor(x):
+            return x
+        pl = self.placements(x.shape, *spec)
+        return x if tuple(x.placements) == pl else x.redistribute(
+            self.mesh, pl)
+
+    def replicate(self, x):
+        return self.cs(x, *([None] * x.dim()))
+
+    def batch(self, x):
+        """A global (B, ...) tensor, the same on every rank, as a DTensor
+        of rows over the data axes: each data rank keeps its contiguous
+        block (every rank keeps all rows when B does not divide)."""
+        pl = self.placements(x.shape, self.dp, *([None] * (x.dim() - 1)))
+        n = self.dp_size if any(p.is_shard() for p in pl) else 1
+        rows = x.shape[0] // n
+        r = self.data_rank() if n > 1 else 0
+        return dtensor_types()[0].from_local(
+            x[r * rows:(r + 1) * rows], self.mesh, pl, run_check=False)
+
+    # ------------------------------------------ every axis (GNN arrays)
+    @property
+    def rows_pl(self) -> tuple:
+        """Placements of a tensor whose dimension 0 is split over every
+        mesh axis (``Shard(0)`` on each mesh dimension)."""
+        return (dtensor_types()[3](0),) * self.mesh.ndim
+
+    @property
+    def replicated_pl(self) -> tuple:
+        return (dtensor_types()[2](),) * self.mesh.ndim
+
+    @property
+    def partial_pl(self) -> tuple:
+        """Placements of per-rank partial sums over every mesh axis."""
+        return (dtensor_types()[1](),) * self.mesh.ndim
+
+    def implicit(self):
+        """The context in which plain tensors (a model's constants: RBF
+        centres, Bessel orders, the identity) act as replicated DTensors,
+        which the GNN and SASRec forwards under a context need.  Autograd
+        keeps those constants plain, so the backward runs in it too.  Inside
+        one already open it does nothing (``implicit_replication`` would
+        switch the flag off on its way out)."""
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
+        if DTensor._op_dispatcher._allow_implicit_replication:
+            return contextlib.nullcontext()
+        return implicit_replication()
+
+    def grad_placements(self, act_placements) -> tuple:
+        """The placements of the gradient of a replicated parameter used
+        with activations placed ``act_placements``: partial sums over
+        every mesh dimension that splits the activations, replicated over
+        the others (where every rank computes the same gradient)."""
+        _, Partial, Replicate, _ = dtensor_types()
+        return tuple(Partial() if p.is_shard() else Replicate()
+                     for p in act_placements)
+
+    def local(self, fn, outs, ins, grads=None):
+        """``fn`` on each rank's local shards (``local_map``): ``outs``
+        lists the placements of each output, ``ins`` of each input (the
+        inputs are redistributed to them first) and ``grads`` of each
+        input's gradient (``ins`` when None)."""
+        from torch.distributed.tensor.experimental import local_map
+        outs = [list(p) for p in outs]
+        return local_map(
+            fn, out_placements=outs[0] if len(outs) == 1 else tuple(outs),
+            in_placements=tuple(list(p) for p in ins),
+            in_grad_placements=None if grads is None else tuple(
+                list(p) for p in grads),
+            device_mesh=self.mesh, redistribute_inputs=True)
+
+
+def maybe_implicit(sctx):
+    """``sctx.implicit()``, or no context without one."""
+    return contextlib.nullcontext() if sctx is None else sctx.implicit()

@@ -16,10 +16,13 @@ counterpart of the JAX package's ``launch/hlo.py``, and the mesh half of
       where its CPU version runs matmuls the counter sees, so with it the
       two op streams would differ by construction;
   (c) against the reference's ``analyze_hlo`` of the same cell compiled
-      for a (2, 2) mesh of host devices: per-device FLOPs;
+      for a (2, 2) mesh of host devices: per-device FLOPs, for qwen3-4b
+      cut to 2 layers and for the 14 GNN and SASRec cells of
+      ``GRAPH_REF_CELLS`` (gin-tu's by-design products apart, by formula);
   (d) at a (1, 1) mesh the trace's FLOPs are the one-card ``measure``'s;
       at 16x16 the state bytes are ``_device_bytes``'s;
-  (e) ``run_cell`` at 16x16 and 2x16x16 and the ``--mesh`` CLI;
+  (e) ``run_cell`` at 16x16 and 2x16x16 and the ``--mesh`` CLI: the LM
+      cells and every GNN and SASRec cell;
   and ``FilledCollectives`` writes every collective's output.
 
 A fake group is process-wide, so every trace runs in a spawned process of
@@ -42,6 +45,7 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from repro_torch.configs import registry
 from repro_torch.launch import collectives as col
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import MeshShape
@@ -119,7 +123,6 @@ def test_links_follow_nodes_of_eight_ranks():
 
 # ------------------------------------------- (b) the trace and a real run
 def _cfg(arch):
-    from repro_torch.configs import registry
     return dataclasses.replace(registry.get(arch).smoke_config,
                                dtype=torch.float32, attention_impl="xla")
 
@@ -224,9 +227,9 @@ def test_sites_follow_microbatches_and_recomputation(work):
 
 # --------------------------------------------------- (c) against the reference
 # the reference's cell compiled for a (2, 2) mesh of 4 host devices and
-# ``analyze_hlo``d; its attention products (the only dots with batch
-# dimensions) counted apart: the same text analysed with them made
-# custom calls
+# ``analyze_hlo``d (argv: "arch/shape"; the LM cut to 2 layers); an LM's
+# attention products (the only dots with batch dimensions) counted apart:
+# the same text analysed with them made custom calls
 REFERENCE_SCRIPT = textwrap.dedent("""
     import os
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -234,24 +237,38 @@ REFERENCE_SCRIPT = textwrap.dedent("""
     import jax
     import numpy as np
     from jax.sharding import Mesh
+    from repro.configs.registry import get
     from repro.launch.hlo import analyze_hlo
     from repro.launch.specs import build_lowerable
 
     mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
     batched = re.compile(r"(=\\s*\\S+\\s+)dot(\\(.*lhs_batch_dims=\\{\\d)")
     out = {}
-    for shape in sys.argv[1:]:
-        low = build_lowerable("qwen3-4b", shape, mesh,
-                              overrides={"n_layers": 2})
+    for cell in sys.argv[1:]:
+        arch, shape = cell.split("/")
+        lm = get(arch).family == "lm"
+        low = build_lowerable(arch, shape, mesh,
+                              overrides={"n_layers": 2} if lm else None)
         text = low.lower(mesh).compile().as_text()
         a = analyze_hlo(text)
-        b = analyze_hlo(batched.sub(r"\\1custom-call\\2", text))
-        out[shape] = {"flops": a.flops, "attention": a.flops - b.flops,
-                      "ops": a.collectives.ops,
-                      "wire": a.collectives.wire_bytes}
+        b = analyze_hlo(batched.sub(r"\\1custom-call\\2", text)) if lm \\
+            else a
+        out[cell] = {"flops": a.flops, "attention": a.flops - b.flops,
+                     "ops": a.collectives.ops,
+                     "wire": a.collectives.wire_bytes}
     print(json.dumps(out))
 """)
 REF_SHAPES = ("train_4k", "prefill_32k")
+# (c): the GNN and SASRec cells held against the reference's analysis
+GRAPH_REF_CELLS = (
+    ("gcn-cora", "full_graph_sm"), ("gcn-cora", "ogb_products"),
+    ("gin-tu", "full_graph_sm"), ("gin-tu", "minibatch_lg"),
+    ("gin-tu", "molecule"), ("gin-tu", "ogb_products"),
+    ("schnet", "molecule"), ("schnet", "ogb_products"),
+    ("mace", "molecule"), ("mace", "ogb_products"),
+    ("sasrec", "serve_p99"), ("sasrec", "serve_bulk"),
+    ("sasrec", "train_batch"), ("sasrec", "retrieval_cand"))
+GRAPH_ARCHS = ("gcn-cora", "gin-tu", "schnet", "mace", "sasrec")
 
 
 def _port_records(cells):
@@ -261,8 +278,15 @@ def _port_records(cells):
 
 
 TWO = {"n_layers": 2}
-# the port's records of (c), (d) and (e), in two processes of about the
-# same work
+
+
+def _graph_records(mesh, archs):
+    return {(mesh, a, s): (a, s, mesh, None) for a in archs
+            for s in registry.get(a).shapes}
+
+
+# the port's records of (c), (d) and (e), in processes of about the same
+# work
 RECORD_GROUPS = (
     {("ref", "train_4k"): ("qwen3-4b", "train_4k", MeshShape((2, 2), AXES),
                            TWO),
@@ -273,7 +297,15 @@ RECORD_GROUPS = (
                               MeshShape((2, 2), AXES), TWO),
      **{("16x16", a, s): (a, s, "16x16", TWO)
         for a in ("qwen3-4b", "mixtral-8x22b")
-        for s in ("train_4k", "prefill_32k")}})
+        for s in ("train_4k", "prefill_32k")}},
+    # the GNN and SASRec records: (c)'s at (2, 2), then (e)'s every cell
+    # at 16x16 and 2x16x16, in three processes of about the same work
+    {**{("ref", a, s): (a, s, MeshShape((2, 2), AXES), None)
+        for a, s in GRAPH_REF_CELLS},
+     **_graph_records("16x16", ("gcn-cora", "sasrec"))},
+    {**_graph_records("16x16", ("gin-tu", "schnet", "mace")),
+     **_graph_records("2x16x16", ("gin-tu", "sasrec"))},
+    _graph_records("2x16x16", ("gcn-cora", "schnet", "mace")))
 
 
 @pytest.fixture(scope="module")
@@ -286,9 +318,11 @@ def work(tmp_path_factory):
     src = os.path.join(os.path.dirname(__file__), "..", "src")
     env["PYTHONPATH"] = os.pathsep.join(
         [src] + [p for p in [env.get("PYTHONPATH")] if p])
-    ref = subprocess.Popen([sys.executable, "-c", REFERENCE_SCRIPT,
-                            *REF_SHAPES], env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True)
+    ref = subprocess.Popen(
+        [sys.executable, "-c", REFERENCE_SCRIPT,
+         *[f"qwen3-4b/{shape}" for shape in REF_SHAPES],
+         *[f"{a}/{shape}" for a, shape in GRAPH_REF_CELLS]], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
         with ProcessPoolExecutor(1 + len(RECORD_GROUPS), mp_context=(
                 multiprocessing.get_context("spawn")),
@@ -322,7 +356,7 @@ def test_per_device_flops_agree_with_the_reference(work, shape):
     sides, so there the whole counts agree too; in training the flash
     kernels compute the causal pairs, XLA all of them.  Both sides'
     collectives are printed: XLA and DTensor choose different ones."""
-    ref, port = work["reference"][shape], work[("ref", shape)]
+    ref, port = work["reference"][f"qwen3-4b/{shape}"], work[("ref", shape)]
     attention = sum(port["flops_kernels"].values())
     port_rest = port["flops"] - attention
     ref_rest = ref["flops"] - ref["attention"]
@@ -384,12 +418,98 @@ def test_production_meshes_trace_ok(work, mesh):
 
 @pytest.mark.parametrize("mesh", ["16x16", "2x16x16"])
 @pytest.mark.parametrize("arch", ["gcn-cora", "sasrec"])
-def test_gnn_and_sasrec_cells_are_skipped_on_a_mesh(arch, mesh):
-    from repro_torch.configs import registry
-    for shape in registry.get(arch).shapes:
-        rec = dryrun.run_cell(arch, shape, mesh=mesh)
-        assert rec["status"] == "skipped" and rec["mesh"] == mesh
-        assert rec["reason"] == dryrun.MESH_SKIP
+def test_gnn_and_sasrec_cells_are_skipped_on_a_mesh(work, arch, mesh):
+    """(The name is from when these records were skipped.)  Every record
+    of ``arch``'s family at ``mesh`` (the four GNN models, or SASRec) is
+    ok: the step traced under a ``ShardCtx`` as one device, its state
+    bytes (parameters, and AdamW's for the training kinds) those of the
+    placements reckoned from the mesh's shape alone, its collectives on
+    the mesh's dimensions, a three-term roofline at the f32 peak."""
+    family = registry.get(arch).family
+    archs = [a for a in GRAPH_ARCHS if registry.get(a).family == family]
+    for a in archs:
+        for shape in registry.get(a).shapes:
+            rec = work[(mesh, a, shape)]
+            assert rec["status"] == "ok" and rec["mesh"] == mesh, rec
+            assert "reason" not in rec
+            assert rec["chips"] == (256 if mesh == "16x16" else 512)
+            assert rec["param_bytes"] \
+                == rec["placement_bytes"]["param_bytes"] > 0
+            assert rec["opt_bytes"] == rec["placement_bytes"]["opt_bytes"]
+            train = rec["kind"] in dryrun.TRAIN_KINDS
+            # two f32 moments a parameter and the step counter
+            assert rec["opt_bytes"] == (2 * rec["param_bytes"] + 4
+                                        if train else 0)
+            assert rec["peak_bytes"] >= rec["state_alloc_bytes"] > 0
+            assert rec["fits_h100_80gb"]
+            assert rec["roofline"]["peak_flops"] == dryrun.H100_FLOPS[
+                "float32"]
+            assert set(rec["collectives"]["groups"]) <= {
+                "pod", "data", "model"}
+            assert rec["collectives"]["wire_bytes"] > 0
+            if a == "gin-tu":
+                assert rec["flops_kernels"]["segment_matmul"] > 0
+            if a == "sasrec":
+                assert rec["bytes_kernels"]["dht_gather"] > 0
+
+
+def _gin_by_design(shape_name, chips=4):
+    """(segment_matmul's FLOPs, every by-design FLOP) of gin-tu's cell as
+    one device of ``chips``: the port computes a layer as ``(1 + eps) (x @
+    W1) + segment_matmul(x, nbr, W1)`` (plus, where the cell has overflow
+    edges, the hub rows times W1), the reference as one product of the
+    summed rows.  On M = N / chips node rows, a layer of input width D and
+    F = d_hidden: the kernel's M K D slot sums and 2 M D F product, its
+    2 M D F weight gradient and, past layer 0, its 2 M D F input gradient;
+    the hub rows' product, weight gradient and (past layer 0) input
+    gradient, 2 M D F each; less the reference's input gradient at layer
+    0 (2 M D F), which its eps needs and the port's (a scale of x @ W1)
+    does not."""
+    from repro_torch.launch.specs import _gnn_sizes, gin_table_sizes
+    entry = registry.get("gin-tu")
+    cfg = entry.config
+    N, E, _, d_feat = _gnn_sizes(entry.shapes[shape_name], chips)
+    K, over, _ = gin_table_sizes(N, E)
+    M, F = N // chips, cfg.d_hidden
+    kernel = extra = 0
+    for layer in range(cfg.n_layers):
+        D = d_feat if layer == 0 else F
+        prod = 2 * M * D * F
+        backward = 1 + (layer > 0)
+        kernel += M * K * D + prod
+        extra += M * K * D + prod * (1 + backward)
+        if over:
+            extra += prod * (1 + backward)
+        if layer == 0:
+            extra -= prod
+    return kernel, extra
+
+
+@pytest.mark.parametrize("cell", GRAPH_REF_CELLS, ids="-".join)
+def test_graph_cells_flops_agree_with_the_reference(work, cell):
+    """At (2, 2) the port's per-device FLOPs, gin-tu's by-design products
+    set apart (``_gin_by_design``: its kernel's share asserted exactly),
+    agree with the reference's ``analyze_hlo`` within ``REL_TRAIN``.  Both
+    sides' collectives are printed: GSPMD all-gathers and all-reduces;
+    DTensor reduce-scatters the node rows of each scatter and all-reduces
+    each replicated parameter's gradient on its own."""
+    arch, shape = cell
+    ref, port = work["reference"]["/".join(cell)], work[("ref", *cell)]
+    extra = 0
+    if arch == "gin-tu":
+        kernel, extra = _gin_by_design(shape)
+        assert port["flops_kernels"] == {"segment_matmul": kernel}
+    else:
+        assert "segment_matmul" not in port["flops_kernels"]
+    rest = port["flops"] - extra
+    print(json.dumps({
+        "cell": "/".join(cell), "port_flops": port["flops"],
+        "by_design": extra, "ref_flops": ref["flops"],
+        "ratio": rest / ref["flops"],
+        "port_collectives": port["collectives"]["ops"],
+        "port_wire": port["collectives"]["wire_bytes"],
+        "ref_collectives": ref["ops"], "ref_wire": ref["wire"]}))
+    assert abs(rest - ref["flops"]) <= REL_TRAIN * ref["flops"]
 
 
 def test_mesh_cli_runs_an_lm_cell(tmp_path, capsys):
