@@ -307,10 +307,15 @@ CUDA toolkit.  It:
    step's and all wgmma; one mixtral layer at full width with
    ``moe_local_dispatch`` under the context bit-equal to ``moe_apply``,
    and ``moe_apply_local`` at 2 and 4 shards on that layer's input
-   against a float64 host computation of the per-shard dispatch;
-   (c) the plain state checkpointed and restored with ``shardings=``
-   onto the mesh, bit-equal, and ``TrainRunner(shardings=)`` over the
-   sharded step preempted and resumed, bit-equal to an uninterrupted run;
+   against a float64 host computation of the per-shard dispatch; the
+   sharded decode on the same rank: qwen3-4b at full width, 4 layers,
+   bf16, a 1,024-token prompt at B 8 prefilled, its cache grown to 2,048
+   slots and placed by ``place_cache``, 4 decode steps under the context
+   bit-equal to the plain model's (logits and cache), no kernel launched,
+   CUDA-event ms of each; (c) the plain state checkpointed and restored
+   with ``shardings=`` onto the mesh, bit-equal, and
+   ``TrainRunner(shardings=)`` over the sharded step preempted and
+   resumed, bit-equal to an uninterrupted run;
    (d) the four ``examples/torch_*.py`` on the card; (e) SDPA's backward
    at G 5 and 6 (40/8 and 48/8 heads, (1, 4096, H, 128) bf16, causal);
 17. the ``launch_mesh`` phase, one device of the 16x16 mesh: (a) ``python
@@ -342,7 +347,16 @@ CUDA toolkit.  It:
    times a SASRec step (counted from 0 around each step), and first one
    region call of each kernel on the rank's own shards against its plain
    version on the same shards (``segment_matmul`` within
-   ``ref.product_limit``, ``dht_gather`` bit-equal; uncounted);
+   ``ref.product_limit``, ``dht_gather`` bit-equal; uncounted); then the
+   decode cells at full depth, qwen3-4b and mixtral decode_32k and gemma3
+   long_500k (the sharded decode: parameters and KV cache stay split),
+   each placed by ``place_lm`` and ``place_cache``, its parameter and
+   cache shards drawn on the card: state bytes (parameters and cache)
+   equal to the trace's, one step's peak and 3 warm steps' ms beside the
+   trace's, finite logits, and a step that writes the new key and value
+   at their slot (set to NaN before) and nowhere else on rank 0, which
+   owns it (gemma3's slots split over "data": slot 1,004 of its ring);
+   every decode record of (a) within 80 GB;
 18. prints one ``{"kernels": [...]}`` line (dht_gather: the first
    connectivity solve's root-label read, with its launches by phase
    (the engine's solves, the serving phases, the routed phase's 0, the
@@ -4297,6 +4311,11 @@ FULL_DEPTH_WEIGHT_GB = {"llama4-scout-17b-a16e": 215.5, "mixtral-8x22b": 281.3}
 # f32 parameters and AdamW) fit beside one step's activations
 LAUNCH_LAYERS, LAUNCH_BATCH = 4, 2
 LAUNCH_LOCAL_SHARDS = (2, 4)
+# the one-rank sharded decode: qwen3-4b at LAUNCH_LAYERS layers, a prompt
+# of this many tokens at this batch prefilled, its cache grown to this many
+# slots, then this many steps
+LAUNCH_DECODE_BATCH, LAUNCH_DECODE_PROMPT = 8, 1024
+LAUNCH_DECODE_SLOTS, LAUNCH_DECODE_STEPS = 2048, 4
 EXAMPLE_RUNS = (("torch_quickstart", []), ("torch_graph_analytics", []),
                 ("torch_train_lm", ["--tiny", "--steps", "20"]),
                 ("torch_serve_lm", []))
@@ -4554,6 +4573,74 @@ def launch_moe(sctx):
     torch.cuda.empty_cache()
 
 
+def launch_decode(sctx):
+    """qwen3-4b at full width, LAUNCH_LAYERS layers, bf16: a prompt of
+    LAUNCH_DECODE_PROMPT tokens at B LAUNCH_DECODE_BATCH prefilled by the
+    plain model, its cache grown to LAUNCH_DECODE_SLOTS slots; a copy
+    placed by ``place_cache``; then LAUNCH_DECODE_STEPS decode steps of
+    the plain model and of the placed one under ``sctx`` (the
+    weight-stationary decode on the rank's blocks: at one rank the whole
+    of each), each step's logits and the caches bit-equal, no kernel
+    launched; CUDA-event ms of each."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import TokenStreamConfig, batch_at_step
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import grow_cache
+    from repro_torch.models.transformer import TransformerLM
+    cfg = dataclasses.replace(registry.get(LM_ARCH).config,
+                              n_layers=LAUNCH_LAYERS)
+    t0 = time.perf_counter()
+    plain = TransformerLM(cfg, device="cuda", seed=LM_SEED,
+                          dtype=torch.bfloat16)
+    sharded = TransformerLM(cfg, device="cuda", seed=LM_SEED,
+                            dtype=torch.bfloat16)
+    steps.place_lm(sharded, None, sctx)
+    tokens, _ = batch_at_step(TokenStreamConfig(
+        cfg.vocab, LAUNCH_DECODE_PROMPT, LAUNCH_DECODE_BATCH,
+        seed=LM_DATA_SEED), 0)
+    tokens = torch.as_tensor(tokens, device="cuda").long()
+    _, cache = steps.lm_prefill_step(plain, tokens)
+    cache = grow_cache(cache, LAUNCH_DECODE_SLOTS)
+    placed = steps.place_cache({k: v.clone() for k, v in cache.items()},
+                               sctx)
+    tok = tokens[:, -1]
+    ms = {"plain": [], "sharded": []}
+    zero_launch_counts()
+    for _ in range(LAUNCH_DECODE_STEPS):
+        for name in ("plain", "sharded"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if name == "plain":
+                want, cache = steps.lm_decode_step(plain, cache, tok)
+            else:
+                got, placed = steps.lm_decode_step(sharded, placed, tok,
+                                                   sctx=sctx)
+            end.record()
+            torch.cuda.synchronize()
+            ms[name].append(start.elapsed_time(end))
+        check(bits_equal(got, want), "the sharded decode's logits differ "
+              "from the plain decode's")
+        tok = want.argmax(-1)
+    launches = launch_counts()
+    check(bits_equal(placed["k"], cache["k"])
+          and bits_equal(placed["v"], cache["v"])
+          and torch.equal(placed["length"], cache["length"]),
+          "the sharded decode's cache differs from the plain decode's")
+    check(not any(launches.values()), f"decode launched {launches}")
+    emit({"phase": "launch_decode", "arch": LM_ARCH, "mesh": "1x1",
+          "n_layers": LAUNCH_LAYERS, "batch": LAUNCH_DECODE_BATCH,
+          "prompt": LAUNCH_DECODE_PROMPT, "slots": LAUNCH_DECODE_SLOTS,
+          "steps": LAUNCH_DECODE_STEPS, "bit_equal": True,
+          "cache_placements": str(placed["k"].placements),
+          "logits_placements": str(got.placements),
+          "plain_ms": ms["plain"], "sharded_ms": ms["sharded"],
+          "seconds": time.perf_counter() - t0})
+    del plain, sharded, cache, placed
+    torch.cuda.empty_cache()
+
+
 def launch_restore(sctx, plain, opt):
     """The plain model's trained state checkpointed and restored with
     ``shardings=`` onto the mesh, bit-equal; then ``TrainRunner`` with
@@ -4696,9 +4783,9 @@ def sdpa_bwd_rows():
 def launch_phase():
     """The launch layer: (a) the dry-run of every cell (on the host, in the
     background of the card's work), its state bytes against the card;
-    (b) the sharded step on one NCCL rank; (c) elastic restore; (d) the
-    examples; (e) SDPA's backward at G 5 and 6.  Returns the sharded
-    step's launches."""
+    (b) the sharded step and the sharded decode on one NCCL rank; (c)
+    elastic restore; (d) the examples; (e) SDPA's backward at G 5 and 6.
+    Returns the sharded step's launches."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     proc, out, t_dry = dryrun_start()
@@ -4708,6 +4795,7 @@ def launch_phase():
         launch_restore(sctx, plain, opt)
         del plain, opt
         launch_moe(sctx)
+        launch_decode(sctx)
         dryrun_vs_card()
         launch_examples()
     except BaseException:
@@ -4746,6 +4834,14 @@ MESH_MOE_LAYERS = 18
 MESH_MOE_OVERRIDES = {"moe_local_dispatch": True}
 MESH_WARM_STEPS = 3
 MESH_SEED = 5
+# the decode cells run as rank 0 of 256 on the card at full depth, and the
+# cache's fill before the first step: decode_32k 16 tokens short of its
+# 32,768 (qwen3-4b's cache unwrapped, mixtral's 4,096-slot ring wrapped);
+# the long stream's ring wrapped once, its next slot, 1,000, on data rank 0
+MESH_DECODE_CELLS = (("qwen3-4b", "decode_32k"),
+                     ("mixtral-8x22b", "decode_32k"),
+                     ("gemma3-12b", "long_500k"))
+MESH_DECODE_LENGTH = {"decode_32k": 32768 - 16, "long_500k": 524288 + 1000}
 
 
 def stop(procs):
@@ -4825,6 +4921,9 @@ def mesh_dryrun_finish(procs, t0):
               f"{r.get('reason')} {r.get('error')}")
     ok = [r for r in recs if r["status"] == "ok"]
     check(len(ok) == MESH_OK_CELLS, f"{len(ok)} mesh records ok")
+    unfit = [f"{r['arch']}/{r['shape']}/{r['mesh']}" for r in ok
+             if r["kind"] == "decode" and not r["fits_h100_80gb"]]
+    check(not unfit, f"decode records past 80 GB: {unfit}")
     for r in ok:
         placed = r["placement_bytes"]
         check(r["param_bytes"] == placed["param_bytes"]
@@ -5193,13 +5292,129 @@ def mesh_graph_run(mesh, arch, shape_name, rec):
     return line
 
 
+def mesh_decode_run(mesh, arch, shape_name, rec):
+    """Rank 0 of ``mesh`` (16x16 over a 256-rank fake group) on the card
+    for a decode cell at full depth: built on ``meta``, placed by
+    ``place_lm`` and ``place_cache``, its parameter and cache shards drawn
+    from MESH_SEED on the card, the cache filled to MESH_DECODE_LENGTH;
+    ``memory_allocated`` of that state equal to the trace's
+    ``state_alloc_bytes``; then 1 + MESH_WARM_STEPS decode steps under
+    ``FilledCollectives`` on tokens of the rank's vocabulary rows, the
+    first step's ``max_memory_allocated`` beside the trace's peak, the warm
+    steps' CUDA-event ms beside the roofline's max(compute, memory),
+    finite logits; then one more step with the rank's block of the next
+    slot set to NaN: the slot, and no other, written with finite keys and
+    values on the owning rank."""
+    import gc
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import steps
+    from repro_torch.launch.collectives import FilledCollectives
+    from repro_torch.launch.specs import build_cell
+    from repro_torch.placement import ShardCtx, shard_axes
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    cell = build_cell(arch, shape_name, mesh)
+    model, meta_cache = cell.args[0], cell.args[1]
+    sctx = ShardCtx(mesh, "data")
+    steps.place_lm(model, None, sctx)
+    draw_local_shards(model, MESH_SEED)
+    placed = steps.place_cache(meta_cache, sctx)
+    g = torch.Generator(device="cuda").manual_seed(MESH_SEED)
+    cache = {}
+    for name in ("k", "v"):
+        t = placed[name]
+        cache[name] = DTensor.from_local(
+            torch.randn(t.to_local().shape, generator=g, device="cuda",
+                        dtype=t.dtype), mesh, t.placements, run_check=False,
+            shape=t.shape, stride=t.stride())
+    B, S = placed["k"].shape[1], placed["k"].shape[2]
+    length = MESH_DECODE_LENGTH[shape_name]
+    cache["length"] = torch.full((B,), length, dtype=torch.int32,
+                                 device="cuda")
+    del cell, placed, meta_cache
+    torch.cuda.synchronize()
+    state = torch.cuda.memory_allocated() - base
+    check(state == rec["state_alloc_bytes"], f"{arch} {shape_name}: the "
+          f"card allocated {state} bytes of state, the trace counts "
+          f"{rec['state_alloc_bytes']}")
+    vocab_rows = model.embed.to_local().shape[0]
+    tok = torch.randint(0, vocab_rows, (B,), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ms, finite = [], []
+    with FilledCollectives():
+        for i in range(1 + MESH_WARM_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, cache = steps.lm_decode_step(model, cache, tok,
+                                                 sctx=sctx)
+            end.record()
+            torch.cuda.synchronize()
+            finite.append(bool(torch.isfinite(logits.to_local()).all()))
+            if i == 0:
+                peak = torch.cuda.max_memory_allocated() - base
+            else:
+                ms.append(start.elapsed_time(end))
+        check(all(finite), f"{arch} {shape_name}: logits not finite")
+        # the next slot, in this rank's block of the slots
+        pl = cache["k"].placements
+        seq_axes = shard_axes(pl, mesh, 2)
+        slots = sctx.block(S, seq_axes)
+        slot = int(cache["length"][0]) % S
+        local = slot - slots.start
+        check(0 <= local < slots.stop - slots.start, f"{arch} "
+              f"{shape_name}: slot {slot} is not on rank 0's block {slots}")
+        blocks = [cache[n].to_local() for n in ("k", "v")]
+        for b in blocks:
+            b[:, :, local] = float("nan")
+        before = [b.clone() for b in blocks]
+        logits, cache = steps.lm_decode_step(model, cache, tok, sctx=sctx)
+        torch.cuda.synchronize()
+        for b, old in zip(blocks, before):
+            changed = (b != old).any(dim=(0, 1, 3, 4)).nonzero().flatten()
+            check(changed.tolist() == [local]
+                  and bool(torch.isfinite(b[:, :, local]).all()),
+                  f"{arch} {shape_name}: slots {changed.tolist()[:8]} "
+                  f"written, {local} expected")
+        del before
+    roof = rec["roofline"]
+    line = {"phase": "launch_mesh", "arch": arch, "shape": shape_name,
+            "mesh": "16x16", "rank": 0, "ranks": 256,
+            "n_layers": model.cfg.n_layers, "batch": B, "slots": S,
+            "length": length, "cache_placements": str(pl),
+            "state_bytes": state,
+            "trace_state_alloc_bytes": rec["state_alloc_bytes"],
+            "cache_bytes": rec["cache_bytes"],
+            "peak_bytes": peak, "trace_peak_bytes": rec["peak_bytes"],
+            "warm_ms": ms,
+            "bound_ms": 1e3 * max(roof["t_compute_s"], roof["t_memory_s"]),
+            "bound_by": "operations" if roof["t_compute_s"]
+            >= roof["t_memory_s"] else "bytes",
+            "collective_term": "absent: the group's collectives move no "
+                               "data (the trace's t_collective_s is "
+                               f"{roof['t_collective_s']})",
+            "trace_flops": rec["flops"], "trace_hbm_bytes": rec["hbm_bytes"],
+            "trace_wire_bytes": rec["collectives"]["wire_bytes"],
+            "logits_finite": True,
+            "slot_written": {"slot": slot, "local": local, "rank": 0},
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    del model, cache, logits, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 def launch_mesh_phase(procs, t_dry):
     """One device of the 16x16 mesh: (a) the sharded dry-run's records
     (started on the host earlier); (b) qwen3-4b train_4k at full depth,
     then mixtral train_4k at full depth if its record fits 80 GB, else
     the MoE cut that does (MESH_MOE_OVERRIDES at MESH_MOE_LAYERS layers,
     the deepest the trace fits: one layer more does not), each as rank 0
-    of a 256-rank group whose collectives move no data, on the card.
+    of a 256-rank group whose collectives move no data, on the card; then
+    the GNN and SASRec cells and the decode cells (MESH_DECODE_CELLS).
     Returns the launches of the two steps."""
     import gc
     import torch
@@ -5232,6 +5447,8 @@ def launch_mesh_phase(procs, t_dry):
         graph = [mesh_graph_run(mesh, arch, shape,
                                 recs[(arch, shape, "16x16")])
                  for arch, shape in MESH_GRAPH_CELLS]
+        for arch, shape in MESH_DECODE_CELLS:
+            mesh_decode_run(mesh, arch, shape, recs[(arch, shape, "16x16")])
     finally:
         dist.destroy_process_group()
     emit({"phase": "launch_mesh_seconds", "seconds": time.perf_counter() - t0,

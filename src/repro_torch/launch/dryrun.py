@@ -45,12 +45,11 @@ roofline with a collective term.  The placements divide evenly or fall
 back to replicated, so every rank runs the same program.  A fake group is
 process-wide: each (cell, mesh) runs in a process of its own under
 ``--jobs``, and :func:`run_cell` starts and ends the group around one
-record.  A decode cell runs as the port runs it under a context: every
-rank gathers the parameters and the cache (its ``notes`` say so).  A GNN
-or SASRec record has the LM records' fields, its roofline at the f32
-peak: the kernels' regions (``segment_matmul`` on the rank's node rows,
-``dht_gather`` on its slice of the item table) count their work on the
-local shards.
+record.  A decode record's state bytes include the rank's shards of the
+KV cache (``cache_bytes``).  A GNN or SASRec record has the LM records'
+fields, its roofline at the f32 peak: the kernels' regions
+(``segment_matmul`` on the rank's node rows, ``dht_gather`` on its slice
+of the item table) count their work on the local shards.
 
 A cell that fails writes an ``error`` record; the command exits 1 if any
 cell that is not skipped errs.  The reference's HLO parser
@@ -79,9 +78,6 @@ H100_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 H100_HBM_BYTES = 80e9
 MESHES = {"one": ("one",), "single": ("16x16",), "multi": ("2x16x16",),
           "both": ("16x16", "2x16x16")}
-DECODE_NOTE = ("decode under a ShardCtx gathers the parameters and the "
-               "cache on every rank (the sharded decode is a held item of "
-               "ROADMAP queue 1)")
 TRAIN_KINDS = ("train", "gnn_full", "gnn_sampled", "gnn_batched",
                "rec_train")
 TOP_SITES = 12
@@ -149,16 +145,22 @@ def _local(t: torch.Tensor) -> torch.Tensor:
 
 
 def _state_bytes(cell) -> dict:
-    """Parameter, gradient and optimizer bytes of a cell's arguments (of
-    their local shards, where they are placed)."""
+    """Parameter, gradient, optimizer and (a decode cell's) KV-cache bytes
+    of a cell's arguments (of their local shards, where they are placed);
+    ``state_alloc_bytes`` all of them, each tensor in the allocator's
+    blocks."""
     params = [_local(p) for p in _leaves(cell.args[0])]
     train = cell.kind in TRAIN_KINDS
     opt = [_local(t) for t in _leaves(cell.args[1])] if train else []
+    cache = ([_local(t) for t in _leaves(cell.args[1])]
+             if cell.kind == "decode" else [])
     return {"params": sum(p.numel() for p in params),
             "param_bytes": sum(_nbytes(p) for p in params),
             "grad_bytes": sum(_nbytes(p) for p in params) if train else 0,
             "opt_bytes": sum(_nbytes(t) for t in opt),
-            "state_alloc_bytes": sum(_alloc_bytes(t) for t in params + opt)}
+            "cache_bytes": sum(_nbytes(t) for t in cache),
+            "state_alloc_bytes": sum(_alloc_bytes(t)
+                                     for t in params + opt + cache)}
 
 
 def _device_bytes(cell, argnums=None) -> int:
@@ -350,10 +352,7 @@ def _mesh_record(rec: dict, arch: str, shape: str, shape_of,
     try:
         mesh = make_mesh(shape_of, "cpu")
         cell = build_cell(arch, shape, mesh, **kw)
-        notes = [n for n in (cell.notes,) if n]
-        if cell.kind == "decode":
-            notes.append(DECODE_NOTE)
-        rec.update(status="ok", kind=cell.kind, notes="; ".join(notes),
+        rec.update(status="ok", kind=cell.kind, notes=cell.notes,
                    **measure_mesh(cell, mesh))
         del cell
         # the same placements reckoned from the mesh's shape alone

@@ -4,6 +4,7 @@ state:
   * lm_train_step    — forward, backward and AdamW (microbatches)
   * lm_prefill_step  — the KV cache and the last position's logits
   * lm_decode_step   — one token against a (possibly ring) KV cache
+    (``place_cache`` places a prefill's cache for it once)
   * gnn_train_step / gnn_forward_step — the four GNN archs
     (``GNN_MODULES``)
   * rec_train_step / rec_serve_step / rec_retrieval_step — SASRec
@@ -40,9 +41,9 @@ from ..models.sasrec import SASRec
 from ..models.transformer import ShardCtx, TransformerConfig, TransformerLM
 from ..optim import adamw
 from ..placement import maybe_implicit
-from .sharding import (graph_batch_shardings, lm_param_shardings,
-                       place_params, place_tensors, rec_param_shardings,
-                       replicated)
+from .sharding import (graph_batch_shardings, kv_cache_shardings,
+                       lm_param_shardings, place_params, place_tensors,
+                       rec_param_shardings, replicated)
 
 GNN_MODULES = {"gcn-cora": gcn, "gin-tu": gin, "schnet": schnet, "mace": mace}
 # each arch's model: ``GNN_MODELS[arch](cfg, params=None, *, device=None,
@@ -204,12 +205,48 @@ def lm_prefill_step(model: TransformerLM, tokens,
 def lm_decode_step(model: TransformerLM, cache, token,
                    sctx: Optional[ShardCtx] = None):
     """(logits (B, V), the cache with ``length + 1``) of one (B,) token;
-    the new keys and values are written into ``cache`` in place (under
-    ``sctx``, the parameters placed by :func:`place_lm`: gathered,
-    decoded and placed back)."""
+    the new keys and values are written into ``cache`` in place.  Under
+    ``sctx`` the parameters are placed by :func:`place_lm` and the cache's
+    k and v by :func:`place_cache`; the step is weight-stationary (no
+    parameter or cache shard leaves its rank), the logits a DTensor of
+    rows over the data axes and the vocabulary over the model axis, the
+    cache in its placements.  A cache in other placements than
+    ``sharding.kv_cache_shardings``' raises ``ValueError``."""
     if sctx is not None:
         _check_placed(model, sctx, "place_lm")
+        _check_cache_placed(cache, sctx)
     return model.decode_step(cache, token, sctx=sctx)
+
+
+def _check_cache_placed(cache, sctx: ShardCtx) -> None:
+    """Raise unless the cache's k and v are DTensors on ``sctx.mesh`` in
+    ``sharding.kv_cache_shardings``' placements."""
+    shape = tuple(cache["k"].shape)
+    want = kv_cache_shardings(sctx.mesh, shape, shape[1]).placements
+    for name in ("k", "v"):
+        t = cache[name]
+        got = tuple(t.placements) if is_dtensor(t) else "a plain tensor"
+        if got != want or t.device_mesh != sctx.mesh:
+            raise ValueError(
+                f"the cache's {name!r} must arrive placed {want} on the "
+                f"context's mesh (sharding.kv_cache_shardings; place_cache "
+                f"places a prefill's cache once), not {got}")
+
+
+def place_cache(cache, sctx: ShardCtx):
+    """A KV cache ({"k", "v": (L, B, S, Hkv, hd), "length": (B,)}) with k
+    and v placed by ``sharding.kv_cache_shardings``, as the reference's
+    decode takes them: rows over the data axes where B splits over them,
+    else the slots over the data axis (one long stream), head_dim over the
+    model axis.  A prefill's cache (rows over the data axes, kv heads over
+    the model axis) is redistributed, plain tensors (the same on every
+    rank) distributed; ``length`` stays as it is.  Call it once, between
+    the prefill and the decode steps: the steps keep the placements."""
+    shape = tuple(cache["k"].shape)
+    sh = kv_cache_shardings(sctx.mesh, shape, shape[1])
+    placed = place_tensors({"k": cache["k"], "v": cache["v"]},
+                           {"k": sh, "v": sh})
+    return {**cache, **placed}
 
 
 def lm_cache_shape(cfg: TransformerConfig, batch: int, seq_len: int):

@@ -81,6 +81,40 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Q, H, D).to(q.dtype)
 
 
+def attention_decode_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           mask: torch.Tensor, hd_block: slice, reduce_hd,
+                           reduce_seq=None):
+    """One decode token's attention against one rank's block of the KV
+    cache: ``attention_xla`` with the cache split over head_dim and, for
+    a single long stream, over its slots.
+
+    q (b, 1, H, hd) is whole (qk-norm and RoPE, which pair dimension i
+    with i + hd/2, are applied before); k and v (b, S_l, Hkv, hd_l) are
+    the rank's block, ``hd_block`` the slice of head_dim it holds; mask
+    (b, 1, S_l) its slots'.  The scores are partial sums over head_dim
+    blocks, which ``reduce_hd(t)`` all-reduces.  Where ``reduce_seq(t,
+    op)`` is given the slots are split: a split-K softmax, the row maxima
+    and sums reduced by it, then the p·v partials.  Returns (b, 1, H,
+    hd_l), this rank's head_dim block of the output."""
+    b, Q, H, D = q.shape
+    Hkv = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qf = q[..., hd_block].float().reshape(b, Q, Hkv, H // Hkv, -1)
+    logits = reduce_hd(torch.einsum("bqhgd,bkhd->bhgqk", qf,
+                                    k.float())) * scale
+    logits = torch.where(mask[:, None, None, :, :], logits, NEG_INF)
+    if reduce_seq is None:
+        p = torch.softmax(logits, dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    else:
+        top = reduce_seq(logits.amax(-1, keepdim=True), "max")
+        p = torch.exp(logits - top)
+        total = reduce_seq(p.sum(-1), "sum")                # (b, Hkv, G, Q)
+        out = reduce_seq(torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()),
+                         "sum") / total.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, Q, H, -1).to(q.dtype)
+
+
 # q chunks that one KV step of the chunked attention takes at once: as many
 # as keep its (B, n, Hkv, G, cq, ck) f32 logits within this many elements
 # (1 GiB)
@@ -381,3 +415,16 @@ def mlp_swiglu(params, x: torch.Tensor, hidden_cs=None):
     if hidden_cs is not None:
         g, u = hidden_cs(g), hidden_cs(u)
     return (g * u) @ params["w_down"].to(x.dtype)
+
+
+def mlp_swiglu_block(params, x: torch.Tensor, d_block: slice, reduce_d,
+                     reduce_f):
+    """SwiGLU with the weights as one rank's blocks, the rank holding d's
+    block ``d_block`` and one block of f: gate and up are partial over the
+    d blocks (``reduce_d(t)`` all-reduces them), the SiLU product runs on
+    the f block, and down is partial over the f blocks (``reduce_f``).
+    ``x`` (..., d) is whole; returns this rank's d block of the output."""
+    xb = x[..., d_block]
+    g = F.silu(reduce_d(xb @ params["w_gate"].to(x.dtype)))
+    u = reduce_d(xb @ params["w_up"].to(x.dtype))
+    return reduce_f((g * u) @ params["w_down"].to(x.dtype))

@@ -17,6 +17,10 @@ descending sort, sliced), combine weights renormalized over the k chosen,
 and a Switch-style load-balancing loss.  Every sort is stable, so a
 recomputed layer routes exactly as its first pass did.
 
+``moe_apply_block`` is the same global dispatch on one rank's blocks of
+the weights, for the sharded decode (``TransformerLM.decode_step`` under
+a ``ShardCtx``).
+
 The reference has no Pallas kernel here (sort, gather, scatter and grouped
 einsums in XLA); the port has none either.
 """
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import _normal, init_mlp, mlp_swiglu
+from .layers import _normal, init_mlp, mlp_swiglu, mlp_swiglu_block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,9 +86,14 @@ class Routing(NamedTuple):
 def route(router: torch.Tensor, xt: torch.Tensor, spec: MoeSpec) -> Routing:
     """Routes and dispatch of the (T, d) tokens ``xt``, the capacity counted
     over all T of them."""
-    T = xt.shape[0]
+    return route_logits((xt @ router.to(xt.dtype)).float(), spec)
+
+
+def route_logits(logits: torch.Tensor, spec: MoeSpec) -> Routing:
+    """:func:`route` from the (T, E) f32 router logits."""
+    T = logits.shape[0]
     E, K = spec.n_experts, spec.top_k
-    logits = (xt @ router.to(xt.dtype)).float()
+    device = logits.device
     probs = torch.softmax(logits, dim=-1)                          # (T, E)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate_vals, gate_idx = vals[:, :K], idx[:, :K]
@@ -93,31 +102,38 @@ def route(router: torch.Tensor, xt: torch.Tensor, spec: MoeSpec) -> Routing:
     # Switch aux loss: E * sum_e (mean router prob) * (share of slots)
     me = probs.mean(dim=0)
     slot_expert = gate_idx.reshape(-1)
-    ce = torch.zeros(E, dtype=torch.float32, device=xt.device).index_add_(
+    ce = torch.zeros(E, dtype=torch.float32, device=device).index_add_(
         0, slot_expert, torch.full(slot_expert.shape, 1.0 / (T * K),
-                                   dtype=torch.float32, device=xt.device))
+                                   dtype=torch.float32, device=device))
     aux = E * torch.sum(me * ce)
 
     A = T * K
     C = int(math.ceil(A / E * spec.capacity_factor))
-    slot_token = torch.arange(T, device=xt.device).repeat_interleave(K)
+    slot_token = torch.arange(T, device=device).repeat_interleave(K)
     order = torch.argsort(slot_expert, stable=True)
     se, stok, sg = slot_expert[order], slot_token[order], \
         gate_vals.reshape(-1)[order]
-    start = torch.searchsorted(se, torch.arange(E, device=xt.device))
-    rank = torch.arange(A, device=xt.device) - start[se]
+    start = torch.searchsorted(se, torch.arange(E, device=device))
+    rank = torch.arange(A, device=device) - start[se]
     keep = rank < C
     buf_pos = torch.where(keep, se * C + rank, E * C)
     return Routing(gate_idx, gate_vals, aux, C, order, stok, sg, keep,
                    buf_pos)
 
 
-def _experts(params, buf: torch.Tensor) -> torch.Tensor:
-    """SwiGLU of each expert on its rows: buf (E, R, d) -> (E, R, d)."""
+def _experts(params, buf: torch.Tensor, reduce_d=None, reduce_f=None
+             ) -> torch.Tensor:
+    """SwiGLU of each expert on its rows: buf (E, R, d) -> (E, R, d).  On
+    one rank's (d, f) blocks of the weights (``moe_apply_block``) gate and
+    up are partial over the d blocks, which ``reduce_d(t)`` all-reduces,
+    and down over the f blocks (``reduce_f``)."""
     dt = buf.dtype
-    g = F.silu(torch.bmm(buf, params["w_gate"].to(dt)))
+    g = torch.bmm(buf, params["w_gate"].to(dt))
     u = torch.bmm(buf, params["w_up"].to(dt))
-    return torch.bmm(g * u, params["w_down"].to(dt))
+    if reduce_d is not None:
+        g, u = reduce_d(g), reduce_d(u)
+    y = torch.bmm(F.silu(g) * u, params["w_down"].to(dt))
+    return y if reduce_f is None else reduce_f(y)
 
 
 def _dispatch(xt: torch.Tensor, r: Routing, E: int) -> torch.Tensor:
@@ -180,3 +196,31 @@ def moe_apply_local(params, x: torch.Tensor, spec: MoeSpec, dp_shards: int
     if spec.shared_expert:
         out = out + mlp_swiglu(params["shared"], x)
     return out, torch.stack([r.aux for r in routes]).mean()
+
+
+def moe_apply_block(params, x: torch.Tensor, spec: MoeSpec, d_block: slice,
+                    reduce_d, reduce_f) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global dispatch of :func:`moe_apply` with the weights as one
+    rank's blocks: the router's rows and every expert's (d block, f block)
+    (``w_gate``, ``w_up`` (E, d_l, f_l), ``w_down`` (E, f_l, d_l); the
+    shared expert's alike).  x (B, S, d) is whole and the same on every
+    rank.  The router's product is partial over the d blocks
+    (``reduce_d(t)`` all-reduces it), so every rank routes the same tokens
+    with the same capacity and drops the same ones; each rank dispatches
+    its d block of them; gate and up are reduced by ``reduce_d``, SwiGLU
+    runs on the f block and down is reduced by ``reduce_f`` (over the f
+    blocks).  No weight leaves its rank.  Returns (this rank's d block of
+    the output (B, S, d_l), aux)."""
+    B, S, d = x.shape
+    T, E = B * S, spec.n_experts
+    xt = x.reshape(T, d)
+    xb = xt[:, d_block]
+    r = route_logits(reduce_d(xb @ params["router"].to(xt.dtype)).float(),
+                     spec)
+    y = _experts(params, _dispatch(xb, r, E).reshape(E, r.capacity, -1),
+                 reduce_d, reduce_f)
+    out = _combine(y.reshape(E * r.capacity, -1), r, T, x.dtype)
+    if spec.shared_expert:
+        out = out + mlp_swiglu_block(params["shared"], xt, d_block,
+                                     reduce_d, reduce_f)
+    return out.reshape(B, S, -1), r.aux

@@ -50,12 +50,15 @@ batch shard and a head shard.  Without ``moe_local_dispatch`` an MoE
 layer gathers its tokens to every rank and dispatches them all (what
 GSPMD does implicitly); with it each data rank dispatches its own shard
 (``moe_apply_local``, the shard count taken from the mesh) and the aux
-loss is the shards' mean.  ``decode_step`` under a context gathers the
-parameters and the cache and decodes on every rank, as the reference's
-``decode_step``, which reads no context, leaves placement to its inputs.
-Without a context every path is the one-device model, unchanged; a
-``moe_local_dispatch`` config without one dispatches globally, as the
-reference does.
+loss is the shards' mean.  ``decode_step`` under a context is
+weight-stationary, as GSPMD runs the reference's ``decode_step`` (which
+reads no context) on its placed parameters and KV cache: every rank
+computes on its own shards of both (the cache in
+``launch.sharding.kv_cache_shardings``' placements, rows or, for one long
+stream, slots over the data axes and head_dim over the model axis) and
+only activations move.  Without a context every path is the one-device
+model, unchanged; a ``moe_local_dispatch`` config without one dispatches
+globally, as the reference does.
 """
 from __future__ import annotations
 
@@ -72,12 +75,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..devices import (is_dtensor, randn, resolve_device, seeded_generator,
                        whole)
 from ..kernels.flash_attention.ops import flash_attention
-from ..placement import ShardCtx, all_reduce, dtensor_types, mesh_axes
-from .layers import (AttnParamsSpec, apply_rope, attention_xla,
-                     attention_xla_chunked, attn_project, attn_qkv,
-                     init_attn, init_mlp, make_attention_mask, mlp_swiglu,
-                     rms_norm)
-from .moe import MoeSpec, init_moe, moe_apply, moe_apply_local
+from ..placement import (ShardCtx, all_reduce, dtensor_types, mesh_axes,
+                         shard_axes)
+from .layers import (AttnParamsSpec, apply_rope, attention_decode_block,
+                     attention_xla, attention_xla_chunked, attn_project,
+                     attn_qkv, init_attn, init_mlp, make_attention_mask,
+                     mlp_swiglu, mlp_swiglu_block, rms_norm)
+from .moe import (MoeSpec, init_moe, moe_apply, moe_apply_block,
+                  moe_apply_local)
 
 # sequences >= this use the chunked (flash-style) XLA attention path
 CHUNKED_ATTN_THRESHOLD = 2048
@@ -585,25 +590,26 @@ class TransformerLM(nn.Module):
         when its position lies in [0, cur] and, for a windowed layer,
         within the window.
 
-        Under ``sctx`` every rank gathers the parameters and the cache,
-        decodes the whole batch, and keeps its shards of the new cache in
-        the placements of the old one; the logits come back replicated."""
+        Under ``sctx`` (the parameters placed by ``launch.steps.place_lm``,
+        the cache's k and v DTensors that split only its rows, slots and
+        head_dim, as ``launch.steps.place_cache`` places them) the step is
+        weight-stationary (:meth:`_decode_sharded`): no parameter or cache
+        shard leaves its rank, only activations move, and each rank
+        computes its own block of the work.  The logits come back as a
+        DTensor (rows over the data axes, the vocabulary over the model
+        axis), the cache in the placements it came in; a cache in any
+        other placement raises ``ValueError``
+        (``launch.steps.lm_decode_step`` holds it to
+        ``kv_cache_shardings``' placements)."""
         if sctx is not None:
-            return self._decode_gathered(cache, token, sctx)
+            return self._decode_sharded(cache, token, sctx)
         cfg = self.cfg
         kc, vc, length = cache["k"], cache["v"], cache["length"]
         L, B, S = kc.shape[:3]
         token = torch.as_tensor(token, device=self.device).long()
         x = self.embed[token].to(cfg.dtype)[:, None, :]            # (B, 1, d)
         pos = length[:, None]                                      # (B, 1)
-        cur = length[0]
-        base = cur - cur % S
-        slot = (cur % S).long().reshape(1)
-        k_pos = torch.arange(S, dtype=length.dtype, device=self.device)
-        abs_pos = torch.where(k_pos <= cur % S, base + k_pos,
-                              base - S + k_pos).expand(B, S)
-        valid = ((abs_pos >= 0) & (abs_pos <= cur))[:, None, :]     # (B, 1, S)
-        diff = pos[:, :, None] - abs_pos[:, None, :]
+        slot, valid, diff = _ring(length, S, slice(0, S), slice(None))
         for i, (layer, window) in enumerate(zip(self.layers, self.windows)):
             h = rms_norm(x, layer.ln1)
             q, k_new, v_new = attn_qkv(layer.attn, h, cfg.attn_spec, pos,
@@ -618,28 +624,285 @@ class TransformerLM(nn.Module):
         return self._logits(x[:, 0]), {"k": kc, "v": vc,
                                        "length": length + 1}
 
+    # ------------------------------------------------ the sharded decode
+    def _decode_sharded(self, cache, token, sctx: ShardCtx):
+        """``decode_step`` under ``sctx``, the reference's GSPMD decode with
+        its placements kept, on each rank's local shards.
 
-    def _decode_gathered(self, cache, token, sctx: ShardCtx):
+        The activations of the B tokens, (B, d) a few KB a row, are whole
+        on every rank.  A projection is column- or row-parallel on the
+        rank's block of its weight: its product on the rank's block of
+        the contracted dimension is a partial sum, all-reduced over the
+        axes that split that dimension, then gathered whole over those
+        that split the other (:func:`_product`).  The embedding is a
+        masked lookup on the rank's vocabulary rows, all-reduced over the
+        model axis; the logits a product on the rank's (d, vocabulary)
+        block of the head, reduce-scattered into rows over the data axes.
+        Attention (``attention_decode_block``) runs on the rank's rows
+        (or, for a single long stream, its slots) and head_dim block of
+        the cache, q, k and v whole first, so qk-norm and RoPE see the
+        whole head_dim: the partial scores are all-reduced over the model
+        axis, a split sequence's softmax is split-K over the data axis,
+        and an axis the cache is replicated over (a long stream's pod
+        axis) splits the kv heads.  An MoE layer dispatches globally, as
+        the reference's decode does, on each rank's expert blocks
+        (``moe.moe_apply_block``).  The new key and value are written in
+        place into the rank's cache block, on a split sequence only by
+        the data rank that owns slot ``length[0] % S`` (the others write
+        back what the slot held; nothing is read on the host).  A
+        dimension whose axis fell back to replicated is whole on every
+        rank of that axis, which computes it whole."""
         DTensor = _dtensor_types()[0]
-        params = {"layers": [{} for _ in self.layers]}
-        for name, p in self.named_parameters():
-            node, *path = name.split(".")
-            if node == "layers":
-                node = params["layers"][int(path[0])]
-                for key in path[1:-1]:
-                    node = node.setdefault(key, {})
-                node[path[-1]] = whole(p.detach())
-            else:
-                params[node] = whole(p.detach())
-        plain = TransformerLM(self.cfg, params, device=self.device)
-        logits, new = plain.decode_step(
-            {name: whole(t) for name, t in cache.items()}, token)
-        for name, t in cache.items():
-            if is_dtensor(t):
-                new[name] = DTensor.from_local(
-                    new[name], sctx.mesh, sctx.placements(())).redistribute(
-                        sctx.mesh, t.placements)
-        return DTensor.from_local(logits, sctx.mesh, sctx.placements(())), new
+        cfg, mesh = self.cfg, sctx.mesh
+        if not is_dtensor(self.embed) or self.embed.device_mesh != mesh:
+            raise ValueError("the parameters are not placed on the "
+                             "context's mesh: call launch.steps.place_lm "
+                             "once before the steps")
+        kd, vd, length = cache["k"], cache["v"], cache["length"]
+        L, B, S, Hkv, hd = kd.shape
+        pl = tuple(kd.placements) if is_dtensor(kd) else None
+        if pl is None or not is_dtensor(vd) or tuple(vd.placements) != pl \
+                or {kd.device_mesh, vd.device_mesh} != {mesh} \
+                or any(not p.is_replicate() and not any(
+                    p.is_shard(d) for d in (1, 2, 4)) for p in pl):
+            raise ValueError(
+                "the cache's k and v must be DTensors on the context's mesh "
+                "in one placement that splits only the rows, the slots and "
+                "head_dim (launch.steps.place_cache), not "
+                f"{pl or 'a plain tensor'}")
+        kc, vc = kd.to_local(), vd.to_local()
+        length_l = _replicated_local(length, "the cache's length")
+        token = (whole(token) if is_dtensor(token) else torch.as_tensor(
+            token, device=self.device)).long()
+        row_axes = shard_axes(pl, mesh, 1)
+        seq_axes = shard_axes(pl, mesh, 2)
+        hd_axes = shard_axes(pl, mesh, 4)
+        # the axes the cache is replicated over (a long stream's pod axis)
+        # split its kv heads for the attention, where they divide
+        head_axes, n = [], 1
+        for a, size in mesh_axes(mesh).items():
+            if a not in row_axes + seq_axes + hd_axes \
+                    and Hkv % (n * size) == 0:
+                head_axes.append(a)
+                n *= size
+        rows, slots = sctx.block(B, row_axes), sctx.block(S, seq_axes)
+        hd_block = sctx.block(hd, hd_axes)
+        kv_heads = sctx.block(Hkv, head_axes)
+        G = cfg.n_heads // Hkv
+        q_heads = slice(kv_heads.start * G, kv_heads.stop * G)
+        S_l = slots.stop - slots.start
+
+        pos = length_l[:, None]                                    # (B, 1)
+        slot, valid, diff = _ring(length_l, S, slots, rows)
+        owner = None
+        if seq_axes:
+            local = slot - slots.start
+            owner = (local >= 0) & (local < S_l)
+            slot = local.clamp(0, S_l - 1)
+
+        def write(block, new):
+            new = new[rows][..., hd_block].to(block.dtype)
+            if owner is not None:
+                new = torch.where(owner, new, block.index_select(1, slot))
+            block.index_copy_(1, slot, new)
+
+        def reduce_hd(t):
+            return sctx.reduce(t, hd_axes)
+
+        reduce_seq = None
+        if seq_axes:
+            def reduce_seq(t, op):
+                return sctx.reduce(t, seq_axes, op)
+
+        x = self._embed_block(token, sctx)[:, None, :]              # (B, 1, d)
+        for i, (layer, window) in enumerate(zip(self.layers, self.windows)):
+            h = rms_norm(x, _replicated_local(layer.ln1, "ln1"))
+            q, k_new, v_new = self._qkv_whole(layer.attn, h, pos, sctx)
+            write(kc[i], k_new)
+            write(vc[i], v_new)
+            mask = valid & (diff < window) if window > 0 else valid
+            out = attention_decode_block(
+                q[rows][:, :, q_heads], kc[i][:, :, kv_heads],
+                vc[i][:, :, kv_heads], mask, hd_block, reduce_hd, reduce_seq)
+            out = sctx.gather(sctx.gather(sctx.gather(
+                out, head_axes, 2), hd_axes, -1), row_axes, 0)
+            x = x + _product(out.reshape(B, 1, -1), layer.attn["wo"], sctx)
+            x = x + self._ffn_block(
+                layer, rms_norm(x, _replicated_local(layer.ln2, "ln2")),
+                sctx)
+        logits = self._logits_block(x[:, 0], sctx)
+        if is_dtensor(length):
+            length = DTensor.from_local(length_l + 1, mesh,
+                                        length.placements, run_check=False)
+        else:
+            length = length + 1
+        return logits, {"k": kd, "v": vd, "length": length}
+
+    def _embed_block(self, token, sctx: ShardCtx):
+        """(B, d) embeddings whole on every rank: each rank looks up the
+        tokens in its vocabulary rows (zeros for the others' tokens), the
+        sum over the model axis is the lookup, then the d blocks are
+        gathered."""
+        table, mesh = self.embed, sctx.mesh
+        local = table.to_local()
+        idx = token - sctx.block(
+            table.shape[0], shard_axes(table.placements, mesh, 0)).start
+        mine = (idx >= 0) & (idx < local.shape[0])
+        rows = local[idx.clamp(0, local.shape[0] - 1)].to(self.cfg.dtype)
+        x = sctx.reduce(torch.where(mine[:, None], rows, 0.0),
+                        shard_axes(table.placements, mesh, 0))
+        return sctx.gather(x, shard_axes(table.placements, mesh, 1), -1)
+
+    def _qkv_whole(self, attn, h, pos, sctx: ShardCtx):
+        """``attn_qkv`` on the rank's weight blocks: q (B, 1, H, hd), k and
+        v (B, 1, Hkv, hd) whole on every rank, biased, qk-normed and
+        rotated."""
+        spec, B = self.cfg.attn_spec, h.shape[0]
+        out = []
+        for w, b, heads in (("wq", "bq", spec.n_heads),
+                            ("wk", "bk", spec.n_kv_heads),
+                            ("wv", "bv", spec.n_kv_heads)):
+            y = _product(h, attn[w], sctx)
+            if spec.qkv_bias:
+                y = y + _replicated_local(attn[b], b).to(h.dtype)
+            out.append(y.reshape(B, 1, heads, spec.head_dim))
+        q, k, v = out
+        if spec.qk_norm:
+            q = rms_norm(q, _replicated_local(attn["q_norm"], "q_norm"))
+            k = rms_norm(k, _replicated_local(attn["k_norm"], "k_norm"))
+        theta = self.cfg.rope_theta
+        return apply_rope(q, pos, theta), apply_rope(k, pos, theta), v
+
+    def _ffn_block(self, layer: Block, h, sctx: ShardCtx):
+        """The layer's FFN on its normed input (whole on every rank), on
+        the rank's (d, f) blocks of its weights; the output gathered
+        whole."""
+        mesh = sctx.mesh
+        if self.cfg.is_moe:
+            moe = layer.moe
+            d_axes = shard_axes(moe["w_gate"].placements, mesh, 1)
+            f_axes = shard_axes(moe["w_gate"].placements, mesh, 2)
+            need = {"w_gate": ((), d_axes, f_axes),
+                    "w_up": ((), d_axes, f_axes),
+                    "w_down": ((), f_axes, d_axes), "router": (d_axes, ())}
+            local = {k: _blocks(moe[k], want, sctx, k)
+                     for k, want in need.items()}
+            if self.cfg.moe_spec.shared_expert:
+                local["shared"] = _mlp_blocks(moe["shared"], d_axes, f_axes,
+                                              sctx)
+            out = moe_apply_block(
+                local, h, self.cfg.moe_spec, sctx.block(h.shape[-1], d_axes),
+                lambda t: sctx.reduce(t, d_axes),
+                lambda t: sctx.reduce(t, f_axes))[0]
+        else:
+            mlp = layer.mlp
+            d_axes = shard_axes(mlp["w_gate"].placements, mesh, 0)
+            f_axes = shard_axes(mlp["w_gate"].placements, mesh, 1)
+            out = mlp_swiglu_block(
+                _mlp_blocks(mlp, d_axes, f_axes, sctx), h,
+                sctx.block(h.shape[-1], d_axes),
+                lambda t: sctx.reduce(t, d_axes),
+                lambda t: sctx.reduce(t, f_axes))
+        return sctx.gather(out, d_axes, -1)
+
+    def _logits_block(self, x, sctx: ShardCtx):
+        """(B, V) logits of the last hidden states (whole on every rank)
+        from the rank's (d, vocabulary) block of the head, as a DTensor in
+        ``_logits``' placements: the partial sums over the d blocks are
+        reduce-scattered into the rows' blocks (all-reduced where the rows
+        do not split)."""
+        DTensor = _dtensor_types()[0]
+        mesh = sctx.mesh
+        x = rms_norm(x, _replicated_local(self.final_norm, "final_norm"))
+        if self.cfg.tie_embeddings:
+            head, dims = self.embed, (1, 0)
+        else:
+            head, dims = self.lm_head, (0, 1)
+        d_axes = shard_axes(head.placements, mesh, dims[0])
+        v_axes = shard_axes(head.placements, mesh, dims[1])
+        local = head.to_local()
+        if self.cfg.tie_embeddings:
+            local = local.T
+        part = x[:, sctx.block(x.shape[-1], d_axes)] @ local.to(
+            self.cfg.dtype)
+        B, V = x.shape[0], head.shape[dims[1]]
+        pl = sctx.placements((B, V), sctx.dp, sctx.model)
+        if shard_axes(pl, mesh, 1) != v_axes:
+            raise ValueError(f"the head's vocabulary is split over {v_axes},"
+                             f" the logits' over {shard_axes(pl, mesh, 1)}")
+        row_axes = shard_axes(pl, mesh, 0)
+        for a in mesh_axes(mesh):
+            if a in d_axes and a in row_axes:
+                part = sctx.scatter(part, (a,), 0)
+            elif a in d_axes:
+                part = sctx.reduce(part, (a,))
+            elif a in row_axes:
+                n = part.shape[0] // mesh_axes(mesh)[a]
+                r = mesh.get_local_rank(a)
+                part = part[r * n:(r + 1) * n]
+        return DTensor.from_local(part, mesh, pl, run_check=False,
+                                  shape=(B, V), stride=(V, 1))
+
+
+def _ring(length, S: int, slots: slice, rows: slice):
+    """The ring buffer's rule for the cache's slots ``slots`` of the rows
+    ``rows``: (the new token's slot ``length[0] % S`` (1,), valid (b, 1,
+    n), diff (b, 1, n)).  Slot i holds absolute position ``cur - cur % S +
+    i`` up to the slot just written, ``cur - cur % S - S + i`` past it; it
+    is valid when that lies in [0, cur], and ``diff`` is the row's position
+    less it, which a windowed layer bounds."""
+    pos = length[rows, None]                                     # (b, 1)
+    cur = length[0]
+    base = cur - cur % S
+    k_pos = torch.arange(slots.start, slots.stop, dtype=length.dtype,
+                         device=length.device)
+    abs_pos = torch.where(k_pos <= cur % S, base + k_pos,
+                          base - S + k_pos).expand(pos.shape[0], -1)
+    valid = ((abs_pos >= 0) & (abs_pos <= cur))[:, None, :]
+    diff = pos[:, :, None] - abs_pos[:, None, :]
+    return (cur % S).long().reshape(1), valid, diff
+
+
+def _replicated_local(p, what: str):
+    """A replicated DTensor's (or a plain tensor's) whole value on this
+    rank."""
+    if not is_dtensor(p):
+        return p
+    if not all(pl.is_replicate() for pl in p.placements):
+        raise ValueError(f"{what} must be replicated, not {p.placements}")
+    return p.to_local()
+
+
+def _blocks(p, axes, sctx: ShardCtx, what: str):
+    """This rank's block of DTensor parameter ``p``, which must split each
+    dimension over ``axes[dim]``."""
+    got = tuple(shard_axes(p.placements, sctx.mesh, d)
+                for d in range(p.dim()))
+    if got != tuple(axes):
+        raise ValueError(f"{what} is split over {got}, the sharded decode "
+                         f"wants {tuple(axes)}")
+    return p.to_local()
+
+
+def _mlp_blocks(mlp, d_axes, f_axes, sctx: ShardCtx):
+    return {"w_gate": _blocks(mlp["w_gate"], (d_axes, f_axes), sctx,
+                              "w_gate"),
+            "w_up": _blocks(mlp["w_up"], (d_axes, f_axes), sctx, "w_up"),
+            "w_down": _blocks(mlp["w_down"], (f_axes, d_axes), sctx,
+                              "w_down")}
+
+
+def _product(x, w, sctx: ShardCtx):
+    """x (..., n) (whole on every rank) @ w (n, m), a DTensor, on the
+    rank's block of w: its n block of x times its block, all-reduced over
+    the axes that split n, then gathered whole over those that split m.
+    A column-parallel projection (w split over m) and a row-parallel one
+    (over n) alike."""
+    mesh = sctx.mesh
+    n_axes = shard_axes(w.placements, mesh, 0)
+    y = x[..., sctx.block(x.shape[-1], n_axes)] @ w.to_local().to(x.dtype)
+    return sctx.gather(sctx.reduce(y, n_axes),
+                       shard_axes(w.placements, mesh, 1), -1)
 
 
 # rows of logits taken to f32 at once by the loss (2^26 elements, 256 MiB)

@@ -88,7 +88,36 @@ def all_reduce(t, op: str, group):
     collective, which ``launch.collectives.LocalCounter`` records."""
     import torch
     f = torch.ops._c10d_functional
-    return f.wait_tensor(f.all_reduce(t, op, group.group_name))
+    return f.wait_tensor(f.all_reduce(t.contiguous(), op, group.group_name))
+
+
+def all_gather(t, dim: int, group):
+    """The ranks' ``t`` of ``group`` concatenated along ``dim``, in rank
+    order (a functional all-gather)."""
+    import torch
+    f = torch.ops._c10d_functional
+    moved = t.movedim(dim, 0).contiguous()
+    out = f.wait_tensor(f.all_gather_into_tensor(moved, group.size(),
+                                                 group.group_name))
+    return out.movedim(0, dim)
+
+
+def reduce_scatter(t, dim: int, group):
+    """The sum over ``group`` of ``t``, this rank keeping its block of
+    ``dim`` (a functional reduce-scatter)."""
+    import torch
+    f = torch.ops._c10d_functional
+    moved = t.movedim(dim, 0).contiguous()
+    out = f.wait_tensor(f.reduce_scatter_tensor(moved, "sum", group.size(),
+                                                group.group_name))
+    return out.movedim(0, dim)
+
+
+def shard_axes(placements, mesh, dim: int) -> tuple:
+    """The names of the mesh dimensions whose placement shards tensor
+    dimension ``dim``, in mesh order (the first the outermost)."""
+    return tuple(name for name, p in zip(mesh_axes(mesh), placements)
+                 if p.is_shard(dim))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +216,45 @@ class ShardCtx:
         _, Partial, Replicate, _ = dtensor_types()
         return tuple(Partial() if p.is_shard() else Replicate()
                      for p in act_placements)
+
+    # ------------------------------- one mesh axis (local_map regions)
+    # These act on a rank's local tensors (inside a ``local_map`` region,
+    # or on ``to_local()`` shards); each takes the axes that split the
+    # dimension in question, in mesh order, and skips an axis of one rank.
+    def _groups(self, axes):
+        return [self.mesh.get_group(a) for a in axes
+                if mesh_axes(self.mesh)[a] > 1]
+
+    def block(self, n: int, axes) -> slice:
+        """The block of a dimension of ``n`` this rank holds when ``axes``
+        split it as ``Shard`` does (the first axis outermost); the whole
+        dimension when ``axes`` is empty, where the placement fell back
+        to replicated."""
+        sizes, index = mesh_axes(self.mesh), 0
+        for a in axes:
+            n //= sizes[a]
+            index = index * sizes[a] + self.mesh.get_local_rank(a)
+        return slice(index * n, (index + 1) * n)
+
+    def reduce(self, t, axes, op: str = "sum"):
+        """``t`` all-reduced by ``op`` over each of ``axes``."""
+        for g in self._groups(axes):
+            t = all_reduce(t, op, g)
+        return t
+
+    def gather(self, t, axes, dim: int):
+        """The blocks of ``dim`` that ``axes`` split, all-gathered whole
+        (the innermost axis first)."""
+        for g in reversed(self._groups(axes)):
+            t = all_gather(t, dim, g)
+        return t
+
+    def scatter(self, t, axes, dim: int = 0):
+        """``t`` summed over ``axes``, this rank keeping its block of
+        ``dim`` as ``Shard(dim)`` on those axes places it."""
+        for g in self._groups(axes):
+            t = reduce_scatter(t, dim, g)
+        return t
 
     def local(self, fn, outs, ins, grads=None):
         """``fn`` on each rank's local shards (``local_map``): ``outs``

@@ -17,12 +17,15 @@ counterpart of the JAX package's ``launch/hlo.py``, and the mesh half of
       two op streams would differ by construction;
   (c) against the reference's ``analyze_hlo`` of the same cell compiled
       for a (2, 2) mesh of host devices: per-device FLOPs, for qwen3-4b
-      cut to 2 layers and for the 14 GNN and SASRec cells of
+      cut to 2 layers (train_4k, prefill_32k, decode_32k), mixtral cut to
+      2 layers (long_500k) and for the 14 GNN and SASRec cells of
       ``GRAPH_REF_CELLS`` (gin-tu's by-design products apart, by formula);
   (d) at a (1, 1) mesh the trace's FLOPs are the one-card ``measure``'s;
       at 16x16 the state bytes are ``_device_bytes``'s;
   (e) ``run_cell`` at 16x16 and 2x16x16 and the ``--mesh`` CLI: the LM
-      cells and every GNN and SASRec cell;
+      cells and every GNN and SASRec cell; the 14 decode records at full
+      depth (the sharded decode) each within 80 GB and within the
+      reference's own dry-run figures (``DECODE_REFERENCE``);
   and ``FilledCollectives`` writes every collective's output.
 
 A fake group is process-wide, so every trace runs in a spawned process of
@@ -258,7 +261,57 @@ REFERENCE_SCRIPT = textwrap.dedent("""
                      "wire": a.collectives.wire_bytes}
     print(json.dumps(out))
 """)
-REF_SHAPES = ("train_4k", "prefill_32k")
+REF_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+# (c)'s arch of each shape: qwen3-4b's, long_500k's mixtral's (qwen3-4b
+# skips it)
+REF_ARCHS = {"long_500k": "mixtral-8x22b"}
+
+
+def _ref_cell(shape):
+    return f"{REF_ARCHS.get(shape, 'qwen3-4b')}/{shape}"
+
+
+# the reference's own dry-run of the decode cells (``python -m
+# repro.launch.dryrun --arch A --shape S --mesh both`` on the CPU):
+# argument_bytes + temp_bytes, coll_wire_bytes_per_device and
+# flops_per_device of each record, which the sharded decode's record must
+# keep within PEAK_OVER_REF, WIRE_OVER_REF and FLOPS_OVER_REF of
+DECODE_REFERENCE = {
+    ("qwen3-4b", "decode_32k", "16x16"):
+        (8831611632, 38047821440, 13685948416),
+    ("qwen3-4b", "decode_32k", "2x16x16"):
+        (4471231120, 19375498560, 6842974208),
+    ("gemma3-12b", "decode_32k", "16x16"):
+        (23412987128, 99371707904, 24649924608),
+    ("gemma3-12b", "decode_32k", "2x16x16"):
+        (11848240784, 50723344256, 12324962304),
+    ("qwen2.5-32b", "decode_32k", "16x16"):
+        (16006772416, 71886629376, 64196444160),
+    ("qwen2.5-32b", "decode_32k", "2x16x16"):
+        (8138585168, 38633046016, 32098222080),
+    ("llama4-scout-17b-a16e", "decode_32k", "16x16"):
+        (13460108648, 51852876800, 41807052800),
+    ("llama4-scout-17b-a16e", "decode_32k", "2x16x16"):
+        (6871649888, 26844040960, 20933017600),
+    ("mixtral-8x22b", "decode_32k", "16x16"):
+        (3957800152, 8529356032, 50233737216),
+    ("mixtral-8x22b", "decode_32k", "2x16x16"):
+        (2006329232, 4827405056, 25137512448),
+    ("gemma3-12b", "long_500k", "16x16"):
+        (3029186088, 12175719536, 1702526976),
+    ("gemma3-12b", "long_500k", "2x16x16"):
+        (2957934960, 6544812420, 1253916672),
+    ("mixtral-8x22b", "long_500k", "16x16"):
+        (2247204632, 66701704, 1119436800),
+    ("mixtral-8x22b", "long_500k", "2x16x16"):
+        (1130818784, 40693620, 565223424),
+}
+PEAK_OVER_REF, WIRE_OVER_REF, FLOPS_OVER_REF = 1.5, 1.0, 1.25
+DECODE_CELLS = [(a, s, m) for a, s in (
+    ("gemma3-12b", "decode_32k"), ("qwen2.5-32b", "decode_32k"),
+    ("qwen3-4b", "decode_32k"), ("llama4-scout-17b-a16e", "decode_32k"),
+    ("mixtral-8x22b", "decode_32k"), ("gemma3-12b", "long_500k"),
+    ("mixtral-8x22b", "long_500k")) for m in ("16x16", "2x16x16")]
 # (c): the GNN and SASRec cells held against the reference's analysis
 GRAPH_REF_CELLS = (
     ("gcn-cora", "full_graph_sm"), ("gcn-cora", "ogb_products"),
@@ -305,7 +358,14 @@ RECORD_GROUPS = (
      **_graph_records("16x16", ("gcn-cora", "sasrec"))},
     {**_graph_records("16x16", ("gin-tu", "schnet", "mace")),
      **_graph_records("2x16x16", ("gin-tu", "sasrec"))},
-    _graph_records("2x16x16", ("gcn-cora", "schnet", "mace")))
+    _graph_records("2x16x16", ("gcn-cora", "schnet", "mace")),
+    # (c)'s decode records at (2, 2), then (e)'s 14 at full depth
+    {("ref", "decode_32k"): ("qwen3-4b", "decode_32k",
+                             MeshShape((2, 2), AXES), TWO),
+     **{("decode",) + c: c[:2] + (c[2], None) for c in DECODE_CELLS[:7]}},
+    {("ref", "long_500k"): ("mixtral-8x22b", "long_500k",
+                            MeshShape((2, 2), AXES), TWO),
+     **{("decode",) + c: c[:2] + (c[2], None) for c in DECODE_CELLS[7:]}})
 
 
 @pytest.fixture(scope="module")
@@ -320,7 +380,7 @@ def work(tmp_path_factory):
         [src] + [p for p in [env.get("PYTHONPATH")] if p])
     ref = subprocess.Popen(
         [sys.executable, "-c", REFERENCE_SCRIPT,
-         *[f"qwen3-4b/{shape}" for shape in REF_SHAPES],
+         *[_ref_cell(shape) for shape in REF_SHAPES],
          *[f"{a}/{shape}" for a, shape in GRAPH_REF_CELLS]], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
@@ -354,9 +414,12 @@ def test_per_device_flops_agree_with_the_reference(work, shape):
     FLOPs by formula (``flops_kernels``), the reference's XLA attention is
     its batched dots.  Prefill runs the same chunked attention on both
     sides, so there the whole counts agree too; in training the flash
-    kernels compute the causal pairs, XLA all of them.  Both sides'
-    collectives are printed: XLA and DTensor choose different ones."""
-    ref, port = work["reference"][f"qwen3-4b/{shape}"], work[("ref", shape)]
+    kernels compute the causal pairs, XLA all of them.  A decode step
+    (qwen3-4b's decode_32k, mixtral's long_500k) computes its attention
+    with products the counter sees on both sides: its whole count agrees
+    within ``REL_TRAIN``.  Both sides' collectives are printed: XLA and
+    DTensor choose different ones."""
+    ref, port = work["reference"][_ref_cell(shape)], work[("ref", shape)]
     attention = sum(port["flops_kernels"].values())
     port_rest = port["flops"] - attention
     ref_rest = ref["flops"] - ref["attention"]
@@ -364,10 +427,15 @@ def test_per_device_flops_agree_with_the_reference(work, shape):
         "shape": shape, "port_flops": port["flops"],
         "port_attention": attention, "ref_flops": ref["flops"],
         "ref_attention": ref["attention"], "rest_ratio": port_rest / ref_rest,
+        "ratio": port["flops"] / ref["flops"],
         "port_collectives": port["collectives"]["ops"],
         "port_wire": port["collectives"]["wire_bytes"],
         "ref_collectives": ref["ops"], "ref_wire": ref["wire"],
         "wire_ratio": port["collectives"]["wire_bytes"] / ref["wire"]}))
+    if port["kind"] == "decode":
+        assert attention == 0
+        assert abs(port["flops"] - ref["flops"]) <= REL_TRAIN * ref["flops"]
+        return
     rel = REL_PREFILL if shape == "prefill_32k" else REL_TRAIN
     assert abs(port_rest - ref_rest) <= rel * ref_rest
     if shape == "prefill_32k":
@@ -451,6 +519,35 @@ def test_gnn_and_sasrec_cells_are_skipped_on_a_mesh(work, arch, mesh):
                 assert rec["flops_kernels"]["segment_matmul"] > 0
             if a == "sasrec":
                 assert rec["bytes_kernels"]["dht_gather"] > 0
+
+
+@pytest.mark.parametrize("cell", DECODE_CELLS, ids="-".join)
+def test_decode_records_fit_a_device(work, cell):
+    """Each LM decode record at 16x16 and 2x16x16, full depth: the
+    sharded decode's rank holds its parameter and cache shards (state
+    bytes those of the placements reckoned from the mesh's shape, plus
+    the cache's), its peak fits 80 GB and stays within ``PEAK_OVER_REF``
+    of the reference's arg+temp bytes, its wire within ``WIRE_OVER_REF``
+    of the reference's and its FLOPs within ``FLOPS_OVER_REF`` of the
+    reference's (``DECODE_REFERENCE``); no group is larger than a mesh
+    axis."""
+    rec = work[("decode",) + cell]
+    peak, wire, flops = DECODE_REFERENCE[cell]
+    print(json.dumps({"cell": "/".join(cell), "peak": rec["peak_bytes"],
+                      "ref_peak": peak,
+                      "wire": rec["collectives"]["wire_bytes"],
+                      "ref_wire": wire, "flops": rec["flops"],
+                      "ref_flops": flops}))
+    assert rec["kind"] == "decode" and rec["mesh"] == cell[2]
+    assert rec["fits_h100_80gb"] and rec["peak_bytes"] < dryrun.H100_HBM_BYTES
+    assert rec["param_bytes"] == rec["placement_bytes"]["param_bytes"] > 0
+    assert rec["state_alloc_bytes"] >= rec["param_bytes"] \
+        + rec["cache_bytes"] > rec["param_bytes"]
+    assert rec["peak_bytes"] <= PEAK_OVER_REF * peak
+    assert rec["collectives"]["wire_bytes"] <= WIRE_OVER_REF * wire
+    assert rec["flops"] <= FLOPS_OVER_REF * flops
+    assert set(rec["collectives"]["groups"]) <= {"pod", "data", "model"}
+    assert rec["collectives"]["ops"].get("all-to-all", 0) == 0
 
 
 def _gin_by_design(shape_name, chips=4):

@@ -2,7 +2,11 @@
 ``PartitionSpec``s, and the sharded LM step in 2 and 4 ``gloo`` processes
 on the CPU against the JAX package's own sharded step (mixtral, with and
 without ``moe_local_dispatch``, on 4 host devices in a subprocess) and,
-with the global dispatch, against the unsharded port on the same batch.
+with the global dispatch, against the unsharded port on the same batch;
+and the sharded decode (weight-stationary: no parameter or cache shard
+leaves its rank) in 2 and 4 ``gloo`` processes against the unsharded port
+and the reference's ``lm_decode_step`` jitted with its in-shardings on 4
+host devices in a subprocess.
 
 A reference spec translates to placements by the rule of
 ``launch/sharding.py``: on each mesh dimension ``Shard(d)`` where tensor
@@ -19,12 +23,16 @@ metric, parameter and first moment within ``RTOL`` (1e-5) of the
 tensor's largest |element|; against the reference's sharded step, those
 of ``tests/test_torch_moe_lm.py`` for one f32 step: the metrics within
 1e-5 relative, each first moment (a tenth of the clipped gradient) within
-1e-4 of its largest |element|, each parameter within 2 lr.
+1e-4 of its largest |element|, each parameter within 2 lr.  The sharded
+decode's logits, new keys and values within ``RTOL`` of each tensor's
+largest |element| of both the unsharded port's and the reference's, its
+``length`` equal.
 """
 import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import socket
 import subprocess
@@ -435,33 +443,251 @@ def _worker(rank, world, port, out_dir, runs, extra):
     dist.init_process_group("gloo", rank=rank, world_size=world)
     try:
         _lm_runs(rank, world, out_dir, runs)
+        _decode_runs(rank, world, out_dir)
         if extra == "one_rank":
             _one_rank(out_dir)
         elif extra == "restore":
             _restore_run(rank, out_dir)
         elif extra == "serve":
             _serve_run(rank, out_dir)
+            _decode_counted(rank, out_dir)
     finally:
         faulthandler.cancel_dump_traceback_later()
         stacks.close()
         dist.destroy_process_group()
 
 
+# ------------------------------------------------------- the sharded decode
+# (arch, B, S, length): the qwen3, gemma3 (windowed and global layers) and
+# mixtral (MoE, global dispatch) smoke models at B 4 on rings that have
+# wrapped; and two single streams (B 1), whose slots split over "data"
+# where it has 2 ranks: qwen3's 8 slots at length 13 (the written slot, 5,
+# on data rank 1), and gemma3's 24 at length 37, wrapped past its window
+# of 16 (the written slot, 13, on data rank 1; slots 14-21 valid but out
+# of the window, slots 0-13, 22 and 23 in it, on both data ranks)
+DECODE_CASES = [("qwen3-4b", 4, 16, 19), ("gemma3-12b", 4, 24, 30),
+                ("mixtral-8x22b", 4, 16, 21), ("qwen3-4b", 1, 8, 13),
+                ("gemma3-12b", 1, 24, 37)]
+# (data, model) meshes, and a (pod, data, model) one: at B 1 its cache is
+# replicated over "pod", which splits the kv heads
+DECODE_MESHES = [(1, 2), (2, 1), (2, 2), (2, 1, 2)]
+# the collective-size runs of (2, 2): B 2, so each data rank decodes one row
+DECODE_COUNTED = [("qwen3-4b", 2, 16, 19), ("mixtral-8x22b", 2, 16, 21)]
+
+
+def _decode_id(case):
+    arch, B, S, length = case
+    return f"{arch}-B{B}-S{S}-len{length}"
+
+
+def _mesh_id(sizes):
+    return "x".join(map(str, sizes))
+
+
+def _decode_mesh(sizes):
+    """The ``MeshShape`` of ``sizes``: (data, model) or (pod, data, model)."""
+    return lmesh.MeshShape(sizes, ("pod", "data", "model")[-len(sizes):])
+
+
+def _decode_file(sizes, case, prefix="decode"):
+    return f"{prefix}-{_mesh_id(sizes)}-{_decode_id(case)}.pt"
+
+
+def _decode_inputs(case):
+    """(cfg, {"k", "v", "length"} as numpy, token): a cache of standard
+    normal keys and values and a token from seed 1."""
+    arch, B, S, length = case
+    cfg = _cfg(arch)
+    rng = np.random.default_rng(1)
+    shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.head_dim)
+    cache = {"k": rng.standard_normal(shape).astype(np.float32),
+             "v": rng.standard_normal(shape).astype(np.float32),
+             "length": np.full((B,), length, np.int32)}
+    return cfg, cache, rng.integers(0, cfg.vocab, (B,)).astype(np.int32)
+
+
+def _torch_cache(cache):
+    return {k: torch.from_numpy(v.copy()) for k, v in cache.items()}
+
+
+def _decode_runs(rank, world, out_dir):
+    """Every case of ``DECODE_CASES`` on each mesh of ``world`` ranks:
+    rank 0 writes the logits, the new cache whole and its placements;
+    every rank whether it wrote its own block of layer 0's keys."""
+    for sizes in [s for s in DECODE_MESHES if math.prod(s) == world]:
+        shape = _decode_mesh(sizes)
+        mesh = lmesh.make_mesh(shape, "cpu")
+        dp = shape.axis_names[:-1]
+        sctx = tr.ShardCtx(mesh, dp if len(dp) > 1 else dp[0])
+        for case in DECODE_CASES:
+            cfg, cache, token = _decode_inputs(case)
+            model = tr.TransformerLM(cfg, device="cpu")
+            steps.place_lm(model, None, sctx)
+            placed = steps.place_cache(_torch_cache(cache), sctx)
+            before = placed["k"].to_local()[0].clone()
+            pl = tuple(placed["k"].placements)
+            logits, new = steps.lm_decode_step(
+                model, placed, torch.from_numpy(token), sctx=sctx)
+            assert tuple(new["k"].placements) == pl
+            assert tuple(new["v"].placements) == pl
+            wrote = not torch.equal(new["k"].to_local()[0], before)
+            found = {"logits": _full(logits), "k": _full(new["k"]),
+                     "v": _full(new["v"]), "length": new["length"],
+                     "logits_placements": str(logits.placements),
+                     "cache_placements": str(pl)}
+            with open(os.path.join(out_dir, _decode_file(
+                    sizes, case, f"wrote-{rank}")), "w") as f:
+                json.dump({"data_rank": sctx.data_rank(), "wrote": wrote},
+                          f)
+            if rank == 0:
+                torch.save(found, os.path.join(out_dir,
+                                               _decode_file(sizes, case)))
+
+
+def _decode_counted(rank, out_dir):
+    """One (2, 2) decode step of each ``DECODE_COUNTED`` case under
+    ``LocalCounter``: every collective's kind and payload (its result
+    bytes), beside the bytes of each parameter's local shard and of the
+    cache's; then a prefill's cache (kv heads over "model") and a plain
+    cache given to the decode (each must raise), and the prefill's cache
+    after ``place_cache`` decoded."""
+    from repro_torch.launch.collectives import LocalCounter
+    mesh = lmesh.make_mesh(lmesh.MeshShape((2, 2), ("data", "model")),
+                           "cpu")
+    sctx = tr.ShardCtx(mesh, "data")
+    found = {}
+    for case in DECODE_COUNTED:
+        cfg, cache, token = _decode_inputs(case)
+        model = tr.TransformerLM(cfg, device="cpu")
+        steps.place_lm(model, None, sctx)
+        placed = steps.place_cache(_torch_cache(cache), sctx)
+        counter = LocalCounter()
+        with counter:
+            steps.lm_decode_step(model, placed, torch.from_numpy(token),
+                                 sctx=sctx)
+        found[_decode_id(case)] = {
+            "collectives": [(d["kind"], d["bytes"], d["site"])
+                            for d in counter.details],
+            "params": {n: p.to_local().numel() * p.to_local().element_size()
+                       for n, p in model.named_parameters()
+                       if p.dim() >= 2},
+            "cache": placed["k"].to_local().numel()
+            * placed["k"].to_local().element_size()}
+    cfg = _cfg("qwen3-4b")
+    model = tr.TransformerLM(cfg, device="cpu")
+    steps.place_lm(model, None, sctx)
+    tokens, _ = _batch(cfg.vocab)
+    _, cache = steps.lm_prefill_step(model, tokens, sctx=sctx)
+    errors = []
+    for given in (cache, {k: _full(v) for k, v in cache.items()}):
+        try:
+            steps.lm_decode_step(model, given, torch.as_tensor(
+                tokens[:, -1]).long(), sctx=sctx)
+        except ValueError as e:
+            errors.append(str(e))
+    logits, new = steps.lm_decode_step(
+        model, steps.place_cache(cache, sctx),
+        torch.as_tensor(tokens[:, -1]).long(), sctx=sctx)
+    found["errors"] = errors
+    found["after_prefill"] = {"logits": _full(logits), "k": _full(new["k"])}
+    if rank == 0:
+        torch.save(found, os.path.join(out_dir, "decode-counted.pt"))
+
+
+# the reference's ``lm_decode_step`` jitted with the in-shardings of
+# ``launch/specs.py`` (the parameters', ``kv_cache_shardings``, the token's)
+# on each mesh of argv[3] over 4 host devices, from the port's seed-0
+# parameters and each case's inputs (argv[2], their files in argv[1])
+DECODE_REFERENCE_SCRIPT = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses, functools, json, sys
+    import numpy as np
+    import jax
+    import jax.numpy as jnp
+    import torch
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+    from repro.configs import registry as jreg
+    from repro.launch import sharding as jsh
+    from repro.launch import steps as jsteps
+    from repro_torch.configs import registry
+    from repro_torch.convert import lm_params_to_reference
+    from repro_torch.models.transformer import TransformerLM
+
+    assert len(jax.devices()) == 4
+    out_dir, cases, meshes = (sys.argv[1], json.loads(sys.argv[2]),
+                              json.loads(sys.argv[3]))
+    for arch, B, S, length in cases:
+        name = f"{arch}-B{B}-S{S}-len{length}"
+        saved = np.load(os.path.join(out_dir, f"inputs-{name}.npz"))
+        cfg = dataclasses.replace(registry.get(arch).smoke_config,
+                                  dtype=torch.float32)
+        jcfg = dataclasses.replace(jreg.get(arch).smoke_config,
+                                   dtype=jnp.float32)
+        params = jax.tree.map(jnp.asarray, lm_params_to_reference(
+            TransformerLM(cfg, device="cpu")))
+        for sizes in meshes:
+            mesh = Mesh(np.array(jax.devices()[:int(np.prod(sizes))])
+                        .reshape(sizes),
+                        ("pod", "data", "model")[-len(sizes):])
+            kv = jsh.kv_cache_shardings(mesh, saved["k"].shape, B)
+            c_sh = {"k": kv, "v": kv, "length": NamedSharding(mesh, P())}
+            dpn = int(np.prod(sizes[:-1]))
+            t_sh = (jsh.batch_sharding(mesh, 1) if B % dpn == 0 and B >= dpn
+                    else NamedSharding(mesh, P()))
+            step = jax.jit(functools.partial(jsteps.lm_decode_step, jcfg),
+                           in_shardings=(jsh.lm_param_shardings(mesh, params),
+                                         c_sh, t_sh),
+                           compiler_options={
+                               "xla_allow_excess_precision": False})
+            cache = {k: jnp.asarray(saved[k]) for k in ("k", "v", "length")}
+            logits, new = step(params, cache, jnp.asarray(saved["token"]))
+            mesh_id = "x".join(map(str, sizes))
+            np.savez(os.path.join(out_dir, f"jax-{mesh_id}-{name}.npz"),
+                     logits=np.asarray(logits),
+                     k=np.asarray(new["k"]), v=np.asarray(new["v"]),
+                     length=np.asarray(new["length"]))
+    print("REFERENCE_OK")
+""")
+
+
+def _start_decode_reference(out_dir):
+    """The reference's sharded decodes of every case on every mesh,
+    started in a subprocess on the cases' inputs, written first."""
+    for case in DECODE_CASES:
+        _, cache, token = _decode_inputs(case)
+        np.savez(os.path.join(out_dir, f"inputs-{_decode_id(case)}.npz"),
+                 token=token, **cache)
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [src] + [p for p in [env.get("PYTHONPATH")] if p])
+    return subprocess.Popen(
+        [sys.executable, "-c", DECODE_REFERENCE_SCRIPT, out_dir,
+         json.dumps(DECODE_CASES), json.dumps(DECODE_MESHES)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("sharded"))
-    reference = _start_reference(out)
+    references = {"train": _start_reference(out),
+                  "decode": _start_decode_reference(out)}
     try:
         _spawn(_worker, 1, out, [], "one_rank")
         _spawn(_worker, 2, out, RUNS_2, "restore")
         _spawn(_worker, 4, out, RUNS_4, "serve")
-        stdout, stderr = reference.communicate(timeout=JOIN_TIMEOUT_S)
+        ran = {name: ref.communicate(timeout=JOIN_TIMEOUT_S)
+               for name, ref in references.items()}
     finally:
-        if reference.poll() is None:
-            reference.kill()
-            reference.communicate()
-    assert reference.returncode == 0 and "REFERENCE_OK" in stdout, \
-        stderr[-3000:]
+        for ref in references.values():
+            if ref.poll() is None:
+                ref.kill()
+                ref.communicate()
+    for name, ref in references.items():
+        stdout, stderr = ran[name]
+        assert ref.returncode == 0 and "REFERENCE_OK" in stdout, \
+            (name, stderr[-3000:])
     return out
 
 
@@ -587,3 +813,89 @@ def test_restore_with_shardings_across_meshes(sharded):
     assert os.path.isdir(os.path.join(sharded, "elastic", "step_00000000"))
     assert sorted(os.listdir(os.path.join(sharded, "runner"))) == [
         "step_00000002", "step_00000003", "step_00000004"]
+
+
+def _decoded(case):
+    """The unsharded port's decode step of ``case``."""
+    cfg, cache, token = _decode_inputs(case)
+    model = tr.TransformerLM(cfg, device="cpu")
+    return steps.lm_decode_step(model, _torch_cache(cache),
+                                torch.from_numpy(token))
+
+
+@pytest.mark.parametrize("sizes", DECODE_MESHES, ids=_mesh_id)
+@pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
+def test_sharded_decode_equals_the_unsharded_port(sharded, case, sizes):
+    """The sharded decode's logits (rows over "data", the vocabulary over
+    "model"), new keys and values within ``RTOL`` of the one-process
+    port's, ``length`` equal; the cache keeps ``kv_cache_shardings``'
+    placements.  On the B 1 stream with 2 data ranks only data rank 1,
+    which holds slot 5, writes its block."""
+    got = torch.load(os.path.join(sharded, _decode_file(sizes, case)))
+    logits, new = _decoded(case)
+    _close(got["logits"], logits, "logits")
+    _close(got["k"], new["k"], "k")
+    _close(got["v"], new["v"], "v")
+    assert torch.equal(got["length"], new["length"])
+    place = sharding.kv_cache_shardings(
+        _decode_mesh(sizes), tuple(new["k"].shape), case[1])
+    assert got["cache_placements"] == str(place.placements)
+    wrote = [json.load(open(os.path.join(sharded, _decode_file(
+        sizes, case, f"wrote-{r}")))) for r in range(math.prod(sizes))]
+    if case[1] == 1 and sizes[-2] == 2:
+        assert "Shard(dim=2)" in got["cache_placements"]
+        assert all(w["wrote"] == (w["data_rank"] == 1) for w in wrote), wrote
+    else:
+        assert all(w["wrote"] for w in wrote), wrote
+
+
+@pytest.mark.parametrize("sizes", DECODE_MESHES, ids=_mesh_id)
+@pytest.mark.parametrize("case", DECODE_CASES, ids=_decode_id)
+def test_sharded_decode_equals_the_reference_decode(sharded, case, sizes):
+    """Against the reference's GSPMD decode on a mesh of the same shape,
+    from the same parameters and inputs: logits, new keys and values
+    within ``RTOL`` of each tensor's largest |element|, ``length``
+    equal."""
+    got = torch.load(os.path.join(sharded, _decode_file(sizes, case)))
+    want = np.load(os.path.join(sharded, f"jax-{_mesh_id(sizes)}-"
+                                f"{_decode_id(case)}.npz"))
+    for key in ("logits", "k", "v"):
+        _close(got[key], torch.from_numpy(want[key]), key)
+    assert np.array_equal(got["length"].numpy(), want["length"])
+
+
+@pytest.mark.parametrize("case", DECODE_COUNTED, ids=_decode_id)
+def test_sharded_decode_moves_no_parameter_or_cache_shard(sharded, case):
+    """Every collective of a (2, 2) decode step (``LocalCounter``) is an
+    all-gather, all-reduce or reduce-scatter whose payload is smaller than
+    the cache's local shard and than every expert's local shard; for the
+    dense model, than every parameter's of two or more dimensions too."""
+    got = torch.load(os.path.join(sharded, "decode-counted.pt"))[
+        _decode_id(case)]
+    shards = [b for n, b in got["params"].items()
+              if case[0] == "qwen3-4b" or ".moe.w_" in n]
+    limit = min(shards + [got["cache"]])
+    assert got["collectives"], "no collective recorded"
+    kinds = {kind for kind, _, _ in got["collectives"]}
+    assert kinds <= {"all-gather", "all-reduce", "reduce-scatter"}, kinds
+    big = [c for c in got["collectives"] if c[1] >= limit]
+    assert not big, (limit, big)
+
+
+def test_decode_cache_in_other_placements_raises(sharded):
+    """A prefill's cache (kv heads over "model") and a plain cache raise
+    ``ValueError`` naming ``kv_cache_shardings``' placements; the
+    prefill's cache after ``place_cache`` decodes to the unsharded
+    port's prefill-then-decode."""
+    got = torch.load(os.path.join(sharded, "decode-counted.pt"))
+    assert len(got["errors"]) == 2, got["errors"]
+    for e in got["errors"]:
+        assert "kv_cache_shardings" in e and "Shard(dim=4)" in e, e
+    assert "a plain tensor" in got["errors"][1]
+    model = tr.TransformerLM(_cfg("qwen3-4b"), device="cpu")
+    tokens, _ = _batch(model.cfg.vocab)
+    _, cache = steps.lm_prefill_step(model, tokens)
+    logits, new = steps.lm_decode_step(model, cache,
+                                       torch.as_tensor(tokens[:, -1]).long())
+    _close(got["after_prefill"]["logits"], logits, "logits")
+    _close(got["after_prefill"]["k"], new["k"], "k")
