@@ -27,10 +27,10 @@ rank's device would run.  What stands for what:
     of the state the caller hands to :meth:`LocalCounter.track`; the peak
     is the device's peak;
   * collectives: every ``_c10d_functional`` (and ``_dtensor``) collective
-    under the reference's kind names, with its result bytes, the size and
-    ranks of the group it names, the link those ranks share, and its
-    site; :func:`collective_wire` is ``hlo._collective_wire``, applied to
-    the result bytes as the reference applies it;
+    under the reference's kind names, with its result bytes and shapes,
+    the size and ranks of the group it names, the link those ranks share,
+    and its site; :func:`collective_wire` is ``hlo._collective_wire``,
+    applied to the result bytes as the reference applies it;
   * :class:`CollectiveStats` and :class:`MeshAnalysis` keep
     ``hlo.CollectiveStats``'s and ``hlo.HloAnalysis``'s field names.
     There is no ``unknown_trip_whiles``: an eager trace runs every
@@ -307,6 +307,7 @@ class LocalCounter(TorchDispatchMode):
         nbytes = sum(_nbytes(t) for t in _tensors(out))
         wire = collective_wire(kind, nbytes, p)
         self.details.append({"kind": kind, "op": name, "bytes": nbytes,
+                             "shapes": [tuple(t.shape) for t in _tensors(out)],
                              "group": pg.group_name, "group_size": p,
                              "link": link_of(ranks), "wire_bytes": wire,
                              "site": self._site()})

@@ -370,17 +370,21 @@ def attn_qkv(params, x: torch.Tensor, spec: AttnParamsSpec,
 
 
 def attn_project(params, x: torch.Tensor, spec: AttnParamsSpec,
-                 heads_cs=None):
+                 heads_cs=None, products=None):
     """q (B, S, H, hd), k and v (B, S, Hkv, hd) before RoPE: the
-    projections, their biases and the qk-norm.  Every op has a DTensor
-    rule, so a sharded layer runs it on DTensors; ``heads_cs(t, heads)``
-    (a sharding context's constraint) places each (B, S, heads·hd)
-    projection before it splits into heads, identity when None."""
+    projections, their biases and the qk-norm.  ``products(x, [wq, wk,
+    wv])`` gives the three products (``x @ w`` each when None; a sharded
+    layer's runs on each rank's weight blocks); every other op has a
+    DTensor rule.  ``heads_cs(t, heads)`` (a sharding context's
+    constraint) places each (B, S, heads·hd) projection before it splits
+    into heads, identity when None."""
     B, S, _ = x.shape
     H, Hkv, hd = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    q = x @ params["wq"].to(x.dtype)
-    k = x @ params["wk"].to(x.dtype)
-    v = x @ params["wv"].to(x.dtype)
+    ws = [params["wq"], params["wk"], params["wv"]]
+    if products is None:
+        q, k, v = (x @ w.to(x.dtype) for w in ws)
+    else:
+        q, k, v = products(x, ws)
     if spec.qkv_bias:
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
@@ -407,24 +411,28 @@ def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp_swiglu(params, x: torch.Tensor, hidden_cs=None):
-    """SwiGLU; ``hidden_cs`` places the (..., f) hidden activations (a
-    sharding context's constraint), identity when None."""
-    g = F.silu(x @ params["w_gate"].to(x.dtype))
+def mlp_swiglu(params, x: torch.Tensor):
+    """SwiGLU: :func:`mlp_swiglu_block` with the whole d and no
+    reductions."""
+    return mlp_swiglu_block(params, x)
+
+
+def mlp_swiglu_block(params, x: torch.Tensor, sctx=None, d_axes=(),
+                     f_axes=(), reduce_f: bool = True):
+    """SwiGLU with the weights as one rank's (d, f) blocks and ``x``
+    (..., d_l) the rank's block of d (whole where ``d_axes`` is empty):
+    gate and up are partial over the d blocks, all-reduced over ``d_axes``
+    (``sctx.reduce``); the SiLU product runs on the f block, its gradient
+    a partial sum over the d blocks (``sctx.reduce_grad``); down is
+    partial over the f blocks, all-reduced over ``f_axes`` unless
+    ``reduce_f`` is False (the caller reduces it).  Returns the rank's d
+    block of the output.  Without ``sctx``, the plain SwiGLU."""
+    g = x @ params["w_gate"].to(x.dtype)
     u = x @ params["w_up"].to(x.dtype)
-    if hidden_cs is not None:
-        g, u = hidden_cs(g), hidden_cs(u)
-    return (g * u) @ params["w_down"].to(x.dtype)
-
-
-def mlp_swiglu_block(params, x: torch.Tensor, d_block: slice, reduce_d,
-                     reduce_f):
-    """SwiGLU with the weights as one rank's blocks, the rank holding d's
-    block ``d_block`` and one block of f: gate and up are partial over the
-    d blocks (``reduce_d(t)`` all-reduces them), the SiLU product runs on
-    the f block, and down is partial over the f blocks (``reduce_f``).
-    ``x`` (..., d) is whole; returns this rank's d block of the output."""
-    xb = x[..., d_block]
-    g = F.silu(reduce_d(xb @ params["w_gate"].to(x.dtype)))
-    u = reduce_d(xb @ params["w_up"].to(x.dtype))
-    return reduce_f((g * u) @ params["w_down"].to(x.dtype))
+    if sctx is not None:
+        g, u = sctx.reduce(g, d_axes), sctx.reduce(u, d_axes)
+    h = F.silu(g) * u
+    if sctx is not None:
+        h = sctx.reduce_grad(h, d_axes)
+    y = h @ params["w_down"].to(x.dtype)
+    return sctx.reduce(y, f_axes) if sctx is not None and reduce_f else y

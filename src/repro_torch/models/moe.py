@@ -17,9 +17,13 @@ descending sort, sliced), combine weights renormalized over the k chosen,
 and a Switch-style load-balancing loss.  Every sort is stable, so a
 recomputed layer routes exactly as its first pass did.
 
-``moe_apply_block`` is the same global dispatch on one rank's blocks of
-the weights, for the sharded decode (``TransformerLM.decode_step`` under
-a ``ShardCtx``).
+``moe_apply_block`` is the one dispatch body: ``moe_apply`` runs it with
+the whole d, one shard and no reductions, ``moe_apply_local`` (the
+per-shard dispatch) with one shard a data shard; under a ``ShardCtx`` it
+runs on one rank's blocks of the weights and of d, its partial sums
+reduced and its gradients carried back by the context's collectives (the
+sharded train and prefill steps' regions in ``TransformerLM._sharded_moe``,
+the sharded decode's ``TransformerLM._ffn_block``).
 
 The reference has no Pallas kernel here (sort, gather, scatter and grouped
 einsums in XLA); the port has none either.
@@ -121,19 +125,22 @@ def route_logits(logits: torch.Tensor, spec: MoeSpec) -> Routing:
                    buf_pos)
 
 
-def _experts(params, buf: torch.Tensor, reduce_d=None, reduce_f=None
+def _experts(params, buf: torch.Tensor, sctx=None, d_axes=()
              ) -> torch.Tensor:
     """SwiGLU of each expert on its rows: buf (E, R, d) -> (E, R, d).  On
-    one rank's (d, f) blocks of the weights (``moe_apply_block``) gate and
-    up are partial over the d blocks, which ``reduce_d(t)`` all-reduces,
-    and down over the f blocks (``reduce_f``)."""
+    one rank's (d, f) blocks of the weights (``moe_apply_block`` under a
+    context) gate and up are partial over the d blocks, all-reduced over
+    ``d_axes``, the SiLU product's gradient likewise, and down is partial
+    over the f blocks (the caller reduces it)."""
     dt = buf.dtype
     g = torch.bmm(buf, params["w_gate"].to(dt))
     u = torch.bmm(buf, params["w_up"].to(dt))
-    if reduce_d is not None:
-        g, u = reduce_d(g), reduce_d(u)
-    y = torch.bmm(F.silu(g) * u, params["w_down"].to(dt))
-    return y if reduce_f is None else reduce_f(y)
+    if sctx is not None:
+        g, u = sctx.reduce(g, d_axes), sctx.reduce(u, d_axes)
+    h = F.silu(g) * u
+    if sctx is not None:
+        h = sctx.reduce_grad(h, d_axes)
+    return torch.bmm(h, params["w_down"].to(dt))
 
 
 def _dispatch(xt: torch.Tensor, r: Routing, E: int) -> torch.Tensor:
@@ -144,83 +151,106 @@ def _dispatch(xt: torch.Tensor, r: Routing, E: int) -> torch.Tensor:
     return buf[:-1]
 
 
-def _combine(y: torch.Tensor, r: Routing, T: int, dtype) -> torch.Tensor:
-    """(T, d): each kept slot's expert output times its gate, summed into
-    its token (at most two slots a token, so any order gives the same
-    sum)."""
+def _combine(y: torch.Tensor, r: Routing, T: int, dtype, gate=None
+             ) -> torch.Tensor:
+    """(T, d): each kept slot's expert output times its gate (``r.gate``
+    where ``gate`` is None), summed into its token (at most two slots a
+    token, so any order gives the same sum)."""
     EC = y.shape[0]
+    gate = r.gate if gate is None else gate
     contrib = torch.where(r.keep[:, None],
                           y[torch.clamp(r.buf_pos, max=EC - 1)]
-                          * r.gate[:, None].to(dtype), 0)
+                          * gate[:, None].to(dtype), 0)
     return y.new_zeros((T, y.shape[1])).index_add(0, r.token, contrib)
 
 
 def moe_apply(params, x: torch.Tensor, spec: MoeSpec
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss f32), the capacity counted
-    over all B·S tokens."""
+    over all B·S tokens: :func:`moe_apply_block` with the whole d and no
+    reductions, plus the shared expert."""
     B, S, d = x.shape
-    T, E = B * S, spec.n_experts
-    xt = x.reshape(T, d)
-    r = route(params["router"], xt, spec)
-    y = _experts(params, _dispatch(xt, r, E).reshape(E, r.capacity, d))
-    out = _combine(y.reshape(E * r.capacity, d), r, T, x.dtype)
+    xt = x.reshape(B * S, d)
+    out, aux = moe_apply_block(params, xt, spec)
     if spec.shared_expert:
         out = out + mlp_swiglu(params["shared"], xt)
-    return out.reshape(B, S, d), r.aux
+    return out.reshape(B, S, d), aux
 
 
-def moe_apply_local(params, x: torch.Tensor, spec: MoeSpec, dp_shards: int
+def moe_apply_local(params, x: torch.Tensor, spec: MoeSpec, shards: int,
+                    sctx=None, f_axes=()) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's locality-aware dispatch: the tokens of ``x`` (...,
+    d) split into ``shards`` contiguous shards, each routed and dispatched
+    on its own with its own capacity (:func:`moe_apply_block` at
+    ``shards``), the aux loss the shards' mean; plus the shared expert.
+    Returns (out, the shape of x; aux f32).
+
+    Under ``sctx`` (``TransformerLM._sharded_moe``) ``x`` is one data
+    rank's tokens, each weight's d whole and its f the rank's block over
+    ``f_axes``: ``out`` is partial over ``f_axes`` (the caller reduces
+    it) and the tokens' gradient is all-reduced over them."""
+    d = x.shape[-1]
+    xt = x.reshape(-1, d)
+    out, aux = moe_apply_block(params, xt, spec, sctx, (), f_axes, shards)
+    if spec.shared_expert:
+        xs = xt if sctx is None else sctx.reduce_grad(xt, f_axes)
+        out = out + mlp_swiglu_block(params["shared"], xs, sctx, (), f_axes,
+                                     reduce_f=False)
+    return out.reshape(x.shape), aux
+
+
+def moe_apply_block(params, xb: torch.Tensor, spec: MoeSpec, sctx=None,
+                    d_axes=(), f_axes=(), shards: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's locality-aware dispatch: the B·S tokens split into
-    ``dp_shards`` shards of T/dp_shards, each routed and dispatched on its
-    own with its own capacity; the experts run on every shard's buffer,
-    and the aux loss is the shards' mean.  No path of the port reaches
-    it: the reference calls it only under a sharding context."""
-    B, S, d = x.shape
-    T, E = B * S, spec.n_experts
-    if T % dp_shards:
-        raise ValueError(f"{T} tokens do not split into {dp_shards} shards")
-    Tl = T // dp_shards
-    xs = x.reshape(dp_shards, Tl, d)
-    routes = [route(params["router"], xl, spec) for xl in xs]
+    """The routed experts of T tokens, ``xb`` (T, d_l) their block of d:
+    routes, capacity and drops counted over each of ``shards`` contiguous
+    shards of T/shards tokens (over all T at one shard, the global
+    dispatch), then dispatch, experts (one batched product an expert over
+    every shard's buffer) and combine.  Returns (out (T, d_l), aux f32, the
+    shards' mean).
+
+    Without ``sctx`` d is whole and nothing is reduced (:func:`moe_apply`,
+    :func:`moe_apply_local`).  Under ``sctx`` the weights are one rank's
+    blocks: the router's rows of d, every expert's (d block, f block)
+    (``w_gate``, ``w_up`` (E, d_l, f_l), ``w_down`` (E, f_l, d_l)),
+    ``d_axes`` the axes that split d and ``f_axes`` those that split f.
+    The router's product is partial over the d blocks and all-reduced in
+    f32, so every rank routes the same tokens with the same capacity and
+    drops the same ones; each rank dispatches its d block; gate and up are
+    all-reduced over ``d_axes``, SwiGLU runs on the f block, and down is
+    partial over the f blocks: ``out`` is returned partial over ``f_axes``
+    (the caller reduces it, with a shared expert's).  Backward, the
+    dispatched tokens' gradient is all-reduced over ``f_axes``, the SiLU
+    product's over ``d_axes`` and the combine weights' over both; no
+    weight leaves its rank."""
+    T, E = xb.shape[0], spec.n_experts
+    if T % shards:
+        raise ValueError(f"{T} tokens do not split into {shards} shards")
+
+    def split(t):   # the shards' tokens (one shard: t itself)
+        return [t] if shards == 1 else t.reshape(shards, -1,
+                                                 t.shape[-1]).unbind(0)
+
+    xs = split(xb)
+    if sctx is None:
+        routes = [route(params["router"], xl, spec) for xl in xs]
+        gates, xe = [None] * shards, xs
+    else:
+        routes = [route_logits(sctx.reduce(
+            (xl @ params["router"].to(xb.dtype)).float(), d_axes), spec)
+            for xl in xs]
+        gates = [sctx.reduce_grad(r.gate, tuple(d_axes) + tuple(f_axes))
+                 for r in routes]
+        xe = split(sctx.reduce_grad(xb, f_axes))
     C = routes[0].capacity
-    # (P, E, C, d) -> (E, P·C, d): one product an expert over every shard
-    buf = torch.stack([_dispatch(xl, r, E) for xl, r in zip(xs, routes)])
-    buf = buf.reshape(dp_shards, E, C, d).transpose(0, 1)
-    y = _experts(params, buf.reshape(E, dp_shards * C, d))
-    y = y.reshape(E, dp_shards, C, d).transpose(0, 1).reshape(
-        dp_shards, E * C, d)
-    out = torch.stack([_combine(yl, r, Tl, x.dtype)
-                       for yl, r in zip(y, routes)]).reshape(B, S, d)
-    if spec.shared_expert:
-        out = out + mlp_swiglu(params["shared"], x)
-    return out, torch.stack([r.aux for r in routes]).mean()
-
-
-def moe_apply_block(params, x: torch.Tensor, spec: MoeSpec, d_block: slice,
-                    reduce_d, reduce_f) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The global dispatch of :func:`moe_apply` with the weights as one
-    rank's blocks: the router's rows and every expert's (d block, f block)
-    (``w_gate``, ``w_up`` (E, d_l, f_l), ``w_down`` (E, f_l, d_l); the
-    shared expert's alike).  x (B, S, d) is whole and the same on every
-    rank.  The router's product is partial over the d blocks
-    (``reduce_d(t)`` all-reduces it), so every rank routes the same tokens
-    with the same capacity and drops the same ones; each rank dispatches
-    its d block of them; gate and up are reduced by ``reduce_d``, SwiGLU
-    runs on the f block and down is reduced by ``reduce_f`` (over the f
-    blocks).  No weight leaves its rank.  Returns (this rank's d block of
-    the output (B, S, d_l), aux)."""
-    B, S, d = x.shape
-    T, E = B * S, spec.n_experts
-    xt = x.reshape(T, d)
-    xb = xt[:, d_block]
-    r = route_logits(reduce_d(xb @ params["router"].to(xt.dtype)).float(),
-                     spec)
-    y = _experts(params, _dispatch(xb, r, E).reshape(E, r.capacity, -1),
-                 reduce_d, reduce_f)
-    out = _combine(y.reshape(E * r.capacity, -1), r, T, x.dtype)
-    if spec.shared_expert:
-        out = out + mlp_swiglu_block(params["shared"], xt, d_block,
-                                     reduce_d, reduce_f)
-    return out.reshape(B, S, -1), r.aux
+    # (E, shards·C, d_l): one product an expert over every shard's rows
+    bufs = [_dispatch(xl, r, E).reshape(E, C, -1)
+            for xl, r in zip(xe, routes)]
+    buf = bufs[0] if shards == 1 else torch.stack(bufs, 1).reshape(
+        E, shards * C, -1)
+    y = _experts(params, buf, sctx, d_axes).reshape(E, shards, C, -1)
+    outs = [_combine(yl.reshape(E * C, -1), r, T // shards, xb.dtype, g)
+            for yl, r, g in zip(y.unbind(1), routes, gates)]
+    if shards == 1:
+        return outs[0], routes[0].aux
+    return torch.cat(outs), torch.stack([r.aux for r in routes]).mean()

@@ -42,28 +42,42 @@ DTensors placed by ``launch.sharding.lm_param_shardings``
 (``launch.steps.place_lm``), the batch is a DTensor of rows split over
 the data axes (each data rank keeps its contiguous block of the global
 batch it is given), and ``sctx.cs`` places the activations where the
-reference constrains them.  Ops with a DTensor rule (the projections,
-norms, SwiGLU) run on DTensors; RoPE, the attention (the flash kernels
-or the chunked attention), the MoE dispatch and the loss run on each
-rank's local shard under ``local_map``: the attention is local to a
-batch shard and a head shard.  Without ``moe_local_dispatch`` an MoE
-layer gathers its tokens to every rank and dispatches them all (what
-GSPMD does implicitly); with it each data rank dispatches its own shard
-(``moe_apply_local``, the shard count taken from the mesh) and the aux
-loss is the shards' mean.  ``decode_step`` under a context is
-weight-stationary, as GSPMD runs the reference's ``decode_step`` (which
-reads no context) on its placed parameters and KV cache: every rank
-computes on its own shards of both (the cache in
-``launch.sharding.kv_cache_shardings``' placements, rows or, for one long
-stream, slots over the data axes and head_dim over the model axis) and
-only activations move.  Without a context every path is the one-device
-model, unchanged; a ``moe_local_dispatch`` config without one dispatches
-globally, as the reference does.
+reference constrains them.  The training forward and ``prefill`` keep
+the reference's placements: every weight stays in its own, and each
+product runs on the rank's block of it as a ``local_map`` region whose
+collectives (``ShardCtx.reduce``, ``reduce_grad``, ``gather``,
+``to_d_blocks``) carry the backward too.  A data axis that splits a
+weight is gathered (FSDP, as GSPMD gathers the reference's) and its
+gradient reduce-scattered back; the model axis never is: the attention
+projections and the dense SwiGLU are column- or row-parallel on the f
+(or heads) block, their partial sums all-reduced over the model axis
+(:func:`_projections`, :func:`_sharded_mlp`); the embedding is a
+vocab-parallel masked lookup and the head a product on the rank's
+vocabulary block (:func:`_sharded_lookup`; a tied table's gradient sums
+both uses in its placement); an MoE layer runs on each rank's expert
+blocks (:meth:`TransformerLM._sharded_moe`): the global dispatch trades
+the rank's tokens for every token's block of d (an all-to-all over the
+data axes) and routes all of them, the experts never moving, and
+``moe_local_dispatch`` routes each data rank's own shard with its own
+capacity, the experts' d gathered, their f on the model axis.  Norms and
+residuals run on DTensors; RoPE, the attention (the flash kernels or the
+chunked attention, on a batch shard and a head shard: where the heads do
+not split over the model axis, on the axis's share of kv-head groups and
+rows) and the loss run on each rank's local shard under ``local_map``.
+``decode_step`` under a context is weight-stationary too, as GSPMD runs
+the reference's ``decode_step`` (which reads no context) on its placed
+parameters and KV cache: every rank computes on its own shards of both
+(the cache in ``launch.sharding.kv_cache_shardings``' placements, rows
+or, for one long stream, slots over the data axes and head_dim over the
+model axis) and only activations move.  Without a context every path is
+the one-device model, unchanged; a ``moe_local_dispatch`` config without
+one dispatches globally, as the reference does.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -345,49 +359,77 @@ class TransformerLM(nn.Module):
             if sctx is not None:
                 return self._sharded_moe(layer.moe, h, sctx)
             return moe_apply(layer.moe, h, self.cfg.moe_spec)
-        hidden_cs = None
         if sctx is not None:
-            def hidden_cs(t):
-                return sctx.cs(t, sctx.dp, None, sctx.model)
-        return mlp_swiglu(layer.mlp, h, hidden_cs=hidden_cs), None
+            return _sharded_mlp(layer.mlp, h, sctx), None
+        return mlp_swiglu(layer.mlp, h), None
 
     def _sharded_moe(self, moe, h, sctx: ShardCtx):
-        """An MoE layer on a DTensor ``h`` under ``sctx``: each rank runs
-        the dispatch on its local tokens with the expert weights gathered
-        (``local_map``).  With ``moe_local_dispatch`` the tokens stay
-        split over the data axes and each rank dispatches its own
-        ``dp_size / shards`` shards (``moe_apply_local``); without it they
-        are gathered and every rank dispatches them all (``moe_apply``)."""
-        spec, local = self.cfg.moe_spec, self.cfg.moe_local_dispatch
-        h = (sctx.cs(h, sctx.dp, None, None) if local
-             else sctx.replicate(h))
-        keys = [("router",), ("w_gate",), ("w_up",), ("w_down",)]
+        """An MoE layer on a DTensor ``h`` (rows over the data axes) under
+        ``sctx``, in the reference's placements: a region on each rank's
+        rows and expert blocks.  The experts' d stays split over the data
+        axes and their f over the model axis.
+
+        Global dispatch: the rank's (T/P, d) tokens are traded for every
+        token's block of d, (T, d/P) (an all-to-all over the data axes);
+        ``moe.moe_apply_block`` routes all T on all-reduced logits and
+        runs the experts on the rank's (d/P, f/M) blocks, which never
+        move; the output is traded back; a shared expert runs on the
+        rank's rows (``mlp_swiglu_block``, its weights' d gathered).
+        Where the rows do not split, every rank runs the global dispatch
+        on its d block of all the tokens, as the sharded decode does
+        (:func:`_moe_whole_rows`).  ``moe_local_dispatch``:
+        ``moe.moe_apply_local`` on the rank's tokens, its shards (the
+        reference's data shards) each routed and dispatched with its own
+        capacity, the experts' d gathered over the data axes (their
+        gradients reduce-scattered back), f on the model axis; the aux
+        loss is the shards' mean.  Each reduces the f blocks' partial
+        sums over the model axis once, the shared expert's with them."""
+        spec, mesh = self.cfg.moe_spec, sctx.mesh
+        h_pl = sctx.placements(h.shape, sctx.dp, None, None)
+        rows = shard_axes(h_pl, mesh, 0)
+        d_axes = shard_axes(moe["w_gate"].placements, mesh, 1)
+        f_axes = shard_axes(moe["w_gate"].placements, mesh, 2)
+        names = ("router", "w_gate", "w_up", "w_down")
+        weights = [moe[k] for k in names]
         if spec.shared_expert:
-            keys += [("shared", k) for k in ("w_gate", "w_up", "w_down")]
-        weights = [sctx.replicate(moe[k[0]] if len(k) == 1
-                                  else moe[k[0]][k[1]]) for k in keys]
-        h_pl = tuple(h.placements)
-        shards = int(np.prod([sctx.mesh.size(i) for i, pl in enumerate(h_pl)
-                              if not pl.is_replicate()]))
-        grad_pl = sctx.grad_placements(h_pl)
+            weights += [moe["shared"][k] for k in names[1:]]
+        local = self.cfg.moe_local_dispatch
+        if not local and rows and tuple(rows) != tuple(d_axes):
+            raise ValueError(f"the global dispatch trades tokens split over "
+                             f"{rows} for d split over {d_axes}")
+        n_rows = int(np.prod([mesh_axes(mesh)[a] for a in rows]))
 
         def fn(xl, *wl):
-            params = {}
-            for k, w in zip(keys, wl):
-                if len(k) == 1:
-                    params[k[0]] = w
-                else:
-                    params.setdefault(k[0], {})[k[1]] = w
+            Bl, S, d = xl.shape
+            xt = xl.reshape(Bl * S, d)
             if local:
-                out, aux = moe_apply_local(params, xl, spec,
-                                           sctx.dp_size // shards)
-                return out, aux / shards
-            return moe_apply(params, xl, spec)
+                wl = [_fsdp(sctx, v, w, rows, xl.dtype)
+                      for v, w in zip(wl, weights)]
+            p = dict(zip(names, wl))
+            if spec.shared_expert:
+                p["shared"] = dict(zip(names[1:], wl[4:]))
+            if local:
+                out, aux = moe_apply_local(
+                    p, xt, spec, sctx.dp_size // n_rows, sctx, f_axes)
+                out, aux = sctx.reduce(out, f_axes), aux / n_rows
+            elif not rows:
+                out, aux = _moe_whole_rows(p, xt, spec, sctx, d_axes, f_axes)
+            else:
+                out, aux = moe_apply_block(p, sctx.to_d_blocks(xt, d_axes),
+                                           spec, sctx, d_axes, f_axes)
+                out = sctx.to_row_blocks(out, d_axes)
+                if spec.shared_expert:   # on the rows, its weights' d
+                    shared = {k: _fsdp(sctx, v, w, rows, xl.dtype)
+                              for (k, v), w in zip(p["shared"].items(),
+                                                   weights[4:])}
+                    out = out + mlp_swiglu_block(
+                        shared, sctx.reduce_grad(xt, f_axes), sctx, (),
+                        f_axes, reduce_f=False)
+                out = sctx.reduce(out, f_axes)
+            return out.reshape(Bl, S, d), aux
 
-        return sctx.local(
-            fn, [h_pl, grad_pl],
-            [h_pl] + [w.placements for w in weights],
-            [h_pl] + [grad_pl] * len(weights))(h, *weights)
+        aux_pl = sctx.grad_placements(h_pl) if local else sctx.placements(())
+        return _region(sctx, fn, [h_pl, aux_pl], h, h_pl, weights)
 
     def _rope(self, sctx: ShardCtx, t):
         """RoPE on a (B, S, heads, hd) DTensor, on each rank's rows."""
@@ -405,32 +447,59 @@ class TransformerLM(nn.Module):
         """``attention`` on each rank's batch shard and head shard.
         Where q's heads split over the model axis and k, v's do not (Hkv
         does not divide), a rank reads the kv heads its query heads
-        group into, and their gradients are partial sums over the axis."""
+        group into, and their gradients are partial sums over the axis.
+        Where q's heads do not split either (H does not divide), the
+        model axis's ranks share the work by kv-head groups and rows
+        (:func:`_attention_split`): each computes its block into zeros,
+        and the output and the inputs' gradients are partial sums over
+        the axis (whole on every rank where neither splits)."""
         Partial = _dtensor_types()[1]
         q_pl, kv_pl = tuple(q.placements), tuple(k.placements)
         H, Hkv = q.shape[2], k.shape[2]
         G, S = H // Hkv, q.shape[1]
         m = list(mesh_axes(sctx.mesh)).index(sctx.model)
+        M = sctx.mesh.size(m)
         q_split, kv_split = q_pl[m].is_shard(), kv_pl[m].is_shard()
-        kv_grad = kv_pl
+        q_grad, kv_grad, out_pl = q_pl, kv_pl, q_pl
+        part = None
         if q_split and not kv_split:
             r = sctx.mesh.get_local_rank(sctx.model)
-            Hl = H // sctx.mesh.size(m)
+            Hl = H // M
             lo, hi = r * Hl // G, ((r + 1) * Hl - 1) // G + 1
             if Hl % (hi - lo):
                 raise ValueError(f"{Hl} query heads a rank do not group "
                                  f"into {hi - lo} kv heads")
             kv_grad = kv_pl[:m] + (Partial(),) + kv_pl[m + 1:]
+        elif not q_split and not kv_split and M > 1:
+            rows = math.prod(sctx.mesh.size(i) for i, p in enumerate(q_pl)
+                             if p.is_shard(0))
+            part = _attention_split(M, Hkv, q.shape[0] // rows,
+                                    sctx.mesh.get_local_rank(sctx.model))
+        if part is not None:
+            q_grad, kv_grad, out_pl = (pl[:m] + (Partial(),) + pl[m + 1:]
+                                       for pl in (q_pl, kv_pl, q_pl))
 
         def fn(ql, kl, vl):
             if q_split and not kv_split:
                 kl, vl = kl[:, :, lo:hi], vl[:, :, lo:hi]
-            pos = torch.arange(S, dtype=torch.int32,
-                               device=ql.device).expand(ql.shape[0], S)
-            return attention(ql, kl, vl, window, pos)
+            if part is None:
+                pos = torch.arange(S, dtype=torch.int32,
+                                   device=ql.device).expand(ql.shape[0], S)
+                return attention(ql, kl, vl, window, pos)
+            rs, kvh = part
+            qh = slice(kvh.start * G, kvh.stop * G)
+            out = ql.new_zeros(ql.shape)
+            if rs.stop > rs.start:
+                a = ql[rs][:, :, qh].contiguous()
+                pos = torch.arange(S, dtype=torch.int32,
+                                   device=ql.device).expand(a.shape[0], S)
+                out[rs, :, qh] = attention(
+                    a, kl[rs][:, :, kvh].contiguous(),
+                    vl[rs][:, :, kvh].contiguous(), window, pos)
+            return out
 
-        return sctx.local(fn, [q_pl], [q_pl, kv_pl, kv_pl],
-                          [q_pl, kv_grad, kv_grad])(q, k, v)
+        return sctx.local(fn, [out_pl], [q_pl, kv_pl, kv_pl],
+                          [q_grad, kv_grad, kv_grad])(q, k, v)
 
     def _layer(self, layer: Block, window: int, x, positions,
                attention=None, sctx: Optional[ShardCtx] = None):
@@ -457,14 +526,14 @@ class TransformerLM(nn.Module):
                 return sctx.cs(t, dp, None, None)
             return t
 
-        q, k, v = attn_project(layer.attn, h, self.cfg.attn_spec, heads_cs)
+        q, k, v = attn_project(layer.attn, h, self.cfg.attn_spec, heads_cs,
+                               functools.partial(_projections, sctx))
         q = self._rope(sctx, sctx.cs(q, dp, None, mdl, None))
         k = self._rope(sctx, sctx.cs(k, dp, None, mdl, None))
         v = sctx.cs(v, dp, None, mdl, None)
         attn_out = self._sharded_attention(sctx, q, k, v, window, attention)
         attn_flat = sctx.cs(attn_out.reshape(B, S, -1), dp, None, mdl)
-        x = sctx.cs(x + attn_flat @ layer.attn["wo"].to(x.dtype),
-                    dp, None, None)
+        x = x + _projections(sctx, attn_flat, [layer.attn["wo"]])[0]
         out, aux = self._ffn(layer, rms_norm(x, layer.ln2), sctx)
         return sctx.cs(x + out, dp, None, None), aux, k, v
 
@@ -473,36 +542,36 @@ class TransformerLM(nn.Module):
 
     def _embed(self, tokens, sctx: Optional[ShardCtx] = None):
         """(x (B, S, d) in ``cfg.dtype``, positions (B, S) int32; None
-        under ``sctx``, where each rank makes its own rows')."""
+        under ``sctx``, where each rank makes its own rows').  Under
+        ``sctx`` a vocab-parallel masked lookup on each rank's block of
+        the table (:func:`_sharded_lookup`)."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         if sctx is not None:
-            tok = sctx.batch(tokens)
-            table = sctx.replicate(self.embed)
-            pl = tuple(tok.placements)
-            dtype = self.cfg.dtype
-            x = sctx.local(lambda e, t: e[t].to(dtype), [pl],
-                           [table.placements, pl],
-                           [sctx.grad_placements(pl), pl])(table, tok)
-            return sctx.cs(x, sctx.dp, None, None), None
+            return _sharded_lookup(self.embed, sctx.batch(tokens),
+                                   self.cfg.dtype, sctx), None
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=self.device).expand(B, S)
         return self.embed[tokens].to(self.cfg.dtype), positions
 
     def _logits(self, x, sctx: Optional[ShardCtx] = None):
+        """Logits of the last hidden states; under ``sctx`` the head's
+        product on each rank's (d, vocabulary) block, the vocabulary split
+        over the model axis (the tied table used transposed)."""
         x = rms_norm(x, self.final_norm)
-        head = self.embed.T if self.cfg.tie_embeddings else self.lm_head
-        logits = x @ head.to(self.cfg.dtype)
+        tied = self.cfg.tie_embeddings
+        head = self.embed if tied else self.lm_head
         if sctx is None:
-            return logits
-        return sctx.cs(logits, sctx.dp, *([None] * (logits.dim() - 2)),
-                       sctx.model)
+            return x @ (head.T if tied else head).to(self.cfg.dtype)
+        return _projections(sctx, x, [head], transposed=tied)[0]
 
     def forward(self, tokens, sctx: Optional[ShardCtx] = None):
         """tokens: (B, S) -> (logits (B, S, V) in ``cfg.dtype``, aux_loss:
         the sum over layers of the MoE load-balancing losses, f32; 0 for a
         dense config).  Under ``sctx`` both are DTensors, the logits split
-        over the batch and the vocabulary, the aux replicated."""
+        over the batch and the vocabulary, the aux replicated; every
+        product and its backward run on the rank's weight blocks (the
+        module's docstring)."""
         cfg = self.cfg
         x, positions = self._embed(tokens, sctx)
         auxs = []
@@ -544,7 +613,8 @@ class TransformerLM(nn.Module):
         (chunked at S >= ``CHUNKED_ATTN_THRESHOLD``, masked below) whatever
         ``attention_impl`` is.  Under ``sctx`` the logits and the cache's
         k and v are DTensors (rows over the data axes, kv heads over the
-        model axis where they divide)."""
+        model axis where they divide), computed by the training forward's
+        regions on the rank's weight blocks."""
         cfg = self.cfg
         x, positions = self._embed(tokens, sctx)
         B, S = x.shape[:2]
@@ -790,19 +860,15 @@ class TransformerLM(nn.Module):
             if self.cfg.moe_spec.shared_expert:
                 local["shared"] = _mlp_blocks(moe["shared"], d_axes, f_axes,
                                               sctx)
-            out = moe_apply_block(
-                local, h, self.cfg.moe_spec, sctx.block(h.shape[-1], d_axes),
-                lambda t: sctx.reduce(t, d_axes),
-                lambda t: sctx.reduce(t, f_axes))[0]
-        else:
-            mlp = layer.mlp
-            d_axes = shard_axes(mlp["w_gate"].placements, mesh, 0)
-            f_axes = shard_axes(mlp["w_gate"].placements, mesh, 1)
-            out = mlp_swiglu_block(
-                _mlp_blocks(mlp, d_axes, f_axes, sctx), h,
-                sctx.block(h.shape[-1], d_axes),
-                lambda t: sctx.reduce(t, d_axes),
-                lambda t: sctx.reduce(t, f_axes))
+            out = _moe_whole_rows(local, h.reshape(-1, h.shape[-1]),
+                                  self.cfg.moe_spec, sctx, d_axes, f_axes)[0]
+            return out.reshape(h.shape)
+        mlp = layer.mlp
+        d_axes = shard_axes(mlp["w_gate"].placements, mesh, 0)
+        f_axes = shard_axes(mlp["w_gate"].placements, mesh, 1)
+        out = mlp_swiglu_block(_mlp_blocks(mlp, d_axes, f_axes, sctx),
+                               h[..., sctx.block(h.shape[-1], d_axes)],
+                               sctx, d_axes, f_axes)
         return sctx.gather(out, d_axes, -1)
 
     def _logits_block(self, x, sctx: ShardCtx):
@@ -842,6 +908,26 @@ class TransformerLM(nn.Module):
                 part = part[r * n:(r + 1) * n]
         return DTensor.from_local(part, mesh, pl, run_check=False,
                                   shape=(B, V), stride=(V, 1))
+
+
+def _attention_split(M: int, Hkv: int, rows: int, r: int):
+    """(rows, kv heads) slices of the attention that rank ``r`` of an
+    ``M``-rank model axis computes where the query heads do not split
+    over the axis: the kv heads (with their query groups) split into the
+    most parts h of M that divide Hkv, the rows into the most parts of
+    M / h that divide ``rows``; a rank past those parts computes nothing
+    (empty slices).  None where neither splits."""
+    h = max(n for n in range(1, min(M, Hkv) + 1)
+            if M % n == 0 and Hkv % n == 0)
+    parts = max(n for n in range(1, M // h + 1)
+                if (M // h) % n == 0 and rows % n == 0)
+    if h * parts == 1:
+        return None
+    i, j = divmod(r, h)
+    if i >= parts:
+        return slice(0, 0), slice(0, 0)
+    nr, nh = rows // parts, Hkv // h
+    return slice(i * nr, (i + 1) * nr), slice(j * nh, (j + 1) * nh)
 
 
 def _ring(length, S: int, slots: slice, rows: slice):
@@ -903,6 +989,153 @@ def _product(x, w, sctx: ShardCtx):
     y = x[..., sctx.block(x.shape[-1], n_axes)] @ w.to_local().to(x.dtype)
     return sctx.gather(sctx.reduce(y, n_axes),
                        shard_axes(w.placements, mesh, 1), -1)
+
+
+def _moe_whole_rows(p, xt, spec: MoeSpec, sctx: ShardCtx, d_axes, f_axes):
+    """The global dispatch of tokens whole on every rank, ``xt`` (T, d), on
+    the rank's blocks ``p`` of the weights (``moe.moe_apply_block``'s, a
+    shared expert's under "shared"): the routed and the shared experts on
+    the rank's d block of the tokens, the f blocks' partial sums
+    all-reduced over ``f_axes``, the d blocks gathered.  (out (T, d), aux
+    f32): the sharded decode's MoE, and the sharded train step's and
+    prefill's where the rows do not split."""
+    xb = xt[:, sctx.block(xt.shape[-1], d_axes)]
+    out, aux = moe_apply_block(p, xb, spec, sctx, d_axes, f_axes)
+    if "shared" in p:
+        out = out + mlp_swiglu_block(p["shared"],
+                                     sctx.reduce_grad(xb, f_axes), sctx,
+                                     d_axes, f_axes, reduce_f=False)
+    return sctx.gather(sctx.reduce(out, f_axes), d_axes, 1, summed=()), aux
+
+
+# ------------------------------- the sharded train and prefill regions
+# Each runs on a rank's local shards (``ShardCtx.local``): the activations'
+# rows over the data axes, every weight in its own placements.  A data
+# axis that splits a weight is gathered (FSDP, as GSPMD gathers the
+# reference's), the model axis never: each product runs on the rank's
+# block of f (or heads, or vocabulary), its partial sums all-reduced over
+# the model axis, and its backward stays on the same blocks.
+def _fsdp(sctx: ShardCtx, local, param, rows, dtype):
+    """``local``, the rank's block of parameter ``param``, in ``dtype`` and
+    gathered whole over the data axes that split it; its gradient is
+    reduce-scattered back over those of them in ``rows`` (the axes that
+    split the activations' rows, where each rank's gradient is a partial
+    sum) and taken as this rank's block over the others.  A split over the
+    model axis stays."""
+    t = local.to(dtype)
+    for dim in range(param.dim()):
+        axes = [a for a in shard_axes(param.placements, sctx.mesh, dim)
+                if a != sctx.model]
+        t = sctx.gather(t, axes, dim, summed=rows)
+    return t
+
+
+def _grad_pl(sctx: ShardCtx, param, rows) -> tuple:
+    """The placements of a region's gradient of ``param``: its own, but a
+    partial sum over a mesh axis that splits the rows (``rows``) and not
+    the parameter."""
+    Partial = _dtensor_types()[1]
+    return tuple(Partial() if p.is_replicate() and a in rows else p
+                 for a, p in zip(mesh_axes(sctx.mesh), param.placements))
+
+
+def _region(sctx: ShardCtx, fn, outs, x, x_pl, weights):
+    """``fn(x_local, *weight_locals)`` as a ``local_map`` region: x
+    redistributed to ``x_pl`` (its gradient there too), each weight in its
+    own placements (its gradient in :func:`_grad_pl`'s), ``outs`` the
+    placements of each output."""
+    rows = shard_axes(x_pl, sctx.mesh, 0)
+    return sctx.local(fn, outs, [x_pl] + [w.placements for w in weights],
+                      [x_pl] + [_grad_pl(sctx, w, rows)
+                                for w in weights])(x, *weights)
+
+
+def _projections(sctx: ShardCtx, x, weights, transposed: bool = False):
+    """[x @ w for w in ``weights``] on a DTensor x (..., n), rows over the
+    data axes, each w an (n, m) parameter ((m, n), used transposed, where
+    ``transposed``), in one region on the rank's weight blocks: a weight
+    whose m splits over the model axis is column-parallel (x whole on the
+    axis, its gradient all-reduced over it once for all such products);
+    one whose n does is row-parallel (x's n split alike, the partial
+    products all-reduced over the axis).  The data axes' blocks are
+    gathered (:func:`_fsdp`).  No rank computes a product whole."""
+    mesh, model = sctx.mesh, sctx.model
+    n_dim, m_dim = (1, 0) if transposed else (0, 1)
+    row = {model in shard_axes(w.placements, mesh, n_dim) for w in weights}
+    if len(row) != 1:
+        raise ValueError("row- and column-parallel weights in one region")
+    row = row.pop()
+    lead = [None] * (x.dim() - 2)
+    x_pl = sctx.placements(x.shape, sctx.dp, *lead, model if row else None)
+    rows = shard_axes(x_pl, mesh, 0)
+    column = [model in shard_axes(w.placements, mesh, m_dim)
+              for w in weights]
+    outs = [sctx.placements(x.shape[:-1] + (w.shape[m_dim],), sctx.dp,
+                            *lead, model if c else None)
+            for w, c in zip(weights, column)]
+
+    def fn(xl, *wl):
+        xf, ys = None, []
+        for w, b, c in zip(weights, wl, column):
+            b = _fsdp(sctx, b, w, rows, xl.dtype)
+            if c and xf is None:
+                xf = sctx.reduce_grad(xl, (model,))
+            y = (xf if c else xl) @ (b.T if transposed else b)
+            ys.append(sctx.reduce(y, (model,)) if row else y)
+        return ys if len(ys) > 1 else ys[0]
+
+    out = _region(sctx, fn, outs, x, x_pl, weights)
+    return list(out) if len(weights) > 1 else [out]
+
+
+def _sharded_mlp(mlp, h, sctx: ShardCtx):
+    """The dense SwiGLU on a DTensor ``h`` (rows over the data axes) in one
+    region: ``mlp_swiglu_block`` on the rank's f block of each weight, its
+    d gathered (:func:`_fsdp`), down's partial sums all-reduced over the
+    model axis and the input's gradient likewise."""
+    mesh = sctx.mesh
+    h_pl = sctx.placements(h.shape, sctx.dp, None, None)
+    rows = shard_axes(h_pl, mesh, 0)
+    f_axes = shard_axes(mlp["w_gate"].placements, mesh, 1)
+    names = ("w_gate", "w_up", "w_down")
+    weights = [mlp[k] for k in names]
+
+    def fn(xl, *wl):
+        p = {k: _fsdp(sctx, b, w, rows, xl.dtype)
+             for k, b, w in zip(names, wl, weights)}
+        return mlp_swiglu_block(p, sctx.reduce_grad(xl, f_axes), sctx, (),
+                                f_axes)
+
+    return _region(sctx, fn, [h_pl], h, h_pl, weights)
+
+
+def _sharded_lookup(table, tok, dtype, sctx: ShardCtx):
+    """(B, S, d) embeddings in ``dtype`` of ``tok`` (a DTensor of rows over
+    the data axes), vocab-parallel: each rank looks its tokens up in its
+    vocabulary rows of the table, their d gathered over the data axes
+    (in the table's dtype, as the plain lookup reads them; the gradient
+    reduce-scattered back), zeros for the other ranks' tokens, and the
+    sum over the model axis is the lookup.  No rank holds the whole table
+    or its whole gradient."""
+    mesh, V = sctx.mesh, table.shape[0]
+    tok_pl = tuple(tok.placements)
+    rows = shard_axes(tok_pl, mesh, 0)
+    v_axes = shard_axes(table.placements, mesh, 0)
+    x_pl = sctx.placements(tuple(tok.shape) + (table.shape[1],), sctx.dp,
+                           None, None)
+
+    def fn(t, ids):
+        t = _fsdp(sctx, t, table, rows, t.dtype)
+        if not v_axes:
+            return t[ids].to(dtype)
+        idx = ids - sctx.block(V, v_axes).start
+        mine = (idx >= 0) & (idx < t.shape[0])
+        x = torch.where(mine[..., None], t[idx.clamp(0, t.shape[0] - 1)],
+                        0.0).to(dtype)
+        return sctx.reduce(x, v_axes)
+
+    return sctx.local(fn, [x_pl], [table.placements, tok_pl],
+                      [_grad_pl(sctx, table, rows), tok_pl])(table, tok)
 
 
 # rows of logits taken to f32 at once by the loss (2^26 elements, 256 MiB)

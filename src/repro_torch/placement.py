@@ -26,6 +26,8 @@ import dataclasses
 import math
 from typing import Any, Dict, Tuple
 
+import torch
+
 from .devices import is_dtensor
 
 Spec = Tuple[Any, ...]
@@ -86,7 +88,6 @@ def dtensor_types():
 def all_reduce(t, op: str, group):
     """``t`` reduced by ``op`` ("sum", "max") over ``group``: a functional
     collective, which ``launch.collectives.LocalCounter`` records."""
-    import torch
     f = torch.ops._c10d_functional
     return f.wait_tensor(f.all_reduce(t.contiguous(), op, group.group_name))
 
@@ -94,7 +95,6 @@ def all_reduce(t, op: str, group):
 def all_gather(t, dim: int, group):
     """The ranks' ``t`` of ``group`` concatenated along ``dim``, in rank
     order (a functional all-gather)."""
-    import torch
     f = torch.ops._c10d_functional
     moved = t.movedim(dim, 0).contiguous()
     out = f.wait_tensor(f.all_gather_into_tensor(moved, group.size(),
@@ -105,12 +105,141 @@ def all_gather(t, dim: int, group):
 def reduce_scatter(t, dim: int, group):
     """The sum over ``group`` of ``t``, this rank keeping its block of
     ``dim`` (a functional reduce-scatter)."""
-    import torch
     f = torch.ops._c10d_functional
     moved = t.movedim(dim, 0).contiguous()
     out = f.wait_tensor(f.reduce_scatter_tensor(moved, "sum", group.size(),
                                                 group.group_name))
     return out.movedim(0, dim)
+
+
+def all_to_all(t, group):
+    """Block i of ``t``'s dimension 0 (one block a rank of ``group``) sent
+    to rank i; block j of the result is what rank j sent (a functional
+    all-to-all)."""
+    f = torch.ops._c10d_functional
+    splits = [t.shape[0] // group.size()] * group.size()
+    return f.wait_tensor(f.all_to_all_single(t.contiguous(), splits, splits,
+                                             group.group_name))
+
+
+def _own_block(t, dim: int, group):
+    return t.chunk(group.size(), dim)[group.rank()]
+
+
+def _trade_d(t, group, d_l: int):
+    """(R, D) rows, D read as (O, p, d_l) -> (p·R, O·d_l): sub-block j of
+    the p goes to rank j of ``group``, whose rows come back in rank
+    order."""
+    p = group.size()
+    R, D = t.shape
+    x = t.reshape(R, D // (p * d_l), p, d_l).permute(2, 0, 1, 3)
+    return all_to_all(x, group).reshape(p * R, D // p)
+
+
+def _trade_rows(t, group, d_l: int):
+    """The inverse of :func:`_trade_d`: (p·R, O·d_l) -> (R, O·p·d_l)."""
+    p = group.size()
+    R, D = t.shape[0] // p, t.shape[1]
+    y = all_to_all(t.reshape(p, R, D // d_l, d_l), group)
+    return y.permute(1, 2, 0, 3).reshape(R, D * p)
+
+
+def _to_d(t, groups, d_l):
+    for g in reversed(groups):
+        t = _trade_d(t, g, d_l)
+    return t
+
+
+def _to_rows(t, groups, d_l):
+    for g in groups:
+        t = _trade_rows(t, g, d_l)
+    return t
+
+
+class _Reduce(torch.autograd.Function):
+    """All-reduce over the groups forward, identity backward: a sum of
+    partial products whose result every rank then uses alike."""
+
+    @staticmethod
+    def forward(ctx, t, op, groups):
+        for g in groups:
+            t = all_reduce(t, op, g)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _ReduceGrad(torch.autograd.Function):
+    """Identity forward, all-reduce over the groups backward: the input of
+    products whose gradients are partial over the groups."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        for g in ctx.groups:
+            grad = all_reduce(grad, "sum", g)
+        return grad, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` forward (the innermost group first);
+    backward, each group's block of the gradient: reduce-scattered where
+    ``summed`` (the ranks' gradients are partial sums), taken where not
+    (they are the same)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, groups, summed):
+        ctx.dim, ctx.groups, ctx.summed = dim, groups, summed
+        for g in reversed(groups):
+            t = all_gather(t, dim, g)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        for g, s in zip(ctx.groups, ctx.summed):
+            grad = (reduce_scatter(grad, ctx.dim, g) if s
+                    else _own_block(grad, ctx.dim, g))
+        return grad, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, t, dim, groups):
+        ctx.dim, ctx.groups = dim, groups
+        for g in groups:
+            t = reduce_scatter(t, dim, g)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        for g in reversed(ctx.groups):
+            grad = all_gather(grad, ctx.dim, g)
+        return grad, None, None
+
+
+class _Trade(torch.autograd.Function):
+    """(R, D) rows of a token block -> (P·R, D/P): every token of the P
+    ranks' blocks, this rank's block of D (an all-to-all a group, the
+    innermost first); ``inverse`` the other way.  Each is the other's
+    backward."""
+
+    @staticmethod
+    def forward(ctx, t, groups, d_l, inverse):
+        ctx.groups, ctx.d_l, ctx.inverse = groups, d_l, inverse
+        return (_to_rows if inverse else _to_d)(t, groups, d_l)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = _to_d if ctx.inverse else _to_rows
+        return back(grad, ctx.groups, ctx.d_l), None, None, None
 
 
 def shard_axes(placements, mesh, dim: int) -> tuple:
@@ -221,6 +350,9 @@ class ShardCtx:
     # These act on a rank's local tensors (inside a ``local_map`` region,
     # or on ``to_local()`` shards); each takes the axes that split the
     # dimension in question, in mesh order, and skips an axis of one rank.
+    # Each is an autograd Function over the functional collectives (which
+    # ``launch.collectives.LocalCounter`` records), its backward the
+    # collective that carries the gradient back.
     def _groups(self, axes):
         return [self.mesh.get_group(a) for a in axes
                 if mesh_axes(self.mesh)[a] > 1]
@@ -237,24 +369,55 @@ class ShardCtx:
         return slice(index * n, (index + 1) * n)
 
     def reduce(self, t, axes, op: str = "sum"):
-        """``t`` all-reduced by ``op`` over each of ``axes``."""
-        for g in self._groups(axes):
-            t = all_reduce(t, op, g)
-        return t
+        """``t`` all-reduced by ``op`` over each of ``axes``; its gradient
+        passes unchanged (every rank uses the reduced ``t`` alike)."""
+        groups = self._groups(axes)
+        return _Reduce.apply(t, op, groups) if groups else t
 
-    def gather(self, t, axes, dim: int):
+    def reduce_grad(self, t, axes):
+        """``t`` itself, its gradient all-reduced over ``axes``: the input
+        of products on blocks that ``axes`` split, each rank's gradient a
+        partial sum."""
+        groups = self._groups(axes)
+        return _ReduceGrad.apply(t, groups) if groups else t
+
+    def gather(self, t, axes, dim: int, summed=None):
         """The blocks of ``dim`` that ``axes`` split, all-gathered whole
-        (the innermost axis first)."""
-        for g in reversed(self._groups(axes)):
-            t = all_gather(t, dim, g)
-        return t
+        (the innermost axis first).  The gradient is reduce-scattered back
+        over the axes in ``summed`` (all of ``axes`` by default: each
+        rank's a partial sum) and this rank's block is taken over the
+        others."""
+        axes = [a for a in axes if mesh_axes(self.mesh)[a] > 1]
+        if not axes:
+            return t
+        summed = axes if summed is None else summed
+        return _Gather.apply(
+            t, dim, self._groups(axes), tuple(a in summed for a in axes))
 
     def scatter(self, t, axes, dim: int = 0):
         """``t`` summed over ``axes``, this rank keeping its block of
-        ``dim`` as ``Shard(dim)`` on those axes places it."""
-        for g in self._groups(axes):
-            t = reduce_scatter(t, dim, g)
-        return t
+        ``dim`` as ``Shard(dim)`` on those axes places it; the gradient
+        all-gathered."""
+        groups = self._groups(axes)
+        return _Scatter.apply(t, dim, groups) if groups else t
+
+    def to_d_blocks(self, t, axes):
+        """(R, D): this rank's block of R rows (``axes`` split the rows) ->
+        (P·R, D/P): every rank's rows, in order, and this rank's block of
+        D as ``axes`` split it (an all-to-all over each axis).  The
+        gradient goes back the other way (:meth:`to_row_blocks`)."""
+        groups = self._groups(axes)
+        if not groups:
+            return t
+        n = math.prod(g.size() for g in groups)
+        return _Trade.apply(t, groups, t.shape[1] // n, False)
+
+    def to_row_blocks(self, t, axes):
+        """The inverse of :meth:`to_d_blocks`: (P·R, D/P) -> (R, D)."""
+        groups = self._groups(axes)
+        if not groups:
+            return t
+        return _Trade.apply(t, groups, t.shape[1], True)
 
     def local(self, fn, outs, ins, grads=None):
         """``fn`` on each rank's local shards (``local_map``): ``outs``

@@ -25,7 +25,9 @@ counterpart of the JAX package's ``launch/hlo.py``, and the mesh half of
   (e) ``run_cell`` at 16x16 and 2x16x16 and the ``--mesh`` CLI: the LM
       cells and every GNN and SASRec cell; the 14 decode records at full
       depth (the sharded decode) each within 80 GB and within the
-      reference's own dry-run figures (``DECODE_REFERENCE``);
+      reference's own dry-run figures (``DECODE_REFERENCE``); the seven
+      train and prefill records at 16x16, full depth, within the
+      reference's (``TRAIN_PREFILL_REFERENCE``);
   and ``FilledCollectives`` writes every collective's output.
 
 A fake group is process-wide, so every trace runs in a spawned process of
@@ -61,11 +63,9 @@ RUNS = [(sizes, arch) for arch in ("qwen3-4b", "mixtral-8x22b")
         for sizes in ((2, 2), (1, 4), (4, 1))]
 # (c): the port's per-device FLOPs outside attention against the
 # reference's.  Prefill computes the same products on both sides (equal to
-# REL_PREFILL).  In training the port's DTensor plan gathers the weight of
-# two backward products over the model axis (the gradients through the
-# SwiGLU down projection and the attention output projection), each rank
-# computing them whole, where GSPMD keeps them split: the port counts some
-# 5% more (REL_TRAIN).
+# REL_PREFILL).  In training every projection's backward runs on the
+# rank's weight blocks, as GSPMD keeps them (qwen3-4b's count equals the
+# reference's); REL_TRAIN bounds the decode and graph cells' too.
 REL_PREFILL, REL_TRAIN = 1e-6, 0.06
 
 
@@ -307,6 +307,29 @@ DECODE_REFERENCE = {
         (1130818784, 40693620, 565223424),
 }
 PEAK_OVER_REF, WIRE_OVER_REF, FLOPS_OVER_REF = 1.5, 1.0, 1.25
+# the reference's train and prefill records at 16x16, which its own
+# dry-run raises on: ``scripts/reference_mesh_figures.py`` (its
+# ``build_lowerable`` compiled on a 16x16 mesh of 256 host devices, Auto
+# axes): argument + temp bytes (+ output bytes for prefill, whose cache is
+# an output), ``analyze_hlo``'s wire and FLOPs a device, held as
+# ``DECODE_REFERENCE``'s are
+TRAIN_PREFILL_REFERENCE = {
+    ("llama4-scout-17b-a16e", "train_4k", "16x16"):
+        (213990665356, 3616465012291.0, 644961817067520.0),
+    ("mixtral-8x22b", "train_4k", "16x16"):
+        (324217336156, 9866373778422.0, 1616201562193920.0),
+    ("qwen3-4b", "train_4k", "16x16"):
+        (72350953516, 400863261714.5, 143381577596928.0),
+    ("gemma3-12b", "train_4k", "16x16"):
+        (142857524268, 854090476803.5, 348510826266624.0),
+    ("qwen2.5-32b", "train_4k", "16x16"):
+        (256225154764, 1507685957285.0, 983955532677120.0),
+    ("llama4-scout-17b-a16e", "prefill_32k", "16x16"):
+        (44106637056, 1217681136640.0, 400463009300480.0),
+    ("mixtral-8x22b", "prefill_32k", "16x16"):
+        (80217759320, 3486735400960.0, 571831996121088.0),
+}
+TRAIN_PREFILL_CELLS = list(TRAIN_PREFILL_REFERENCE)
 DECODE_CELLS = [(a, s, m) for a, s in (
     ("gemma3-12b", "decode_32k"), ("qwen2.5-32b", "decode_32k"),
     ("qwen3-4b", "decode_32k"), ("llama4-scout-17b-a16e", "decode_32k"),
@@ -359,6 +382,13 @@ RECORD_GROUPS = (
     {**_graph_records("16x16", ("gin-tu", "schnet", "mace")),
      **_graph_records("2x16x16", ("gin-tu", "sasrec"))},
     _graph_records("2x16x16", ("gcn-cora", "schnet", "mace")),
+    # (e)'s train and prefill records at full depth, in two processes
+    {("full",) + c: c[:2] + (c[2], None) for c in TRAIN_PREFILL_CELLS
+     if c[0] in ("llama4-scout-17b-a16e", "qwen3-4b")
+     or c[1] == "prefill_32k"},
+    {("full",) + c: c[:2] + (c[2], None) for c in TRAIN_PREFILL_CELLS
+     if c[0] not in ("llama4-scout-17b-a16e", "qwen3-4b")
+     and c[1] == "train_4k"},
     # (c)'s decode records at (2, 2), then (e)'s 14 at full depth
     {("ref", "decode_32k"): ("qwen3-4b", "decode_32k",
                              MeshShape((2, 2), AXES), TWO),
@@ -548,6 +578,30 @@ def test_decode_records_fit_a_device(work, cell):
     assert rec["flops"] <= FLOPS_OVER_REF * flops
     assert set(rec["collectives"]["groups"]) <= {"pod", "data", "model"}
     assert rec["collectives"]["ops"].get("all-to-all", 0) == 0
+
+
+@pytest.mark.parametrize("cell", TRAIN_PREFILL_CELLS, ids="-".join)
+def test_train_and_prefill_records_keep_the_reference_placements(work,
+                                                                  cell):
+    """Each LM train and prefill record at 16x16, full depth, against the
+    reference's (``TRAIN_PREFILL_REFERENCE``): the rank holds its
+    parameter (and AdamW) shards, the experts and the table stay split,
+    and its peak, wire and FLOPs are within ``PEAK_OVER_REF``,
+    ``WIRE_OVER_REF`` and ``FLOPS_OVER_REF`` of the reference's."""
+    rec = work[("full",) + cell]
+    peak, wire, flops = TRAIN_PREFILL_REFERENCE[cell]
+    print(json.dumps({"cell": "/".join(cell), "peak": rec["peak_bytes"],
+                      "ref_peak": peak,
+                      "wire": rec["collectives"]["wire_bytes"],
+                      "ref_wire": wire, "flops": rec["flops"],
+                      "ref_flops": flops}))
+    assert rec["kind"] == cell[1].split("_")[0] and rec["mesh"] == cell[2]
+    assert rec["param_bytes"] == rec["placement_bytes"]["param_bytes"] > 0
+    assert rec["opt_bytes"] == rec["placement_bytes"]["opt_bytes"]
+    assert rec["peak_bytes"] <= PEAK_OVER_REF * peak
+    assert rec["collectives"]["wire_bytes"] <= WIRE_OVER_REF * wire
+    assert rec["flops"] <= FLOPS_OVER_REF * flops
+    assert set(rec["collectives"]["groups"]) <= {"data", "model"}
 
 
 def _gin_by_design(shape_name, chips=4):

@@ -1,12 +1,19 @@
 """Sharding: the port's DTensor placements against the JAX package's
 ``PartitionSpec``s, and the sharded LM step in 2 and 4 ``gloo`` processes
-on the CPU against the JAX package's own sharded step (mixtral, with and
-without ``moe_local_dispatch``, on 4 host devices in a subprocess) and,
-with the global dispatch, against the unsharded port on the same batch;
-and the sharded decode (weight-stationary: no parameter or cache shard
-leaves its rank) in 2 and 4 ``gloo`` processes against the unsharded port
-and the reference's ``lm_decode_step`` jitted with its in-shardings on 4
-host devices in a subprocess.
+on the CPU against the JAX package's own sharded step (mixtral and
+llama4, with and without ``moe_local_dispatch``, on 4 host devices in a
+subprocess) and, with the global dispatch (or the per-shard one on one
+data shard; also traded over two data axes), against the unsharded port
+on the same batch; the MoE prefills against the unsharded port; the
+attention shared among a model axis's ranks by rows (5 heads over 2) and
+by kv-head groups and rows (6 heads in 2 groups over 4, also against the
+reference's sharded prefill and step); the collectives of (2, 2) train
+steps (``LocalCounter``: no whole expert weight, expert f or table
+moves); and the sharded decode
+(weight-stationary: no parameter or cache shard leaves its rank) in 2
+and 4 ``gloo`` processes against the unsharded port and the reference's
+``lm_decode_step`` jitted with its in-shardings on 4 host devices in a
+subprocess.
 
 A reference spec translates to placements by the rule of
 ``launch/sharding.py``: on each mesh dimension ``Shard(d)`` where tensor
@@ -20,8 +27,12 @@ reference's.
 
 Tolerances, stated before measuring: against the unsharded port, every
 metric, parameter and first moment within ``RTOL`` (1e-5) of the
-tensor's largest |element|; against the reference's sharded step, those
-of ``tests/test_torch_moe_lm.py`` for one f32 step: the metrics within
+tensor's largest |element|, but the parameters of llama4's f32 runs and
+of ``GROUPED_HEADS``' run within ``RTOL`` of the model's largest
+|parameter| (``MODEL_SCALE_ARCHS``; their float64 runs, and the
+``ODD_HEADS`` runs, in float64, hold each tensor's own); against the
+reference's sharded step, those of
+``tests/test_torch_moe_lm.py`` for one f32 step: the metrics within
 1e-5 relative, each first moment (a tenth of the clipped gradient) within
 1e-4 of its largest |element|, each parameter within 2 lr.  The sharded
 decode's logits, new keys and values within ``RTOL`` of each tensor's
@@ -191,32 +202,74 @@ def _cfg(arch, local=False, remat="none", n_micro=1):
 
 
 # the sharded runs: (mesh sizes, arch, moe_local_dispatch, remat,
-# microbatches)
-RUNS_2 = [((2, 1), "qwen3-4b", False, "none", 1),
-          ((2, 1), "mixtral-8x22b", False, "dots", 1),
-          ((1, 2), "mixtral-8x22b", False, "none", 1),
-          ((2, 1), "mixtral-8x22b", True, "none", 1),
-          ((1, 2), "mixtral-8x22b", True, "none", 1)]
-RUNS_4 = [((2, 2), "qwen3-4b", False, "full", 1),
-          ((2, 2), "mixtral-8x22b", False, "none", 2),
-          ((2, 2), "mixtral-8x22b", True, "dots", 1)]
-MIXTRAL_RUNS = [r for r in RUNS_2 + RUNS_4 if r[1] == "mixtral-8x22b"]
-GLOBAL_RUNS = [r for r in RUNS_2 + RUNS_4 if not r[2]]
+# microbatches, dtype); a float64 run's parameters are the seed-0 float32
+# ones, cast
+LLAMA4 = "llama4-scout-17b-a16e"
+MOE_ARCHS = ("mixtral-8x22b", LLAMA4)
+F32, F64 = "float32", "float64"
+RUNS_2 = [((2, 1), "qwen3-4b", False, "none", 1, F32),
+          ((2, 1), "mixtral-8x22b", False, "dots", 1, F32),
+          ((1, 2), "mixtral-8x22b", False, "none", 1, F32),
+          ((2, 1), "mixtral-8x22b", True, "none", 1, F32),
+          ((1, 2), "mixtral-8x22b", True, "none", 1, F32),
+          ((1, 2), LLAMA4, True, "none", 1, F32),
+          ((1, 2), LLAMA4, True, "none", 1, F64)]
+RUNS_4 = [((2, 2), "qwen3-4b", False, "full", 1, F32),
+          ((2, 2), "mixtral-8x22b", False, "none", 2, F32),
+          ((2, 2), "mixtral-8x22b", True, "dots", 1, F32),
+          ((2, 2), LLAMA4, False, "full", 1, F32),
+          ((2, 2), LLAMA4, False, "full", 1, F64)]
+# the archs whose f32 runs hold each parameter within ``RTOL`` of the
+# model's largest |parameter| (not of its own): llama4.  Its first moments
+# (its gradients) hold ``RTOL`` of their own, but one AdamW step (m̂ /
+# (sqrt(v̂) + eps), its clipped gradients down to 25 eps) turns their
+# rounding into some 5e-5 of layer 3's zero-initialized norm scales: a
+# parameter whose gradient is rounding noise moves by lr times that
+# noise's sign.  Its float64 runs hold every tensor to its own largest
+MODEL_SCALE_ARCHS = (LLAMA4,)
+# the MoE runs, each held to the reference's sharded step
+MOE_RUNS = [r for r in RUNS_2 + RUNS_4 if r[1] in MOE_ARCHS]
+# the runs held to the unsharded port: the global dispatch, and the
+# per-shard dispatch on one data shard (one shard: the same dispatch)
+GLOBAL_RUNS = [r for r in RUNS_2 + RUNS_4 if not r[2] or r[0][0] == 1]
+
+
+def _model(arch, local=False, remat="none", n_micro=1, dtype=F32,
+           **overrides):
+    """The port's seed-0 model on the CPU, in ``dtype``."""
+    cfg = dataclasses.replace(_cfg(arch, local, remat, n_micro), **overrides)
+    if dtype == F32:
+        return tr.TransformerLM(cfg, device="cpu")
+    cfg = dataclasses.replace(cfg, dtype=torch.float64)
+    return tr.TransformerLM(cfg, device="cpu").to(torch.float64)
 
 
 def _run_id(run):
-    sizes, arch, local, remat, n_micro = run
+    sizes, arch, local, remat, n_micro, dtype = run
     return (f"{sizes[0]}x{sizes[1]}-{arch}{'-local' if local else ''}"
-            f"-remat_{remat}{f'-micro{n_micro}' if n_micro > 1 else ''}")
+            f"-remat_{remat}{f'-micro{n_micro}' if n_micro > 1 else ''}"
+            f"{'-f64' if dtype == F64 else ''}")
+
+
+def _mesh_id(sizes):
+    return "x".join(map(str, sizes))
 
 
 def _run_file(run):
+    sizes, arch, local, *_, dtype = run
+    return f"{sizes}-{arch}-{local}-{dtype}.pt"
+
+
+def _reference_file(run):
+    """The reference's step of ``run`` (f32 whatever the run's dtype)."""
     sizes, arch, local = run[:3]
-    return f"{sizes}-{arch}-{local}.pt"
+    return f"jax-{sizes}-{arch}-{local}.pt"
 
 
 # the reference's sharded ``lm_train_step`` on 4 host devices, from the
-# port's seed-0 parameters, for each run in argv[2] (JSON); jitted with
+# port's seed-0 parameters, for each job in argv[2] (JSON: the output file,
+# mesh sizes, arch, moe_local_dispatch, microbatches, config overrides and
+# whether to run the sharded ``lm_prefill_step`` first); jitted with
 # ``xla_allow_excess_precision`` off, as ``tests/test_torch_moe_lm.py``
 REFERENCE_SCRIPT = textwrap.dedent("""
     import os
@@ -241,13 +294,13 @@ REFERENCE_SCRIPT = textwrap.dedent("""
     out_dir, runs, batch = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
     saved = np.load(batch)
     tokens, labels = jnp.asarray(saved["tokens"]), jnp.asarray(saved["labels"])
-    for sizes, arch, local, remat, n_micro in runs:
+    for name, sizes, arch, local, n_micro, overrides, prefill in runs:
         cfg = dataclasses.replace(
             registry.get(arch).smoke_config, dtype=torch.float32,
-            remat="none", n_microbatches=n_micro)
+            remat="none", n_microbatches=n_micro, **overrides)
         jcfg = dataclasses.replace(
             jreg.get(arch).smoke_config, dtype=jnp.float32,
-            moe_local_dispatch=local, n_microbatches=n_micro)
+            moe_local_dispatch=local, n_microbatches=n_micro, **overrides)
         params = jax.tree.map(jnp.asarray, lm_params_to_reference(
             TransformerLM(cfg, device="cpu")))
         mesh = Mesh(np.array(jax.devices()[:int(np.prod(sizes))])
@@ -257,6 +310,14 @@ REFERENCE_SCRIPT = textwrap.dedent("""
         p_sh = jsh.lm_param_shardings(mesh, params)
         o_sh = {"m": p_sh, "v": p_sh, "step": NamedSharding(mesh, P())}
         b_sh = jsh.batch_sharding(mesh, 2)
+        found = {}
+        if prefill:
+            found["logits"] = torch.from_numpy(np.asarray(jax.jit(
+                functools.partial(jsteps.lm_prefill_step, jcfg,
+                                  sctx=jtr.ShardCtx(mesh, "data")),
+                in_shardings=(p_sh, b_sh),
+                compiler_options={"xla_allow_excess_precision": False})(
+                    params, tokens)[0]))
         step = jax.jit(functools.partial(
             jsteps.lm_train_step, jcfg, opt_cfg,
             sctx=jtr.ShardCtx(mesh, "data")),
@@ -267,16 +328,25 @@ REFERENCE_SCRIPT = textwrap.dedent("""
         def named(tree):
             return named_lm_params(lm_params_from_reference(
                 cfg, jax.tree.map(np.asarray, tree)))
-        torch.save({"metrics": {k: float(v) for k, v in metrics.items()},
-                    "params": named(new), "m": named(opt["m"])},
-                   os.path.join(out_dir, f"jax-{tuple(sizes)}-{arch}-"
-                                f"{local}.pt"))
+        found.update(metrics={k: float(v) for k, v in metrics.items()},
+                     params=named(new), m=named(opt["m"]))
+        torch.save(found, os.path.join(out_dir, name))
     print("REFERENCE_OK")
 """)
 
 
+def _reference_jobs():
+    """``REFERENCE_SCRIPT``'s jobs: each MoE run's step (one for a run in
+    both dtypes), and ``GROUPED_HEADS``' prefill and step."""
+    jobs = {_reference_file(r): [_reference_file(r), r[0], r[1], r[2],
+                                 r[4], {}, False] for r in MOE_RUNS}
+    return list(jobs.values()) + [
+        ["jax-grouped-heads.pt", GROUPED_MESH, "qwen3-4b", False, 1,
+         GROUPED_HEADS, True]]
+
+
 def _start_reference(out_dir):
-    """The reference's sharded steps of ``MIXTRAL_RUNS``, started in a
+    """The reference's sharded steps of ``_reference_jobs``, started in a
     subprocess (4 host devices must be set before JAX starts)."""
     batch = os.path.join(out_dir, "batch.npz")
     tokens, labels = _batch(_cfg("mixtral-8x22b").vocab)
@@ -287,7 +357,7 @@ def _start_reference(out_dir):
         [src] + [p for p in [env.get("PYTHONPATH")] if p])
     return subprocess.Popen(
         [sys.executable, "-c", REFERENCE_SCRIPT, out_dir,
-         json.dumps(MIXTRAL_RUNS), batch], env=env,
+         json.dumps(_reference_jobs()), batch], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -298,11 +368,11 @@ def _full(t):
 def _lm_runs(rank, world, out_dir, runs):
     from torch.distributed.tensor.debug import CommDebugMode
     for run in runs:
-        sizes, arch, local, remat, n_micro = run
+        sizes, arch, local, remat, n_micro, dtype = run
         mesh = lmesh.make_mesh(lmesh.MeshShape(sizes, ("data", "model")),
                                "cpu")
-        cfg = _cfg(arch, local, remat, n_micro)
-        model = tr.TransformerLM(cfg, device="cpu")
+        model = _model(arch, local, remat, n_micro, dtype)
+        cfg = model.cfg
         opt = adamw.init_state(model)
         sctx = tr.ShardCtx(mesh, "data")
         steps.place_lm(model, opt, sctx)
@@ -348,6 +418,132 @@ def _serve_run(rank, out_dir):
              "step_logits": _full(step_logits), "k_after": _full(new["k"])}
     if rank == 0:
         torch.save(found, os.path.join(out_dir, "serve.pt"))
+
+
+# the MoE prefills (global dispatch) held to the unsharded port
+PREFILL_MESHES = [(1, 2), (2, 2)]
+
+
+def _prefill_runs(rank, world, out_dir):
+    """mixtral's and llama4's sharded prefill on each mesh of
+    ``PREFILL_MESHES`` of ``world`` ranks: rank 0 writes the logits and
+    the cache's k and v whole."""
+    for sizes in [s for s in PREFILL_MESHES if math.prod(s) == world]:
+        mesh = lmesh.make_mesh(lmesh.MeshShape(sizes, ("data", "model")),
+                               "cpu")
+        sctx = tr.ShardCtx(mesh, "data")
+        for arch in MOE_ARCHS:
+            model = tr.TransformerLM(_cfg(arch), device="cpu")
+            steps.place_lm(model, None, sctx)
+            tokens, _ = _batch(model.cfg.vocab)
+            logits, cache = steps.lm_prefill_step(model, tokens, sctx=sctx)
+            found = {"logits": _full(logits), "k": _full(cache["k"]),
+                     "v": _full(cache["v"])}
+            if rank == 0:
+                torch.save(found, os.path.join(
+                    out_dir, f"prefill-{_mesh_id(sizes)}-{arch}.pt"))
+
+
+# qwen3's smoke config with 5 query heads and 1 kv head: the heads split
+# over no model axis of 2, so its ranks share the attention by rows (in
+# float64: its f32 step misses ``RTOL`` on zero-initialized norm scales
+# as llama4's does)
+ODD_HEADS = {"n_heads": 5, "n_kv_heads": 1}
+ODD_MESHES = [(1, 2), (2, 2)]
+# and with 6 query heads in 2 kv-head groups over a model axis of 4 (f32):
+# neither splits, so the ranks share the attention by kv-head groups (2)
+# and rows (2), as llama4's and qwen2.5's 40 heads in 8 groups do over 16
+# ranks at 16x16 (8 groups, 2 row blocks)
+GROUPED_HEADS = {"n_heads": 6, "n_kv_heads": 2}
+GROUPED_MESH = (1, 4)
+# (file, heads, mesh sizes, dtype)
+HEAD_CASES = [(f"odd-heads-{_mesh_id(s)}.pt", ODD_HEADS, s, F64)
+              for s in ODD_MESHES] + [
+    ("grouped-heads.pt", GROUPED_HEADS, GROUPED_MESH, F32)]
+
+
+def _heads_runs(rank, world, out_dir):
+    """A prefill and a train step of each ``HEAD_CASES`` case of ``world``
+    ranks: rank 0 writes the prefill's logits, the metrics, the
+    parameters and the first moments whole."""
+    for name, heads, sizes, dtype in HEAD_CASES:
+        if math.prod(sizes) != world:
+            continue
+        mesh = lmesh.make_mesh(lmesh.MeshShape(sizes, ("data", "model")),
+                               "cpu")
+        sctx = tr.ShardCtx(mesh, "data")
+        model = _model("qwen3-4b", dtype=dtype, **heads)
+        cfg = model.cfg
+        opt = adamw.init_state(model)
+        steps.place_lm(model, opt, sctx)
+        tokens, labels = _batch(cfg.vocab)
+        logits, _ = steps.lm_prefill_step(model, tokens, sctx=sctx)
+        metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt,
+                                      tokens, labels, sctx=sctx)
+        found = {"metrics": metrics, "logits": _full(logits),
+                 "params": {n: _full(p.detach())
+                            for n, p in model.named_parameters()},
+                 "m": {n: _full(t) for n, t in opt["m"].items()}}
+        if rank == 0:
+            torch.save(found, os.path.join(out_dir, name))
+
+
+# mixtral's global dispatch over two data axes, (pod, data, model) =
+# (2, 2, 1): its tokens traded for d blocks over both
+POD_MESH = (2, 2, 1)
+
+
+def _pod_run(rank, out_dir):
+    """One train step of mixtral's global dispatch on ``POD_MESH``: rank 0
+    writes the metrics, the parameters and the first moments whole."""
+    mesh = lmesh.make_mesh(_decode_mesh(POD_MESH), "cpu")
+    sctx = tr.ShardCtx(mesh, ("pod", "data"))
+    model = _model("mixtral-8x22b")
+    opt = adamw.init_state(model)
+    steps.place_lm(model, opt, sctx)
+    tokens, labels = _batch(model.cfg.vocab)
+    metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt, tokens,
+                                  labels, sctx=sctx)
+    found = {"metrics": metrics,
+             "params": {n: _full(p.detach())
+                        for n, p in model.named_parameters()},
+             "m": {n: _full(t) for n, t in opt["m"].items()}}
+    if rank == 0:
+        torch.save(found, os.path.join(out_dir, "pod.pt"))
+
+
+# the (2, 2) train steps whose collectives ``LocalCounter`` records: the
+# smoke configs with the experts' f at 96 (no other dimension of the step
+# is 96, so a collective's shape shows an expert's whole f)
+COUNTED_F = 96
+TRAIN_COUNTED = [("mixtral-8x22b", False), ("mixtral-8x22b", True),
+                 (LLAMA4, False)]
+
+
+def _train_counted(rank, out_dir):
+    """One (2, 2) train step of each ``TRAIN_COUNTED`` case under
+    ``LocalCounter``: each collective's kind, result shapes and site."""
+    from repro_torch.launch.collectives import LocalCounter
+    mesh = lmesh.make_mesh(lmesh.MeshShape((2, 2), ("data", "model")),
+                           "cpu")
+    sctx = tr.ShardCtx(mesh, "data")
+    found = {}
+    for arch, local in TRAIN_COUNTED:
+        cfg = dataclasses.replace(_cfg(arch, local), moe_d_ff=COUNTED_F)
+        model = tr.TransformerLM(cfg, device="cpu")
+        opt = adamw.init_state(model)
+        steps.place_lm(model, opt, sctx)
+        tokens, labels = _batch(cfg.vocab)
+        counter = LocalCounter()
+        with counter:
+            metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt,
+                                          tokens, labels, sctx=sctx)
+        found[f"{arch}-{local}"] = {
+            "collectives": [(d["kind"], d["shapes"], d["site"])
+                            for d in counter.details],
+            "loss": float(metrics["loss"])}
+    if rank == 0:
+        torch.save(found, os.path.join(out_dir, "train-counted.pt"))
 
 
 def _restore_run(rank, out_dir):
@@ -399,7 +595,8 @@ def _one_rank(out_dir):
     for bit, with the global and the per-shard dispatch alike."""
     mesh = lmesh.make_mesh(lmesh.MeshShape((1, 1), ("data", "model")), "cpu")
     sctx = tr.ShardCtx(mesh, "data")
-    for arch, local in (("qwen3-4b", False), ("mixtral-8x22b", True)):
+    for arch, local in (("qwen3-4b", False), ("mixtral-8x22b", True),
+                        ("mixtral-8x22b", False), (LLAMA4, False)):
         cfg = _cfg(arch, local, "full")
         plain = tr.TransformerLM(cfg, device="cpu")
         shard = tr.TransformerLM(cfg, device="cpu")
@@ -444,6 +641,8 @@ def _worker(rank, world, port, out_dir, runs, extra):
     try:
         _lm_runs(rank, world, out_dir, runs)
         _decode_runs(rank, world, out_dir)
+        _prefill_runs(rank, world, out_dir)
+        _heads_runs(rank, world, out_dir)
         if extra == "one_rank":
             _one_rank(out_dir)
         elif extra == "restore":
@@ -451,6 +650,8 @@ def _worker(rank, world, port, out_dir, runs, extra):
         elif extra == "serve":
             _serve_run(rank, out_dir)
             _decode_counted(rank, out_dir)
+            _train_counted(rank, out_dir)
+            _pod_run(rank, out_dir)
     finally:
         faulthandler.cancel_dump_traceback_later()
         stacks.close()
@@ -478,10 +679,6 @@ DECODE_COUNTED = [("qwen3-4b", 2, 16, 19), ("mixtral-8x22b", 2, 16, 21)]
 def _decode_id(case):
     arch, B, S, length = case
     return f"{arch}-B{B}-S{S}-len{length}"
-
-
-def _mesh_id(sizes):
-    return "x".join(map(str, sizes))
 
 
 def _decode_mesh(sizes):
@@ -691,10 +888,10 @@ def sharded(tmp_path_factory):
     return out
 
 
-def _unsharded(run):
+def _unsharded(run, **overrides):
     """The one-process port's step on the same global batch."""
-    model = tr.TransformerLM(_cfg(run[1], remat=run[3], n_micro=run[4]),
-                             device="cpu")
+    model = _model(run[1], remat=run[3], n_micro=run[4], dtype=run[5],
+                   **overrides)
     opt = adamw.init_state(model)
     tokens, labels = _batch(model.cfg.vocab)
     metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt, tokens,
@@ -702,57 +899,34 @@ def _unsharded(run):
     return metrics, dict(model.named_parameters()), opt["m"]
 
 
-def _close(got, want, what):
+def _close(got, want, what, scale=None):
+    """|got - want| within ``RTOL`` of ``scale`` (want's largest |element|
+    by default)."""
     want = want.detach()
-    scale = max(float(want.abs().max()), 1e-30)
+    if scale is None:
+        scale = float(want.abs().max())
+    scale = max(scale, 1e-30)
     err = float((got - want).abs().max())
     assert err <= RTOL * scale, f"{what}: {err} > {RTOL} * {scale}"
 
 
-def _check_collectives(got, sizes):
-    counts = got["counts"]
-    assert "Shard" in got["placements"]["layers.0.attn.wq"]
-    if counts is None:   # a microbatched step (``_lm_runs``)
-        return
-    assert counts.get("all_gather_into_tensor", 0) > 0, counts
-    assert counts.get("all_reduce", 0) > 0, counts
-    assert not any("all_to_all" in k for k in counts), counts
-    assert set(counts) <= {"all_gather_into_tensor", "reduce_scatter_tensor",
-                           "all_reduce", "broadcast_", "scatter_"}, counts
-    if sizes == (2, 2):
-        assert counts.get("reduce_scatter_tensor", 0) > 0, counts
-
-
-@pytest.mark.parametrize("run", GLOBAL_RUNS, ids=_run_id)
-def test_sharded_step_equals_the_unsharded_port(sharded, run):
-    """Loss, nll, aux, grad norm, every parameter and AdamW's first moment
-    after one step on a (2,1), (1,2) or (2,2) mesh, with the global MoE
-    dispatch, equal the one-process port's on the same batch within
-    ``RTOL`` of each tensor's largest value; the step's collectives are
-    the ones DTensor needs (CommDebugMode): all-gathers of the
-    ZeRO-sharded weights, reduce-scatters and all-reduces of the
-    gradients, the loss and the global norm, and no all-to-all."""
-    got = torch.load(os.path.join(sharded, _run_file(run)))
-    metrics, params, m = _unsharded(run)
+def _close_step(got, metrics, params, m, model_scale=False):
+    """A sharded step against the unsharded port's: the metrics and first
+    moments within ``RTOL`` of each tensor's largest |element|, the
+    parameters of each tensor's or (``model_scale``) the model's largest
+    |parameter|."""
     for key in ("loss", "nll", "aux", "grad_norm", "lr"):
         _close(got["metrics"][key], metrics[key], key)
     assert set(got["params"]) == set(params)
+    scale = max(float(p.detach().abs().max()) for p in params.values())
     for n, p in params.items():
-        _close(got["params"][n], p, n)
+        _close(got["params"][n], p, n, scale if model_scale else None)
         _close(got["m"][n], m[n], f"m {n}")
-    _check_collectives(got, run[0])
 
 
-@pytest.mark.parametrize("run", MIXTRAL_RUNS, ids=_run_id)
-def test_sharded_step_equals_the_reference_sharded_step(sharded, run):
-    """mixtral's sharded step, with the global and the per-shard MoE
-    dispatch, against the reference's ``lm_train_step`` under its
-    ``ShardCtx`` on a mesh of the same shape, from the same parameters on
-    the same global batch: the same tokens go to each dispatch, so the
-    same ones are dropped; tolerances in the module's docstring."""
-    sizes, arch, local = run[:3]
-    got = torch.load(os.path.join(sharded, _run_file(run)))
-    want = torch.load(os.path.join(sharded, f"jax-{_run_file(run)}"))
+def _close_to_reference(got, want):
+    """A sharded step against the reference's, within the module
+    docstring's tolerances."""
     for key in ("loss", "nll", "aux", "grad_norm", "lr"):
         np.testing.assert_allclose(float(got["metrics"][key]),
                                    want["metrics"][key], rtol=1e-5,
@@ -764,7 +938,58 @@ def test_sharded_step_equals_the_reference_sharded_step(sharded, run):
         scale = max(float(want["m"][n].abs().max()), 1e-30)
         err = float((got["m"][n] - want["m"][n]).abs().max())
         assert err <= 1e-4 * scale, f"m {n}: {err} > 1e-4 * {scale}"
-    _check_collectives(got, sizes)
+
+
+def _check_collectives(got, run):
+    """The step's collectives (``CommDebugMode``'s counts): all-reduces,
+    all-gathers exactly where "data" has 2 ranks, reduce-scatters on (2,
+    2); an all-to-all exactly where the global MoE dispatch trades tokens
+    over 2 data ranks."""
+    sizes, arch, local = run[:3]
+    counts = got["counts"]
+    assert "Shard" in got["placements"]["layers.0.attn.wq"]
+    if counts is None:   # a microbatched step (``_lm_runs``)
+        return
+    # weights are gathered over the data axis only, never over "model"
+    assert (counts.get("all_gather_into_tensor", 0) > 0) == (sizes[0] > 1), \
+        counts
+    assert counts.get("all_reduce", 0) > 0, counts
+    trades = arch in MOE_ARCHS and not local and sizes[0] > 1
+    assert (counts.get("all_to_all_single", 0) > 0) == trades, counts
+    assert set(counts) <= {"all_gather_into_tensor", "reduce_scatter_tensor",
+                           "all_reduce", "all_to_all_single", "broadcast_",
+                           "scatter_"}, counts
+    if sizes == (2, 2):
+        assert counts.get("reduce_scatter_tensor", 0) > 0, counts
+
+
+@pytest.mark.parametrize("run", GLOBAL_RUNS, ids=_run_id)
+def test_sharded_step_equals_the_unsharded_port(sharded, run):
+    """Loss, nll, aux, grad norm, every parameter and AdamW's first moment
+    after one step on a (2,1), (1,2) or (2,2) mesh, with the global MoE
+    dispatch (or the per-shard one on one data shard), equal the
+    one-process port's on the same batch within ``RTOL`` of each tensor's
+    largest value; the step's collectives (CommDebugMode): all-gathers of
+    the ZeRO-sharded weights' data blocks, reduce-scatters and all-reduces
+    of the gradients, the partial products, the loss and the global norm,
+    and an all-to-all only where the global dispatch trades tokens."""
+    got = torch.load(os.path.join(sharded, _run_file(run)))
+    _close_step(got, *_unsharded(run),
+                model_scale=run[1] in MODEL_SCALE_ARCHS and run[5] == F32)
+    _check_collectives(got, run)
+
+
+@pytest.mark.parametrize("run", MOE_RUNS, ids=_run_id)
+def test_sharded_step_equals_the_reference_sharded_step(sharded, run):
+    """mixtral's and llama4's sharded steps, with the global and the
+    per-shard MoE dispatch, against the reference's ``lm_train_step`` under its
+    ``ShardCtx`` on a mesh of the same shape, from the same parameters on
+    the same global batch: the same tokens go to each dispatch, so the
+    same ones are dropped; tolerances in the module's docstring."""
+    got = torch.load(os.path.join(sharded, _run_file(run)))
+    _close_to_reference(got, torch.load(os.path.join(
+        sharded, _reference_file(run))))
+    _check_collectives(got, run)
 
 
 def test_one_rank_step_is_bit_equal_to_the_plain_port(sharded):
@@ -781,7 +1006,8 @@ def test_local_dispatch_differs_from_the_global_one(sharded):
     the local dispatch's two data shards, so the aux losses agree."""
     def aux(sizes, local):
         return float(torch.load(os.path.join(sharded, _run_file(
-            (sizes, "mixtral-8x22b", local))))["metrics"]["aux"])
+            (sizes, "mixtral-8x22b", local, "none", 1, F32))))[
+                "metrics"]["aux"])
     assert aux((2, 1), True) != aux((2, 1), False)
     np.testing.assert_allclose(aux((2, 2), True), aux((2, 2), False),
                                rtol=RTOL)
@@ -803,6 +1029,103 @@ def test_sharded_prefill_and_decode_equal_the_unsharded_port(sharded):
         torch.as_tensor(tokens[:, -1]).long())
     _close(got["step_logits"], step_logits, "decode logits")
     _close(got["k_after"], new["k"], "cache k after decode")
+    # mixtral's and llama4's prefill (the global MoE dispatch on each
+    # rank's expert blocks) on (1, 2) and (2, 2)
+    for arch in MOE_ARCHS:
+        model = tr.TransformerLM(_cfg(arch), device="cpu")
+        logits, cache = steps.lm_prefill_step(model, tokens)
+        for sizes in PREFILL_MESHES:
+            got = torch.load(os.path.join(
+                sharded, f"prefill-{_mesh_id(sizes)}-{arch}.pt"))
+            what = f"{arch} prefill on {_mesh_id(sizes)}"
+            _close(got["logits"], logits, f"{what}: logits")
+            _close(got["k"], cache["k"], f"{what}: k")
+            _close(got["v"], cache["v"], f"{what}: v")
+
+
+def test_global_dispatch_over_two_data_axes(sharded):
+    """mixtral's step on (pod, data, model) = (2, 2, 1), its tokens traded
+    over "pod" and "data": metrics, parameters and first moments equal
+    the unsharded port's within ``RTOL``."""
+    got = torch.load(os.path.join(sharded, "pod.pt"))
+    metrics, params, m = _unsharded(((2, 2), "mixtral-8x22b", False,
+                                     "none", 1, F32))
+    for key in ("loss", "nll", "aux", "grad_norm"):
+        _close(got["metrics"][key], metrics[key], key)
+    for n, p in params.items():
+        _close(got["params"][n], p, n)
+        _close(got["m"][n], m[n], f"m {n}")
+
+
+@pytest.mark.parametrize("sizes", ODD_MESHES, ids=_mesh_id)
+def test_attention_split_where_heads_do_not_divide(sharded, sizes):
+    """5 query heads and 1 kv head over a model axis of 2: the prefill's
+    logits and the step's metrics and parameters equal the unsharded
+    port's within ``RTOL``."""
+    got = torch.load(os.path.join(sharded,
+                                  f"odd-heads-{_mesh_id(sizes)}.pt"))
+    model = _model("qwen3-4b", dtype=F64, **ODD_HEADS)
+    opt = adamw.init_state(model)
+    tokens, labels = _batch(model.cfg.vocab)
+    logits, _ = steps.lm_prefill_step(model, tokens)
+    metrics = steps.lm_train_step(model, adamw.AdamWConfig(), opt, tokens,
+                                  labels)
+    _close(got["logits"], logits, "prefill logits")
+    for key in ("loss", "nll", "grad_norm"):
+        _close(got["metrics"][key], metrics[key], key)
+    for n, p in model.named_parameters():
+        _close(got["params"][n], p, n)
+
+
+def test_attention_split_by_kv_head_groups(sharded):
+    """``GROUPED_HEADS`` on (1, 4), f32: each rank of the model axis
+    computes one kv-head group's attention on half the rows.  Against
+    the unsharded port, the prefill's logits within ``RTOL`` of the
+    largest |logit| and the step by ``_close_step`` (parameters at the
+    model's largest, as llama4's f32 runs: the same zero-initialized norm
+    scales); against the reference's sharded prefill and step on a (1, 4)
+    mesh, the logits within ``RTOL`` of its largest |logit| and the step
+    within the module docstring's tolerances."""
+    assert [tr._attention_split(4, 2, 4, r) for r in range(4)] == [
+        (slice(0, 2), slice(0, 1)), (slice(0, 2), slice(1, 2)),
+        (slice(2, 4), slice(0, 1)), (slice(2, 4), slice(1, 2))]
+    got = torch.load(os.path.join(sharded, "grouped-heads.pt"))
+    model = _model("qwen3-4b", **GROUPED_HEADS)
+    tokens, _ = _batch(model.cfg.vocab)
+    logits, _ = steps.lm_prefill_step(model, tokens)
+    _close(got["logits"], logits, "prefill logits")
+    run = (GROUPED_MESH, "qwen3-4b", False, "none", 1, F32)
+    _close_step(got, *_unsharded(run, **GROUPED_HEADS), model_scale=True)
+    want = torch.load(os.path.join(sharded, "jax-grouped-heads.pt"))
+    _close(got["logits"], want.pop("logits"),
+           "prefill logits against the reference")
+    _close_to_reference(got, want)
+
+
+@pytest.mark.parametrize("case", TRAIN_COUNTED,
+                         ids=lambda c: f"{c[0]}{'-local' if c[1] else ''}")
+def test_sharded_train_step_moves_no_expert_or_table(sharded, case):
+    """Every collective of a (2, 2) train step (``LocalCounter``): no
+    result holds a whole (E, d, f) expert weight, an expert's whole f
+    (``COUNTED_F``, which no other dimension of the step equals) or the
+    whole (V, d) table; the global dispatch trades its tokens by
+    all-to-alls over "data", the per-shard dispatch by none."""
+    arch, local = case
+    got = torch.load(os.path.join(sharded, "train-counted.pt"))[
+        f"{arch}-{local}"]
+    cfg = _cfg(arch)
+    whole_expert = cfg.moe_experts * cfg.d_model * COUNTED_F
+    table = cfg.vocab * cfg.d_model
+    assert got["collectives"], "no collective recorded"
+    assert math.isfinite(got["loss"])
+    for kind, shapes, site in got["collectives"]:
+        for shape in shapes:
+            what = (kind, shape, site)
+            assert math.prod(shape) < min(whole_expert, table), what
+            assert COUNTED_F not in shape, what
+            assert not (cfg.vocab in shape and cfg.d_model in shape), what
+    trades = [c for c in got["collectives"] if c[0] == "all-to-all"]
+    assert bool(trades) == (not local), trades
 
 
 def test_restore_with_shardings_across_meshes(sharded):
